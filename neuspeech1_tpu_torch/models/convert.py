@@ -10,6 +10,9 @@ the walk below is generic: ``nn.Linear`` weights are transposed to
 
 ``save_npz`` writes the ``/``-joined leaf names that
 ``neuspeech1_tpu.models.convert.load_npz`` reads back into a tree.
+``lora_from_params`` / ``params_from_lora`` do the same for adapter trees:
+the JAX package stacks each entry's leaves on ``[L, ...]``, the port keeps a
+list of per-layer entries (``models/lora.py``).
 """
 
 from __future__ import annotations
@@ -117,7 +120,9 @@ def module_from_params(tree: Params, config: WhisperConfig, stem: StemConfig,
                        device="cpu", dtype: Optional[torch.dtype] = None
                        ) -> Whisper:
     """A ``Whisper`` module holding the JAX tree's weights (numpy or torch
-    leaves) on ``device`` in ``dtype`` (default: ``config.dtype``). Raises on
+    leaves) on ``device`` in ``dtype`` (default: ``config.dtype``; pass
+    ``torch.float32`` for a training model's f32 masters, which compute
+    still casts to ``config.dtype``). Every parameter is frozen. Raises on
     any missing, extra or misshapen leaf."""
     model = Whisper(config, stem)
     _fill(model, tree, "params")
@@ -144,3 +149,40 @@ def save_npz(path: str, params: Params) -> None:
 
     walk(params, "")
     np.savez(path, **flat)
+
+
+def lora_from_params(tree: Params, device="cpu") -> Params:
+    """The port's adapter tree from the JAX package's (leaves stacked on
+    ``[L, ...]``, numpy or torch): per part, a list of per-layer entries of
+    f32 tensors on ``device``, values copied exactly."""
+    def split(node, n_layers):
+        if isinstance(node, dict):
+            parts = {k: split(v, n_layers) for k, v in node.items()}
+            return [{k: v[i] for k, v in parts.items()}
+                    for i in range(n_layers)]
+        t = _as_tensor(node).to(device=device, dtype=torch.float32)
+        return [t[i].contiguous() for i in range(n_layers)]
+
+    out: Params = {}
+    for part, sub in tree.items():
+        leaf = sub["layers"]
+        while isinstance(leaf, dict):
+            leaf = next(iter(leaf.values()))
+        out[part] = {"layers": split(sub["layers"], len(leaf))}
+    return out
+
+
+def params_from_lora(lora: Params) -> Params:
+    """The JAX-layout adapter tree (float32 numpy leaves stacked on
+    ``[L, ...]``) of a port adapter tree; the inverse of
+    ``lora_from_params``."""
+    return {part: {"layers": _stack([
+        {k: _lora_numpy(v) for k, v in layer.items()}
+        for layer in sub["layers"]])}
+        for part, sub in lora.items()}
+
+
+def _lora_numpy(node):
+    if isinstance(node, dict):
+        return {k: _lora_numpy(v) for k, v in node.items()}
+    return _numpy(node)

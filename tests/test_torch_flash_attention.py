@@ -1,9 +1,11 @@
-"""The port's flash-attention forward (neuspeech1_tpu_torch/ops/flash_attention.py)
-against the JAX package's Pallas kernel, run in interpret mode on the CPU.
+"""The port's flash attention (neuspeech1_tpu_torch/ops/flash_attention.py),
+forward and backward, against the JAX package's Pallas kernels, run in
+interpret mode on the CPU.
 
-CPU tensors take the port's plain version; the CUDA kernel itself is checked
-on the card by tests/test_torch_cuda_kernels.py and chip_smoke.py."""
+CPU tensors take the port's plain versions; the CUDA kernels themselves are
+checked on the card by tests/test_torch_cuda_kernels.py and chip_smoke.py."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -112,8 +114,10 @@ def test_cuda_tensor_never_takes_plain_path(monkeypatch):
     assert tfa.launches == before
 
 
+# requires_grad: an input that needs a gradient goes through the autograd
+# Function, whose forward validates like the plain call
 REJECTS = {"head_dim": "head dim 48", "dtype": "takes bfloat16",
-           "requires_grad": "inference-only",
+           "requires_grad": "head dim 48",
            "strided_head": "contiguous head dim",
            "causal_shape": "Tq == Tkv", "kv_len": "kv_len=0"}
 
@@ -124,7 +128,7 @@ def test_cuda_path_rejects_what_kernel_does_not_take(monkeypatch, bad):
         raise AssertionError("validation must fail before the launch")
 
     monkeypatch.setattr(tfa, "_library", no_library)
-    d = 48 if bad == "head_dim" else 64
+    d = 48 if bad in ("head_dim", "requires_grad") else 64
     dtype = torch.float32 if bad == "dtype" else torch.bfloat16
     t_kv = 80 if bad == "causal_shape" else 64
     q = _on_cuda(_inputs(64, 64, d=d)[0], dtype)
@@ -133,7 +137,116 @@ def test_cuda_path_rejects_what_kernel_does_not_take(monkeypatch, bad):
         q.requires_grad_(True)
     if bad == "strided_head":  # same shape, head dim not contiguous
         q = q.transpose(2, 3).contiguous().transpose(2, 3)
-    err = NotImplementedError if bad == "requires_grad" else ValueError
-    with pytest.raises(err, match=REJECTS[bad]):
+    with pytest.raises(ValueError, match=REJECTS[bad]):
         tfa.flash_attention_bthd(q, k, v, causal=bad == "causal_shape",
                                  kv_len=0 if bad == "kv_len" else None)
+
+
+def _jax_grads(q, k, v, do, causal, kv_len):
+    def f(q, k, v):
+        return jfa.flash_attention_bthd(q, k, v, causal=causal, kv_len=kv_len)
+
+    o, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return np.asarray(o), [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+def _torch_grads(q, k, v, do, causal, kv_len, fn=None):
+    fn = fn or (lambda q, k, v: tfa.flash_attention_bthd(
+        q, k, v, causal=causal, kv_len=kv_len))
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    o = fn(q, k, v)
+    o.backward(torch.from_numpy(do))
+    return o.detach().numpy(), [x.grad.numpy() for x in (q, k, v)]
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_grads_match_jax_kernel(name):
+    """dq, dk, dv through the port's FlashAttention (plain forward and
+    backward on the CPU) against jax.grad through the Pallas forward and
+    backward kernels, f32, max-abs 1e-5 as for the forward."""
+    case = CASES[name]
+    causal, kv_len = case.get("causal", False), case.get("kv_len")
+    q, k, v = _inputs(case["t_q"], case["t_kv"], seed=5)
+    do = np.random.default_rng(6).standard_normal(q.shape).astype(np.float32)
+    before = tfa.bwd_launches
+    o_ref, g_ref = _jax_grads(q, k, v, do, causal, kv_len)
+    o, grads = _torch_grads(q, k, v, do, causal, kv_len)
+    np.testing.assert_allclose(o, o_ref, rtol=0, atol=ATOL)
+    for got, ref, n in zip(grads, g_ref, "qkv"):
+        np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL, err_msg=n)
+    if kv_len is not None:  # K/V rows past kv_len: exactly zero
+        assert not grads[1][:, kv_len:].any() and not grads[2][:, kv_len:].any()
+        assert grads[1][:, :kv_len].any()
+    assert tfa.bwd_launches == before  # CPU tensors never reach the kernel
+
+
+def test_bwd_plain_bf16_rounding_points():
+    """In bf16 the plain backward rounds where the TPU kernel does: its
+    grads are bf16 and lie within bf16 rounding of an f64 autograd
+    reference on the same rounded inputs."""
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _inputs(40, 40, seed=7))
+    do = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        q.shape).astype(np.float32)).to(torch.bfloat16)
+    o, lse = tfa.flash_attention_bthd_plain(q, k, v, return_lse=True)
+    grads = tfa.flash_attention_bthd_bwd_plain(q, k, v, o, do, lse)
+    q64, k64, v64 = (x.double().requires_grad_() for x in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q64, k64) * 64 ** -0.5
+    o64 = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v64)
+    o64.backward(do.double())
+    for got, x in zip(grads, (q64, k64, v64)):
+        assert got.dtype == torch.bfloat16
+        ref = x.grad
+        # |g| < 4 here: bf16 spacing 2^-6 at most, and p, ds rounded too
+        assert (got.double() - ref).abs().max().item() <= 5e-2
+
+
+def test_bhtd_entry_equals_bthd_entry():
+    """The [B, H, T, D] entry (the JAX package's flash_attention, K5) is
+    the BTHD entry on transposed views: equal outputs and grads."""
+    q, k, v = _inputs(50, 50, seed=9)
+    do = np.random.default_rng(10).standard_normal(q.shape).astype(np.float32)
+
+    def bhtd(q, k, v):
+        return tfa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=True
+                                   ).transpose(1, 2)
+
+    o1, g1 = _torch_grads(q, k, v, do, True, None)
+    o2, g2 = _torch_grads(q, k, v, do, True, None, fn=bhtd)
+    np.testing.assert_array_equal(o1, o2)
+    for a, b in zip(g1, g2):
+        np.testing.assert_array_equal(a, b)
+    ref = np.asarray(jfa.flash_attention(
+        *(jnp.asarray(x.transpose(0, 2, 1, 3)) for x in (q, k, v)),
+        causal=True)).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(o2, ref, rtol=0, atol=ATOL)
+
+
+def test_cuda_backward_never_takes_plain_path(monkeypatch):
+    """Through autograd on CUDA tensors the backward launches the kernel or
+    raises: with its library failing to load it raises, and the plain
+    backward is never called."""
+    def no_plain(*a, **kw):
+        raise AssertionError("plain backward called for a CUDA tensor")
+
+    def no_library():
+        raise RuntimeError("backward kernel library unavailable")
+
+    def fwd_on_cpu(q, k, v, causal, kv_len):  # stands in for the K1 launch
+        o, lse = tfa.flash_attention_bthd_plain(
+            *(torch.Tensor(x) for x in (q, k, v)), causal, kv_len, True)
+        return o.as_subclass(_OnCuda), lse.as_subclass(_OnCuda)
+
+    monkeypatch.setattr(tfa, "_flash_fwd_cuda", fwd_on_cpu)
+    # autograd saves o and lse without the CUDA disguise; the operand
+    # checks have their own test above
+    monkeypatch.setattr(tfa, "_check_cuda_operand", lambda *a: None)
+    monkeypatch.setattr(tfa, "flash_attention_bthd_bwd_plain", no_plain)
+    monkeypatch.setattr(tfa, "_bwd_library", no_library)
+    q, k, v = (_on_cuda(x).requires_grad_() for x in _inputs(64, 64))
+    before = tfa.bwd_launches
+    o = tfa.flash_attention_bthd(q, k, v)
+    with pytest.raises(RuntimeError, match="backward kernel library"):
+        o.sum().backward()
+    assert tfa.bwd_launches == before

@@ -1,4 +1,5 @@
-"""The PyTorch port never imports JAX: the machine it serves on has none."""
+"""The PyTorch port never imports JAX: the machine it serves and trains on
+has none."""
 
 import os
 import subprocess
@@ -42,6 +43,25 @@ SCRIPT = textwrap.dedent("""
                             device="cpu").transcribe(
             np.ones((3, 4, 400), np.float32))
     assert len(texts) == 3, texts
+
+    # one LoRA training step (fold_lora, the 'fc' regime) on the CPU
+    from neuspeech1_tpu_torch.models.convert import module_from_params
+    from neuspeech1_tpu_torch.models.lora import init_lora
+    from neuspeech1_tpu_torch.train import optimizer, trainstep
+    assert {"neuspeech1_tpu_torch.models.lora",
+            "neuspeech1_tpu_torch.train.optimizer",
+            "neuspeech1_tpu_torch.train.trainstep"} <= set(names)
+    model = module_from_params(init_params(config, stem, seed=0), config,
+                               stem, dtype=torch.float32)
+    tx = optimizer.make_optimizer(warmup_steps=0)
+    state, frozen = trainstep.init_train_state(
+        model, init_lora(config, rank=4, alpha=8), tx)
+    step = trainstep.make_train_step(config, stem, tx, fold_lora=True)
+    metrics = step(state, frozen, {
+        "input_features": torch.ones((2, 4, 400)),
+        "labels": torch.ones((2, 5), dtype=torch.long),
+        "decoder_input_ids": torch.ones((2, 5), dtype=torch.long)})
+    assert float(metrics["grad_norm"]) > 0, metrics
     assert "jax" not in sys.modules
     print("modules", len(names))
 """)

@@ -201,3 +201,73 @@ def test_unported_cache_layouts_raise(pair):
                dict(self_t_major=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tw.init_cache(model, enc, max_len=8, **kw)
+
+
+@pytest.mark.parametrize("t", [3, 4, 9])
+def test_decoder_flash_gates(monkeypatch, t):
+    """Teacher forcing follows the JAX package's decoder flash gates: cross
+    attention through flash from decoder_flash_cross_min_q (1) tokens on,
+    causal self-attention from decoder_flash_self_min_q (4 here); cached
+    decode steps never take flash."""
+    config = tiny(decoder_flash_self_min_q=4)
+    stem = StemConfig("base", in_channels=8)
+    model = module_from_params(scaled_params(config, stem), config, stem)
+    calls = []
+
+    def counting(q, k, v, causal=False, kv_len=None, return_lse=False):
+        calls.append((causal, q.shape[1], k.shape[1]))
+        return tfa.flash_attention_bthd(q, k, v, causal, kv_len, return_lse)
+
+    monkeypatch.setattr(tw, "flash_attention_bthd", counting)
+    enc = torch.randn((2, config.max_source_positions, config.d_model))
+    tokens = torch.randint(0, config.vocab_size, (2, t))
+    with torch.no_grad():
+        tw.decoder_apply(model, tokens, enc)
+    n = config.decoder_layers
+    n_self = n if t >= 4 else 0
+    assert calls.count((False, t, config.max_source_positions)) == n
+    assert calls.count((True, t, t)) == n_self
+    assert len(calls) == n + n_self
+    calls.clear()
+    with torch.no_grad():
+        cache = tw.init_cache(model, enc, max_len=t + 1)
+        tw.decoder_apply(model, tokens, enc, cache=cache, cache_index=0)
+    assert calls == []
+
+
+def test_forward_with_decoder_self_flash_matches_jax():
+    """Logits with the decoder's causal self-attention through flash (the
+    self gate set to 4 tokens, 9 given) against the JAX package, whose
+    decoder then runs its Pallas kernel too."""
+    config = tiny(decoder_flash_self_min_q=4)
+    stem = StemConfig("base", in_channels=8)
+    params = scaled_params(config, stem)
+    feats = np.random.default_rng(4).standard_normal(
+        (2, 8, 400)).astype(np.float32)
+    dec = np.random.default_rng(5).integers(0, config.vocab_size, (2, 9))
+    ref = np.asarray(jax.jit(lambda p, f, d: jw.forward(p, f, d, config, stem))(
+        params, feats, dec.astype(np.int32)))
+    with torch.no_grad():
+        ours = tw.forward(module_from_params(params, config, stem),
+                          torch.from_numpy(feats),
+                          torch.from_numpy(dec)).numpy()
+    np.testing.assert_allclose(ours, ref, rtol=RTOL, atol=ATOL)
+
+
+def test_f32_master_model_computes_in_config_dtype():
+    """A model holding f32 masters under a bf16 config computes in bf16
+    (weights cast at each use, as the JAX package casts its masters), and
+    matches the bf16-held model up to the rounding of the casts."""
+    config = dataclasses.replace(tiny(), dtype="bfloat16")
+    stem = StemConfig("base", in_channels=8)
+    params = scaled_params(config, stem)
+    f32 = module_from_params(params, config, stem, dtype=torch.float32)
+    bf16 = module_from_params(params, config, stem)
+    assert f32.encoder.conv2.weight.dtype == torch.float32
+    feats = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (1, 8, 400)).astype(np.float32))
+    dec = torch.randint(0, config.vocab_size, (1, 5))
+    with torch.no_grad():
+        a, b = tw.forward(f32, feats, dec), tw.forward(bf16, feats, dec)
+    assert a.dtype == b.dtype == torch.bfloat16
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
