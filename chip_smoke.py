@@ -11,22 +11,34 @@ each printing JSON lines:
             source, all at once.
 2. kernels  holds each kernel against its plain PyTorch version on the card
             at the serving and training paths' shapes (plus the other masks,
-            head dims and the [B, H, T, D] layout), and times both with CUDA
-            events: K1 (flash forward), K2 (flash backward), K3 (LoRA
-            adapter backward).
+            head dims and layouts), and times both with CUDA events, beside
+            one PyTorch library call of the same function where there is
+            one: K1 (flash forward), K2 (flash backward), K3 (LoRA adapter
+            backward), K6 (decode cross-attention), K7 (decode
+            self-attention step).
 3. slice    serves 16 synthetic [208, 6000] signals in two batches of 8
-            through ``neuspeech1_tpu_torch.serve.Transcriber`` with
-            whisper-base weights made from a seed, counts the kernel's
-            launches in that run, holds the encoder states against the plain
-            attention path, and checks the token ids.
-4. train    runs the LoRA training step (whisper-base, batch 64, r=32, the
+            greedily through ``neuspeech1_tpu_torch.serve.Transcriber`` with
+            whisper-base weights made from a seed, counts the kernels'
+            launches in that run against the encoder and decoder calls,
+            holds the encoder states against the plain attention path, and
+            checks the token ids.
+4. beam     the eval CLI's decode (beam 5, repetition penalty 5.0,
+            no-repeat-ngram 2, batch 16, 128 new tokens) on the same model:
+            latency and utterances/s, launches of K1, K6 and K7 against the
+            encoder, cached decoder and width-1 calls, the cached decoder's
+            logits over 8 teacher-forced steps against the plain versions,
+            and the share of tokens equal to the plain path's and to an
+            f32 reference's.
+5. train    runs the LoRA training step (whisper-base, batch 64, r=32, the
             'fc' fold) from seeded weights: kernel launches per step, the
             schedule's first steps, finite loss, ms per step and samples/s,
             and one step's gradients at batch 4 against the plain versions
             and against an f32 reference, at two states of the adapters.
 
-Then it prints the kernel summary, the card's name and power limit as
-``nvidia-smi`` gives them, and as its last line
+Then it prints the kernel summary (with each kernel's bound: the least time
+the card could take for the same bytes or operations, from NVIDIA's H100 SXM
+peaks), the card's name and power limit as ``nvidia-smi`` gives them, and as
+its last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no ``ok`` line. Without CUDA it fails at once.
 
@@ -40,6 +52,7 @@ writing the profiler's trace into TRACE_DIR when one is given.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -79,6 +92,37 @@ K2_REL_TOL = 2e-2
 # of a sum, which moves the sum far less than 2^-8 of its largest entry.
 K3_REL_TOL = 5e-3
 
+# K6 against its plain version, bf16 inputs drawn from N(0, 1), the error over
+# the plain output's max-abs. At T=1500 o is a near-flat mean of N(0, 1) rows:
+# a typical |o| is about 0.04 and the largest a few tenths, so an absolute
+# bound set from |o| < 1 would be loose. Both round o to bf16 once, and f32
+# sums in another order flip that rounding by one ulp, at most 2^-7 of the
+# largest |o|. exp(s - m) is rounded to bf16 against a running max per 32-row
+# tile and per 256-row split in the kernel, against the final max in the
+# plain version: 2^-8 relative per term, of random sign over 1500 terms, which
+# moves o far less than another ulp. Two ulps of the largest |o|: 2^-6. (It
+# measured 0.0045-0.0061, one ulp at max |o| 0.16-0.21, on an H100.)
+K6_REL_TOL = 2.0 ** -6
+# K7: the score is rounded to bf16 in both, from f32 sums taken in another
+# order; where that flips a rounding the score moves by one bf16 spacing
+# (0.125 at |q.k| in [16, 32), N(0, 1) inputs at Dh=64), 0.016 after the
+# scale, so that column's p moves by 1.6% of itself; p * |v| stays below a
+# few units. Plus an ulp of the bf16 context (|ctx| < 1). The caches after
+# the in-place write must be equal exactly.
+K7_TOL = 2e-2
+# The cached decoder's logits over 8 teacher-forced steps, K6 and K7 against
+# their plain versions on the same encoder states and tokens: the attention
+# outputs differ by the ulps above, each later bf16 rounding in six layers
+# and the caches of the steps before pass the flips on, and the logits are
+# bf16 (2^-8 relative). A few percent of the largest logit.
+LOGITS_REL_TOL = 5e-2
+
+# NVIDIA H100 SXM peaks (data sheet, dense, at the 700 W limit): HBM3 rate
+# and bf16 tensor-core rate. The bound of a call is the larger of its bytes
+# over the first and its operations over the second.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+
 KERNEL_CASES = (
     # the serving path: encoder self-attention at whisper-base width
     dict(name="encoder", b=8, t=1500, h=8, d=64, bwd=True),
@@ -99,6 +143,30 @@ LORA_CASES = (
     ("fc2", 96000, 2048, 512, 32),
     ("ragged_r12", 10007, 512, 2048, 12),
 )
+# (name, B, Tq, T, kv_len, layout): K6 at the serving paths' shapes,
+# whisper-base (H=8, D=64, T=1500): the greedy step at batch 8, the beam
+# step (16 utterances x 5 beams folded into the query) and the beam
+# prefill (5 beams x 4 prompt tokens), and the [B, T, H*D] entry with rows
+# padded to a multiple of 8 past kv_len
+DECODE_CROSS_CASES = (
+    ("greedy", 8, 1, 1500, None, "bhtd"),
+    ("beam_step", 16, 5, 1500, None, "bhtd"),
+    ("beam_prefill", 16, 20, 1500, None, "bhtd"),
+    ("btc", 8, 1, 1504, 1500, "btc"),
+)
+# (name, rows, Tmax, idx): K7 at the beam step (16 x 5 rows, 4 prompt + 128
+# new tokens) early and at its last column, and at the greedy step (8 rows,
+# 4 + 32)
+DECODE_STEP_CASES = (
+    ("beam_early", 80, 132, 3),
+    ("beam_last", 80, 132, 131),
+    ("greedy_last", 8, 36, 35),
+)
+DECODE_HEADS, DECODE_HEAD_DIM = 8, 64
+# K6 timings cycle through this many copies of the cache, more bytes than
+# the 50 MB L2 holds, so that each call reads device memory as the decoder
+# does (it reads six layers' caches in turn)
+CACHE_COPIES = 4
 # The training step: bench.py's batch and label length.
 TRAIN_BATCH = 64
 TRAIN_LABEL_LEN = 64
@@ -127,7 +195,14 @@ PROFILE_TRACED_STEPS = 3
 SLICE_SIGNALS = 16
 SLICE_BATCH = 8
 SLICE_NEW_TOKENS = 32
-SLICE_REPEATS = 5
+SLICE_REPEATS = 3
+# The eval CLI's decode (neuspeech1_tpu/cli/evaluation.py defaults)
+BEAM_SETTINGS = dict(num_beams=5, repetition_penalty=5.0,
+                     no_repeat_ngram_size=2)
+BEAM_BATCH = 16
+BEAM_NEW_TOKENS = 128
+BEAM_REPEATS = 3
+BEAM_FORCED_STEPS = 8
 SAMPLE_RATE = 200  # Hz: a 30 s clip is the stem's 6000 samples
 
 
@@ -155,6 +230,16 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(n_bytes: float, flops: float) -> dict:
+    """The least time the card could take for a call that moves ``n_bytes``
+    (each input read once, each output written once) and does ``flops``
+    bf16 operations, and which of the two sets it."""
+    by_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * flops / BF16_FLOPS
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -170,11 +255,14 @@ def phase_build() -> list:
     from concurrent.futures import ThreadPoolExecutor
 
     from neuspeech1_tpu_torch.ops import _build
+    from neuspeech1_tpu_torch.ops import decode_cross as dc
+    from neuspeech1_tpu_torch.ops import decode_step as ds
     from neuspeech1_tpu_torch.ops import flash_attention as fa
     from neuspeech1_tpu_torch.ops import lora_bwd as lb
 
     loaders = {"flash_fwd_btc": fa._library, "flash_bwd_btc": fa._bwd_library,
-               "lora_bwd": lb._library}
+               "lora_bwd": lb._library, "decode_cross": dc._library,
+               "decode_step": ds._library}
 
     def timed(name):
         t0 = time.perf_counter()
@@ -207,7 +295,26 @@ def _rel_err(got, ref) -> float:
     return ((got.float() - ref).abs().max() / ref.abs().max()).item()
 
 
+def _flash_cost(b, t_q, t_kv, h, d, causal, kv_len):
+    """(bytes, flops) of one flash forward: q, k, v rows read up to kv_len,
+    o written in bf16, lse in f32; the QK^T and PV products over the
+    (row, column) pairs the masks keep."""
+    kvl = kv_len or t_kv
+    pairs = t_q * (t_q + 1) // 2 if causal else t_q * kvl
+    n_bytes = 2 * b * h * d * (2 * t_q + 2 * kvl) + 4 * b * h * t_q
+    return n_bytes, 4 * b * h * pairs * d
+
+
+def _sdpa_inputs(q, k, v, kv_len):
+    """The [B, H, T, D] copies SDPA takes, K/V cut at kv_len."""
+    kvl = kv_len or k.shape[1]
+    return tuple(x[:, :n].transpose(1, 2).contiguous()
+                 for x, n in ((q, q.shape[1]), (k, kvl), (v, kvl)))
+
+
 def phase_kernels() -> list:
+    import torch.nn.functional as F
+
     from neuspeech1_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -225,6 +332,7 @@ def phase_kernels() -> list:
         torch.cuda.synchronize()
         o_err = (o_k.float() - o_p.float()).abs().max().item()
         lse_err = (lse_k - lse_p).abs().max().item()
+        sq, sk, sv = _sdpa_inputs(q, k, v, kv_len)
         res = {
             "phase": "kernels", "kernel": "K1", "case": case["name"],
             "shape": [b, t, t_kv, h, d], "causal": causal, "kv_len": kv_len,
@@ -234,6 +342,9 @@ def phase_kernels() -> list:
                                                           kv_len)),
             "plain_ms": cuda_ms(lambda: fa.flash_attention_bthd_plain(
                 q, k, v, causal, kv_len)),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                sq, sk, sv, is_causal=causal)),
+            **bound(*_flash_cost(b, t, t_kv, h, d, causal, kv_len)),
         }
         emit(res)
         check(bool(torch.isfinite(o_k.float()).all()), f"{case}: non-finite o")
@@ -244,7 +355,20 @@ def phase_kernels() -> list:
             results.append(_check_flash_bwd(case, q, k, v, o_k, lse_k, gen))
     results.append(_check_bhtd_layout(gen))
     results.extend(_check_lora_bwd(gen))
+    results.extend(_check_decode_cross(gen))
+    results.extend(_check_decode_step(gen))
     return results
+
+
+def _sdpa_bwd_ms(q, k, v, do, causal, kv_len) -> float:
+    """One autograd call through SDPA's backward on the same inputs."""
+    import torch.nn.functional as F
+
+    sq, sk, sv = (x.requires_grad_() for x in _sdpa_inputs(q, k, v, kv_len))
+    o = F.scaled_dot_product_attention(sq, sk, sv, is_causal=causal)
+    sdo = do.transpose(1, 2).contiguous()
+    return cuda_ms(lambda: torch.autograd.grad(o, (sq, sk, sv), sdo,
+                                               retain_graph=True))
 
 
 def _check_flash_bwd(case, q, k, v, o, lse, gen) -> dict:
@@ -262,6 +386,12 @@ def _check_flash_bwd(case, q, k, v, o, lse, gen) -> dict:
             for n, g, p in zip(("dq", "dk", "dv"), grads, plain)}
     abs_err = max((g.float() - p.float()).abs().max().item()
                   for g, p in zip(grads, plain))
+    b, t_q, h, d = q.shape
+    # reads q, k, v, o, do (bf16) and lse (f32), writes dq, dk, dv; five
+    # products over the kept pairs, 2.5 times the forward's two
+    fwd_bytes, fwd_flops = _flash_cost(b, t_q, k.shape[1], h, d, causal,
+                                       kv_len)
+    n_bytes = 2 * b * h * d * (4 * t_q + 4 * kvl) + 4 * b * h * t_q
     res = {"phase": "kernels", "kernel": "K2", "case": case["name"],
            "max_abs_err": abs_err,
            "shape": [q.shape[0], q.shape[1], k.shape[1], q.shape[2],
@@ -269,7 +399,9 @@ def _check_flash_bwd(case, q, k, v, o, lse, gen) -> dict:
            "causal": causal, "kv_len": kv_len, **errs, "rel_tol": K2_REL_TOL,
            "ms": cuda_ms(lambda: fa._flash_bwd_cuda(*args)),
            "plain_ms": cuda_ms(lambda: fa.flash_attention_bthd_bwd_plain(
-               *args))}
+               *args)),
+           "library_ms": _sdpa_bwd_ms(q, k, v, do, causal, kv_len),
+           **bound(n_bytes, 2.5 * fwd_flops)}
     if kv_len is not None:
         res["rows_past_kv_len_zero"] = bool(
             (grads[1][:, kv_len:] == 0).all() and (grads[2][:, kv_len:] == 0)
@@ -287,6 +419,8 @@ def _check_flash_bwd(case, q, k, v, o, lse, gen) -> dict:
 def _check_bhtd_layout(gen) -> dict:
     """K1 and K2 through the [B, H, T, D] entry (the JAX package's K5
     kernels), forward and autograd backward, against the plain versions."""
+    import torch.nn.functional as F
+
     from neuspeech1_tpu_torch.ops import flash_attention as fa
 
     b, h, t, d = 8, 8, 1500, 64
@@ -312,6 +446,8 @@ def _check_bhtd_layout(gen) -> dict:
     errs = {f"{n}_rel_err": _rel_err(x.grad, p.transpose(1, 2))
             for n, x, p in zip(("dq", "dk", "dv"), (q, k, v), plain)}
     bwd_args = (qt, kt, vt, o_p, do.transpose(1, 2), lse_p, False, t)
+    fwd_bytes, fwd_flops = _flash_cost(b, t, t, h, d, False, None)
+    qd, kd, vd = (x.detach() for x in (q, k, v))
     res = {"phase": "kernels", "kernel": "K5", "case": "bhtd_fwd_bwd",
            "shape": [b, h, t, d], "launches": launches,
            "o_max_abs_err": o_err.item(), **errs,
@@ -319,13 +455,20 @@ def _check_bhtd_layout(gen) -> dict:
                (x.grad.float() - p.transpose(1, 2).float()).abs().max().item()
                for x, p in zip((q, k, v), plain)),
            "o_tol": O_TOL, "rel_tol": K2_REL_TOL,
-           "ms": cuda_ms(lambda: fa.flash_attention(q.detach(), k.detach(),
-                                                    v.detach())),
+           "ms": cuda_ms(lambda: fa.flash_attention(qd, kd, vd)),
            "plain_ms": cuda_ms(lambda: fa.flash_attention_bthd_plain(
                qt, kt, vt)),
+           "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+               qd, kd, vd)),
            "bwd_ms": cuda_ms(lambda: fa._flash_bwd_cuda(*bwd_args)),
            "bwd_plain_ms": cuda_ms(
-               lambda: fa.flash_attention_bthd_bwd_plain(*bwd_args))}
+               lambda: fa.flash_attention_bthd_bwd_plain(*bwd_args)),
+           "bwd_library_ms": _sdpa_bwd_ms(qt, kt, vt, do.transpose(1, 2),
+                                          False, None),
+           **bound(fwd_bytes, fwd_flops)}
+    bwd_bound = bound(2 * b * h * d * 8 * t + 4 * b * h * t, 2.5 * fwd_flops)
+    res.update(bwd_bound_ms=bwd_bound["bound_ms"],
+               bwd_bound_by=bwd_bound["bound_by"])
     emit(res)
     check(o_err.item() <= O_TOL and max(errs.values()) <= K2_REL_TOL,
           "K5 [B, H, T, D]: kernels disagree with plain versions")
@@ -349,18 +492,129 @@ def _check_lora_bwd(gen) -> list:
         torch.cuda.synchronize()
         errs = {f"{k}_rel_err": _rel_err(g, p)
                 for k, g, p in zip(("dA", "dB", "dE"), got, ref)}
+        # reads x, dy, A, B (bf16), writes dA, dB, dE (f32); four rank-r
+        # products over N tokens (t1, u, dA, dB)
+        n_bytes = 2 * (n * (din + dout) + r * (din + dout)) \
+            + 4 * (r * (din + dout) + r)
         res = {"phase": "kernels", "kernel": "K3", "case": name,
                "max_abs_err": max((g - p).abs().max().item()
                                   for g, p in zip(got, ref)),
                "shape": [n, din, dout, r], **errs, "rel_tol": K3_REL_TOL,
                "ms": cuda_ms(lambda: lb.lora_adapter_bwd(x, dy, a, bm)),
                "plain_ms": cuda_ms(lambda: lb.lora_adapter_bwd_plain(
-                   x, dy, a, bm))}
+                   x, dy, a, bm)),
+               "library_ms": None,
+               **bound(n_bytes, 4 * n * r * (din + dout))}
         emit(res)
         check(all(torch.isfinite(g).all() for g in got),
               f"K3 {name}: non-finite gradients")
         check(max(errs.values()) <= K3_REL_TOL,
               f"K3 {name}: kernel disagrees with plain version")
+        out.append(res)
+    return out
+
+
+def _check_decode_cross(gen) -> list:
+    """K6 against its plain version at the greedy and beam decoder's shapes,
+    through both cache layouts; timed over CACHE_COPIES caches in turn,
+    beside SDPA on the same [B, H, Tq, D] x [B, H, T, D] inputs."""
+    import torch.nn.functional as F
+
+    from neuspeech1_tpu_torch.ops import decode_cross as dc
+
+    h, d = DECODE_HEADS, DECODE_HEAD_DIM
+    out = []
+    for name, b, t_q, t, kv_len, layout in DECODE_CROSS_CASES:
+        kvl = kv_len or t
+        q = (torch.randn((b, t_q, h * d), generator=gen, device="cuda")
+             .to(torch.bfloat16).view(b, t_q, h, d))
+        shape = (b, t, h * d) if layout == "btc" else (b, h, t, d)
+        caches = [tuple(torch.randn(shape, generator=gen, device="cuda")
+                        .to(torch.bfloat16) for _ in range(2))
+                  for _ in range(CACHE_COPIES)]
+
+        def bhtd(kv, layout=layout, b=b, t=t):
+            """The [B, H, T, D] view of a cache pair."""
+            if layout == "btc":
+                return tuple(x.view(b, t, h, d).transpose(1, 2) for x in kv)
+            return kv
+
+        def kernel(kv, layout=layout, q=q, kv_len=kv_len):
+            if layout == "btc":
+                return dc.decode_cross_btc(q, *kv, kv_len)
+            return dc.decode_cross(q, *kv, kv_len)
+
+        dc.launches = 0
+        o_k = kernel(caches[0])
+        launches = dc.launches
+        o_p = dc.decode_cross_plain(q, *bhtd(caches[0]), kv_len)
+        torch.cuda.synchronize()
+        err = (o_k.float() - o_p.float()).abs().max().item()
+        rel = _rel_err(o_k, o_p)
+        cycle = itertools.cycle(caches)
+        qs = q.transpose(1, 2)
+        res = {"phase": "kernels", "kernel": "K6", "case": name,
+               "layout": layout, "shape": [b, t_q, t, h, d], "kv_len": kvl,
+               "launches": launches, "max_abs_err": err,
+               "max_abs_plain": o_p.float().abs().max().item(),
+               "rel_err": rel, "rel_tol": K6_REL_TOL,
+               "ms": cuda_ms(lambda: kernel(next(cycle))),
+               "plain_ms": cuda_ms(lambda: dc.decode_cross_plain(
+                   q, *bhtd(next(cycle)), kv_len)),
+               "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                   qs, *(x[:, :, :kvl] for x in bhtd(next(cycle))))),
+               # K and V rows up to kv_len read, q read and o written
+               **bound(2 * b * h * d * (2 * kvl + 2 * t_q),
+                       4 * b * h * t_q * kvl * d)}
+        emit(res)
+        check(launches == 1, f"K6 {name}: {launches} launches for one call")
+        check(bool(torch.isfinite(o_k.float()).all()), f"K6 {name}: non-finite")
+        check(rel <= K6_REL_TOL,
+              f"K6 {name}: kernel disagrees with plain version")
+        out.append(res)
+    return out
+
+
+def _check_decode_step(gen) -> list:
+    """K7 against its plain version at the beam and greedy steps' shapes:
+    the context within K7_TOL and the caches after the in-place write equal;
+    timed over CACHE_COPIES caches in turn. No single PyTorch call computes
+    this function (a cache write and a masked attention)."""
+    from neuspeech1_tpu_torch.ops import decode_step as ds
+
+    h, d = DECODE_HEADS, DECODE_HEAD_DIM
+    out = []
+    for name, rows, t_max, idx in DECODE_STEP_CASES:
+        q, kn, vn = (torch.randn((rows, 1, h * d), generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+                     .view(rows, 1, h, d) for _ in range(3))
+        caches = [tuple(torch.randn((rows, h, d, t_max), generator=gen,
+                                    device="cuda").to(torch.bfloat16)
+                        for _ in range(2)) for _ in range(CACHE_COPIES)]
+        kp, vp = (x.clone() for x in caches[0])
+        ctx_k = ds.decode_step(q, kn, vn, *caches[0], idx)
+        ctx_p = ds.decode_step_plain(q, kn, vn, kp, vp, idx)
+        torch.cuda.synchronize()
+        err = (ctx_k.float() - ctx_p.float()).abs().max().item()
+        caches_equal = bool(torch.equal(caches[0][0], kp)
+                            and torch.equal(caches[0][1], vp))
+        cycle = itertools.cycle(caches)
+        res = {"phase": "kernels", "kernel": "K7", "case": name,
+               "shape": [rows, h, d, t_max], "idx": idx, "max_abs_err": err,
+               "tol": K7_TOL, "caches_equal": caches_equal,
+               "ms": cuda_ms(lambda: ds.decode_step(q, kn, vn, *next(cycle),
+                                                    idx)),
+               "plain_ms": cuda_ms(lambda: ds.decode_step_plain(
+                   q, kn, vn, *next(cycle), idx)),
+               "library_ms": None,
+               # K and V columns 0..idx-1 read, column idx written, q, k_new,
+               # v_new read and the context written
+               **bound(2 * rows * h * d * (2 * idx + 2 + 4),
+                       4 * rows * h * d * (idx + 1))}
+        emit(res)
+        check(caches_equal, f"K7 {name}: caches differ from the plain write")
+        check(bool(torch.isfinite(ctx_k.float()).all()), f"K7 {name}: non-finite")
+        check(err <= K7_TOL, f"K7 {name}: kernel disagrees with plain version")
         out.append(res)
     return out
 
@@ -378,46 +632,110 @@ def _signals(n_channels: int, n_samples: int, seed: int = 0) -> np.ndarray:
     return out
 
 
-def phase_slice() -> dict:
+def serving_model(tmp: str):
+    """whisper-base (bf16 compute) with the 'base' EEG stem over 208
+    channels, weights from seed 0, written as a full-model directory under
+    ``tmp``, and a word vocabulary for it: (config, model_dir, tokenizer
+    spec). Its token layout is layout_for_vocab(50257, 99), so a 50257-word
+    vocabulary is its tokenizer (the byte tokenizer needs eot_id 256)."""
+    from neuspeech1_tpu_torch.cli import common
+    from neuspeech1_tpu_torch.models.init import init_params
+
+    config, stem = common.preset_model("base", "base", in_channels=208)
+    model_dir = common.save_full_model(
+        os.path.join(tmp, "full_model"), init_params(config, stem, seed=0),
+        config, stem)
+    vocab = os.path.join(tmp, "vocab.txt")
+    with open(vocab, "w") as f:
+        f.write("\n".join(f"w{i}" for i in range(config.eot_id)) + "\n")
+    return config, model_dir, f"word:{vocab}"
+
+
+@contextlib.contextmanager
+def count_model_calls():
+    """Counts the calls the decode loops make into the model while the
+    context is open: encoder calls, cached decoder calls, the cached calls
+    one token wide, and the chunks of at most K6's MAX_TQ rows that the
+    cached calls' cross-attention queries take (an utterance's beam rows
+    fold into its query)."""
+    from neuspeech1_tpu_torch.models import whisper as tw
+    from neuspeech1_tpu_torch.ops.decode_cross import MAX_TQ
+
+    calls = {"encoder": 0, "cached_decoder": 0, "width1": 0,
+             "cross_chunks": 0}
+    encoder_apply, decoder_apply = tw.encoder_apply, tw.decoder_apply
+
+    def counted_encoder(*args, **kw):
+        calls["encoder"] += 1
+        return encoder_apply(*args, **kw)
+
+    def counted_decoder(model, tokens, enc_out, cache=None, cache_index=None,
+                        lora=None):
+        if cache is not None:
+            calls["cached_decoder"] += 1
+            calls["width1"] += int(tokens.shape[1] == 1)
+            rows = tokens.shape[0] // enc_out.shape[0] * tokens.shape[1]
+            calls["cross_chunks"] += -(-rows // MAX_TQ)
+        return decoder_apply(model, tokens, enc_out, cache, cache_index, lora)
+
+    tw.encoder_apply, tw.decoder_apply = counted_encoder, counted_decoder
+    try:
+        yield calls
+    finally:
+        tw.encoder_apply, tw.decoder_apply = encoder_apply, decoder_apply
+
+
+def _expected_launches(config, calls) -> dict:
+    """K1 once per encoder layer and encoder call, K6 once per decoder layer
+    and query chunk of a cached decoder call (one chunk per call at the
+    served shapes), K7 once per decoder layer and width-1 call."""
+    return {"K1": config.encoder_layers * calls["encoder"],
+            "K2": 0, "K3": 0,
+            "K6": config.decoder_layers * calls["cross_chunks"],
+            "K7": config.decoder_layers * calls["width1"]}
+
+
+def _check_serving_launches(name, config, calls, counts) -> None:
+    expect = _expected_launches(config, calls)
+    check(counts == expect, f"{name}: kernel launches {counts}, expected "
+          f"{expect} from the model calls {calls}")
+    check(all(counts[k] > 0 for k in ("K1", "K6", "K7")),
+          f"{name}: a kernel of the path was never launched: {counts}")
+
+
+def _jax_free() -> bool:
+    return not any(m in ("jax", "neuspeech1_tpu")
+                   or m.startswith(("jax.", "neuspeech1_tpu."))
+                   for m in sys.modules)
+
+
+def phase_slice(model) -> dict:
+    """Greedy serving: 16 signals in two batches of 8, 32 new tokens."""
     from neuspeech1_tpu_torch.cli import common
     from neuspeech1_tpu_torch.decode.generate import generate
     from neuspeech1_tpu_torch.models import whisper as tw
-    from neuspeech1_tpu_torch.models.init import init_params
     from neuspeech1_tpu_torch.ops import flash_attention as fa
     from neuspeech1_tpu_torch.serve import Transcriber
 
-    # whisper-base (bf16 compute) with the 'base' EEG stem over 208 channels.
-    # Its token layout is layout_for_vocab(50257, 99), so a 50257-word
-    # vocabulary is its tokenizer (the byte tokenizer needs eot_id 256).
-    config, stem = common.preset_model("base", "base", in_channels=208)
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        model_dir = common.save_full_model(
-            os.path.join(tmp, "full_model"), init_params(config, stem, seed=0),
-            config, stem)
-        vocab = os.path.join(tmp, "vocab.txt")
-        with open(vocab, "w") as f:
-            f.write("\n".join(f"w{i}" for i in range(config.eot_id)) + "\n")
-        # the stem strides by 2 twice: 4 samples per encoder position
-        signals = _signals(stem.in_channels, 4 * config.max_source_positions)
-        tr = Transcriber(model_dir, tokenizer=f"word:{vocab}",
-                         batch_size=SLICE_BATCH,
-                         max_new_tokens=SLICE_NEW_TOKENS, device="cuda")
-        setup_s = time.perf_counter() - t0
+    config, model_dir, tokenizer = model
+    t0 = time.perf_counter()
+    tr = Transcriber(model_dir, tokenizer=tokenizer, batch_size=SLICE_BATCH,
+                     max_new_tokens=SLICE_NEW_TOKENS, device="cuda")
+    setup_s = time.perf_counter() - t0
+    # the stem strides by 2 twice: 4 samples per encoder position
+    signals = _signals(tr.stem.in_channels, 4 * config.max_source_positions)
 
     tr.transcribe(signals[:SLICE_BATCH])  # warm-up: library handles, allocator
     torch.cuda.synchronize()
 
-    fa.launches = 0
-    t0 = time.perf_counter()
-    texts = tr.transcribe(signals)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = fa.launches
-    n_batches = -(-SLICE_SIGNALS // SLICE_BATCH)
-    check(launches == config.encoder_layers * n_batches,
-          f"flash kernel launched {launches} times, expected "
-          f"{config.encoder_layers * n_batches}")
+    _reset_counts()
+    with count_model_calls() as calls:
+        t0 = time.perf_counter()
+        texts = tr.transcribe(signals)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = _kernel_counts()
+    _check_serving_launches("slice", config, calls, launches)
     check(len(texts) == SLICE_SIGNALS, f"{len(texts)} texts for "
           f"{SLICE_SIGNALS} signals")
 
@@ -461,19 +779,190 @@ def phase_slice() -> dict:
           f"tokens shape {tuple(tokens.shape)}")
     check(bool(((tokens >= 0) & (tokens < config.vocab_size)).all()),
           "token id outside the vocabulary")
-    check("jax" not in sys.modules, "jax was imported")
+    check(_jax_free(), "jax or the JAX package was imported")
     out = {
         "phase": "slice", "model": "whisper-base", "stem": "base/208",
         "dtype": config.dtype, "signals": SLICE_SIGNALS,
         "batch_size": SLICE_BATCH, "max_new_tokens": SLICE_NEW_TOKENS,
-        "flash_launches": launches, "setup_s": setup_s, "wall_s": wall,
+        "launches": launches, "model_calls": calls,
+        "flash_launches": launches["K1"], "setup_s": setup_s, "wall_s": wall,
         "utterances_per_s": statistics.median(rates),
         "utterances_per_s_all": rates,
         "request_latency_s": statistics.median(lat),
         "request_latency_all_s": lat,
         "encoder_max_abs_err": enc_max, "encoder_mean_abs_err": enc_mean,
         "encoder_tol": [ENC_MAX_TOL, ENC_MEAN_TOL],
-        "jax_imported": "jax" in sys.modules,
+        "jax_imported": not _jax_free(),
+        "sample_text": texts[0][:80], "card": card(),
+    }
+    emit(out)
+    return out
+
+
+def _forced_logits(model, enc, tokens, prompt_len: int, steps: int):
+    """The cached decoder's logits for B*K rows of ``tokens`` [B*K, L]: the
+    prompt's prefill, then ``steps`` width-1 steps on the given tokens;
+    [B*K, prompt_len + steps, V]."""
+    from neuspeech1_tpu_torch.models import whisper as tw
+
+    cache = tw.init_cache(model, enc, max_len=prompt_len + steps,
+                          self_batch=tokens.shape[0])
+    logits, cache = tw.decoder_apply(model, tokens[:, :prompt_len], enc,
+                                     cache=cache, cache_index=0)
+    out = [logits]
+    for i in range(prompt_len, prompt_len + steps):
+        logits, cache = tw.decoder_apply(model, tokens[:, i:i + 1], enc,
+                                         cache=cache, cache_index=i)
+        out.append(logits)
+    return torch.cat(out, dim=1)
+
+
+def _agreement(a, b, prompt_len: int) -> dict:
+    """How far two decodes of the same requests agree past the prompt: the
+    share of equal token positions, and per row the first generated
+    position where they differ (the generated length if none)."""
+    eq = a[:, prompt_len:] == b[:, prompt_len:]
+    n = eq.shape[1]
+    first = [int(row.logical_not().nonzero()[0]) if not row.all() else n
+             for row in eq]
+    return {"share": eq.float().mean().item(), "first_diff": first,
+            "first_diff_median": statistics.median(first)}
+
+
+def _count_syncs(fn) -> int:
+    """The synchronizing CUDA calls (the host waiting for the device) that
+    one call of ``fn`` makes, as torch's sync debug mode reports them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def _profile_request(fn) -> dict:
+    """Device busy time, idle share and kernel launches of one call of
+    ``fn`` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:12]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_kernels_ms": [[e.key[:90], e.self_device_time_total / 1e3,
+                                e.count] for e in top]}
+
+
+def phase_beam(model) -> dict:
+    """The eval CLI's decode at full width: beam 5, repetition penalty 5.0,
+    no-repeat-ngram 2, batch 16, 128 new tokens, one request of 16
+    signals."""
+    from neuspeech1_tpu_torch.cli import common
+    from neuspeech1_tpu_torch.decode.generate import generate
+    from neuspeech1_tpu_torch.models import whisper as tw
+    from neuspeech1_tpu_torch.serve import Transcriber
+
+    config, model_dir, tokenizer = model
+    tr = Transcriber(model_dir, tokenizer=tokenizer, batch_size=BEAM_BATCH,
+                     max_new_tokens=BEAM_NEW_TOKENS, device="cuda",
+                     **BEAM_SETTINGS)
+    signals = _signals(tr.stem.in_channels,
+                       4 * config.max_source_positions)[:BEAM_BATCH]
+    tr.transcribe(signals)  # warm-up
+    torch.cuda.synchronize()
+
+    _reset_counts()
+    lat = []
+    with count_model_calls() as calls:
+        for _ in range(BEAM_REPEATS):
+            t0 = time.perf_counter()
+            texts = tr.transcribe(signals)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+    launches = _kernel_counts()
+    _check_serving_launches("beam", config, calls, launches)
+    check(len(texts) == BEAM_BATCH, f"{len(texts)} texts for {BEAM_BATCH}")
+    steps = calls["width1"] / BEAM_REPEATS
+    med = statistics.median(lat)
+
+    k = tr.gen.num_beams
+    feats = common.upload_features(tr._prepare(signals), tr.model.dtype,
+                                   tr.device)
+    prompt = torch.as_tensor(np.repeat(tr.prompt, BEAM_BATCH, axis=0),
+                             device=tr.device)
+    p = prompt.shape[1]
+    with torch.no_grad():
+        tokens = generate(tr.model, feats, prompt, tr.gen)
+        with _plain_kernels():
+            tokens_p = generate(tr.model, feats, prompt, tr.gen)
+            with _f32_compute(tr.model):
+                tokens_32 = generate(tr.model, feats, prompt, tr.gen)
+        # the cached decoder over 8 teacher-forced steps of the beam output,
+        # each utterance's tokens on its K rows, on one set of encoder states
+        enc = tw.encoder_apply(tr.model, feats)
+        forced = tokens.repeat_interleave(k, dim=0)
+        logits_k = _forced_logits(tr.model, enc, forced, p, BEAM_FORCED_STEPS)
+        with _plain_kernels():
+            logits_p = _forced_logits(tr.model, enc, forced, p,
+                                      BEAM_FORCED_STEPS)
+    torch.cuda.synchronize()
+    ref_max = logits_p.float().abs().max().item()
+    diff = (logits_k.float() - logits_p.float()).abs()
+    rel = diff.max().item() / ref_max
+    agree = {"kernels_vs_plain": _agreement(tokens, tokens_p, p),
+             "kernels_vs_f32": _agreement(tokens, tokens_32, p),
+             "plain_vs_f32": _agreement(tokens_p, tokens_32, p)}
+    check(bool(torch.isfinite(logits_k.float()).all()), "non-finite logits")
+    check(rel <= LOGITS_REL_TOL, f"beam: cached decoder logits with K6/K7 "
+          f"{rel} of the largest logit off the plain versions")
+    check(tuple(tokens.shape) == (BEAM_BATCH, tr.gen.max_length),
+          f"tokens shape {tuple(tokens.shape)}")
+    check(bool(((tokens >= 0) & (tokens < config.vocab_size)).all()),
+          "token id outside the vocabulary")
+    syncs = _count_syncs(lambda: tr.transcribe(signals))
+    # the decode loop reads its stop condition once per step; the request
+    # adds a few of its own (the upload, the tokens' copy to the host)
+    check(syncs <= steps + 8, f"beam: {syncs} host syncs for {steps} steps")
+    profile_k = _profile_request(lambda: tr.transcribe(signals))
+    with _plain_kernels():
+        profile_p = _profile_request(lambda: tr.transcribe(signals))
+    check(_jax_free(), "jax or the JAX package was imported")
+    out = {
+        "phase": "beam", "model": "whisper-base", "stem": "base/208",
+        "dtype": config.dtype, **BEAM_SETTINGS, "batch_size": BEAM_BATCH,
+        "max_new_tokens": BEAM_NEW_TOKENS, "launches": launches,
+        "model_calls": calls, "steps_per_request": steps,
+        "request_latency_s": med, "request_latency_all_s": lat,
+        "utterances_per_s": BEAM_BATCH / med,
+        "utterances_per_s_all": [BEAM_BATCH / x for x in lat],
+        "ms_per_step": 1e3 * med / steps,
+        "forced_steps": BEAM_FORCED_STEPS,
+        "logits_max_abs_err": diff.max().item(),
+        "logits_mean_abs_err": diff.mean().item(),
+        "logits_max_abs": ref_max, "logits_rel_err": rel,
+        "logits_rel_tol": LOGITS_REL_TOL,
+        "token_share_equal_plain": agree["kernels_vs_plain"]["share"],
+        "token_agreement": agree,
+        "profile_kernels": profile_k, "profile_plain": profile_p,
+        "host_syncs_per_request": syncs,
+        "kernels_per_step": profile_k["kernel_launches"] / steps,
+        "plain_kernels_per_step": profile_p["kernel_launches"] / steps,
+        "jax_imported": not _jax_free(),
         "sample_text": texts[0][:80], "card": card(),
     }
     emit(out)
@@ -514,17 +1003,23 @@ def _train_setup(batch_size: int, device: str = "cuda"):
 
 
 def _kernel_counts():
+    from neuspeech1_tpu_torch.ops import decode_cross as dc
+    from neuspeech1_tpu_torch.ops import decode_step as ds
     from neuspeech1_tpu_torch.ops import flash_attention as fa
     from neuspeech1_tpu_torch.ops import lora_bwd as lb
 
-    return {"K1": fa.launches, "K2": fa.bwd_launches, "K3": lb.launches}
+    return {"K1": fa.launches, "K2": fa.bwd_launches, "K3": lb.launches,
+            "K6": dc.launches, "K7": ds.launches}
 
 
 def _reset_counts():
+    from neuspeech1_tpu_torch.ops import decode_cross as dc
+    from neuspeech1_tpu_torch.ops import decode_step as ds
     from neuspeech1_tpu_torch.ops import flash_attention as fa
     from neuspeech1_tpu_torch.ops import lora_bwd as lb
 
     fa.launches = fa.bwd_launches = lb.launches = 0
+    dc.launches = ds.launches = 0
 
 
 def _adapter_b_max(frozen) -> float:
@@ -535,8 +1030,11 @@ def _adapter_b_max(frozen) -> float:
 
 @contextlib.contextmanager
 def _plain_kernels():
-    """Every CUDA kernel wrapper of the training path replaced by its plain
-    version while the context is open (a swap for comparison only)."""
+    """Every CUDA kernel wrapper of the serving and training paths replaced
+    by its plain version while the context is open (a swap for comparison
+    only)."""
+    from neuspeech1_tpu_torch.ops import decode_cross as dc
+    from neuspeech1_tpu_torch.ops import decode_step as ds
     from neuspeech1_tpu_torch.ops import flash_attention as fa
     from neuspeech1_tpu_torch.ops import lora_bwd as lb
 
@@ -546,6 +1044,8 @@ def _plain_kernels():
              q, k, v, causal, kv_len, return_lse=True)),
         (fa, "_flash_bwd_cuda", fa.flash_attention_bthd_bwd_plain),
         (lb, "_lora_bwd_cuda", lb.lora_adapter_bwd_plain),
+        (dc, "_decode_cross_cuda", dc.decode_cross_plain),
+        (ds, "_decode_step_cuda", ds.decode_step_plain),
     ]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
@@ -611,7 +1111,7 @@ def _grad_check(name, loss_fn, state, frozen, batch, expect) -> dict:
         loss_p, g_p = _grads(loss_fn, state, frozen, batch)
         with _f32_compute(frozen.model):
             loss_32, g_32 = _grads(loss_fn, state, frozen, batch)
-    check(_kernel_counts() == {"K1": 0, "K2": 0, "K3": 0},
+    check(not any(_kernel_counts().values()),
           "a kernel ran while the plain versions were swapped in")
     check(set(g_k) == set(g_p) == set(g_32),
           "kernel, plain and f32 paths reach other leaves")
@@ -643,7 +1143,8 @@ def phase_train() -> dict:
     config, _, state, frozen, step, batch = _train_setup(TRAIN_BATCH)
     stem = frozen.model.stem_config
     n_layers = config.encoder_layers
-    expect = {"K1": 2 * n_layers, "K2": 2 * n_layers, "K3": 2 * n_layers}
+    expect = {"K1": 2 * n_layers, "K2": 2 * n_layers, "K3": 2 * n_layers,
+              "K6": 0, "K7": 0}
 
     def run_step():
         _reset_counts()
@@ -689,7 +1190,7 @@ def phase_train() -> dict:
     checks.append(_grad_check("trained_b", loss_fn, state, frozen, small,
                               expect))
     torch.cuda.synchronize()
-    check("jax" not in sys.modules, "jax was imported")
+    check(_jax_free(), "jax or the JAX package was imported")
     out = {
         "phase": "train", "model": "whisper-base", "stem": "base/208",
         "dtype": config.dtype, "masters": "float32", "lora_rank": 32,
@@ -706,7 +1207,7 @@ def phase_train() -> dict:
         "grad_rel_err_max": {c["state"]: c["kernels_vs_plain"]["max"]
                              for c in checks},
         "grad_rel_tol": GRAD_REL_TOL,
-        "jax_imported": "jax" in sys.modules, "card": card(),
+        "jax_imported": not _jax_free(), "card": card(),
     }
     emit(out)
     return out
@@ -781,6 +1282,77 @@ def phase_train_profile(trace_dir=None) -> dict:
     return out
 
 
+def summary(kernels, sl, bm, tr) -> dict:
+    """One entry per kernel: launches on its path (training for K1, K2, K3;
+    beam serving for K6, K7; greedy serving beside them), the error and the
+    times of its case at that path's shape, its bound and the library
+    call's time."""
+    def first(kernel, case):
+        return next(r for r in kernels
+                    if r["kernel"] == kernel and r["case"] == case)
+
+    def timing(r, prefix=""):
+        return {"ms": r[prefix + "ms"], "plain_ms": r[prefix + "plain_ms"],
+                "bound_ms": r[prefix + "bound_ms"],
+                "bound_by": r[prefix + "bound_by"],
+                "library_ms": r[prefix + "library_ms"]}
+
+    k1, k2 = first("K1", "train_encoder"), first("K2", "train_encoder")
+    k5, k3 = first("K5", "bhtd_fwd_bwd"), first("K3", "fc1")
+    k6, k6_btc = first("K6", "beam_step"), first("K6", "btc")
+    k7 = first("K7", "beam_last")
+    launches = tr["launches_per_step"]
+    src = "neuspeech1_tpu_torch/csrc/"
+    fa_py = "neuspeech1_tpu/ops/flash_attention.py"
+    k5_bwd = {"ms": k5["bwd_ms"], "plain_ms": k5["bwd_plain_ms"],
+              "bound_ms": k5["bwd_bound_ms"], "bound_by": k5["bwd_bound_by"],
+              "library_ms": k5["bwd_library_ms"]}
+    return {"kernels": [
+        {"name": "flash_fwd_btc (K1)", "route": "cuda",
+         "source": src + "flash_fwd_btc.cu", "replaces": fa_py + ":494",
+         "launches": launches["K1"], "serving_launches": sl["launches"]["K1"],
+         "beam_launches": bm["launches"]["K1"],
+         "max_abs_err": k1["o_max_abs_err"], **timing(k1)},
+        {"name": "flash_bwd_btc (K2)", "route": "cuda",
+         "source": src + "flash_bwd_btc.cu", "replaces": fa_py + ":599",
+         "launches": launches["K2"], "max_abs_err": k2["max_abs_err"],
+         **timing(k2)},
+        # K5: the same two kernels on [B, H, T, D] strides. No path of the
+        # port calls that entry; its launches are those of its own run in
+        # the kernels phase (counted from 0)
+        {"name": "flash_fwd_btc on [B,H,T,D] (K5 forward)", "route": "cuda",
+         "source": src + "flash_fwd_btc.cu", "replaces": fa_py + ":80",
+         "launches": k5["launches"]["K1"], "path": "flash_attention entry",
+         "max_abs_err": k5["o_max_abs_err"], **timing(k5)},
+        {"name": "flash_bwd_btc on [B,H,T,D] (K5 backward)", "route": "cuda",
+         "source": src + "flash_bwd_btc.cu", "replaces": fa_py + ":194",
+         "launches": k5["launches"]["K2"], "path": "flash_attention entry",
+         "max_abs_err": k5["grad_max_abs_err"], **k5_bwd},
+        {"name": "lora_bwd (K3)", "route": "cuda",
+         "source": src + "lora_bwd.cu",
+         "replaces": "neuspeech1_tpu/ops/lora_bwd.py:47",
+         "launches": launches["K3"], "max_abs_err": k3["max_abs_err"],
+         **timing(k3)},
+        {"name": "decode_cross (K6, [B,H,T,D] cache)", "route": "cuda",
+         "source": src + "decode_cross.cu", "replaces": fa_py + ":869",
+         "launches": bm["launches"]["K6"],
+         "greedy_launches": sl["launches"]["K6"],
+         "max_abs_err": k6["max_abs_err"], **timing(k6)},
+        # the [B, T, H*D] cache entry: no serving path holds that layout,
+        # so its launches are those of its own run (counted from 0)
+        {"name": "decode_cross_btc (K6, [B,T,H*D] cache)", "route": "cuda",
+         "source": src + "decode_cross.cu", "replaces": fa_py + ":940",
+         "launches": k6_btc["launches"], "path": "decode_cross_btc entry",
+         "max_abs_err": k6_btc["max_abs_err"], **timing(k6_btc)},
+        {"name": "decode_step (K7)", "route": "cuda",
+         "source": src + "decode_step.cu",
+         "replaces": "neuspeech1_tpu/ops/decode_step.py:106",
+         "launches": bm["launches"]["K7"],
+         "greedy_launches": sl["launches"]["K7"],
+         "max_abs_err": k7["max_abs_err"], **timing(k7)},
+    ]}
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs a GPU",
@@ -798,47 +1370,12 @@ def main(argv) -> int:
         return 2
     phase_build()
     kernels = phase_kernels()
-    sl = phase_slice()
+    with tempfile.TemporaryDirectory() as tmp:
+        model = serving_model(tmp)
+        sl = phase_slice(model)
+        bm = phase_beam(model)
     tr = phase_train()
-
-    def first(kernel, case):
-        return next(r for r in kernels
-                    if r["kernel"] == kernel and r["case"] == case)
-
-    k1, k2 = first("K1", "train_encoder"), first("K2", "train_encoder")
-    k5, k3 = first("K5", "bhtd_fwd_bwd"), first("K3", "fc1")
-    launches = tr["launches_per_step"]
-    src = "neuspeech1_tpu_torch/csrc/"
-    fa_py = "neuspeech1_tpu/ops/flash_attention.py"
-    emit({"kernels": [
-        {"name": "flash_fwd_btc (K1)", "route": "cuda",
-         "source": src + "flash_fwd_btc.cu", "replaces": fa_py + ":494",
-         "launches": launches["K1"], "serving_launches": sl["flash_launches"],
-         "max_abs_err": k1["o_max_abs_err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
-        {"name": "flash_bwd_btc (K2)", "route": "cuda",
-         "source": src + "flash_bwd_btc.cu", "replaces": fa_py + ":599",
-         "launches": launches["K2"], "max_abs_err": k2["max_abs_err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
-        # K5: the same two kernels on [B, H, T, D] strides. No path of the
-        # port calls that entry; its launches are those of its own run in
-        # the kernels phase (counted from 0)
-        {"name": "flash_fwd_btc on [B,H,T,D] (K5 forward)", "route": "cuda",
-         "source": src + "flash_fwd_btc.cu", "replaces": fa_py + ":80",
-         "launches": k5["launches"]["K1"], "path": "flash_attention entry",
-         "max_abs_err": k5["o_max_abs_err"],
-         "ms": k5["ms"], "plain_ms": k5["plain_ms"]},
-        {"name": "flash_bwd_btc on [B,H,T,D] (K5 backward)", "route": "cuda",
-         "source": src + "flash_bwd_btc.cu", "replaces": fa_py + ":194",
-         "launches": k5["launches"]["K2"], "path": "flash_attention entry",
-         "max_abs_err": k5["grad_max_abs_err"],
-         "ms": k5["bwd_ms"], "plain_ms": k5["bwd_plain_ms"]},
-        {"name": "lora_bwd (K3)", "route": "cuda",
-         "source": src + "lora_bwd.cu",
-         "replaces": "neuspeech1_tpu/ops/lora_bwd.py:47",
-         "launches": launches["K3"], "max_abs_err": k3["max_abs_err"],
-         "ms": k3["ms"], "plain_ms": k3["plain_ms"]},
-    ]})
+    emit(summary(kernels, sl, bm, tr))
     print(card(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

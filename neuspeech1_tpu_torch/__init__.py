@@ -1,12 +1,15 @@
 """PyTorch and CUDA port of neuspeech1_tpu (brain signal -> text with a
 Whisper-style encoder-decoder) for one NVIDIA Hopper GPU.
 
-Serving slice: ``serve.Transcriber`` -> ``decode.generate`` (greedy) ->
-``models.whisper`` (encoder through the flash-attention kernel in
-``csrc/flash_fwd_btc.cu``, cached decoder). The package imports ``torch``
-and never ``jax``; it reuses the JAX package's jax-free modules
-(``config``, ``utils.tokenizer``, ``models.convert.load_npz``,
-``data.synthetic``).
+Serving: ``serve.Transcriber`` -> ``decode.generate`` (greedy or beam
+search) -> ``models.whisper`` (encoder through the flash-attention kernel in
+``csrc/flash_fwd_btc.cu``; cached decoder through the decode kernels in
+``csrc/decode_cross.cu`` and ``csrc/decode_step.cu``). Training:
+``train.trainstep`` (LoRA step through the flash backward and LoRA adapter
+backward kernels). The package imports ``torch`` and never ``jax``, and
+nothing of the JAX package ``neuspeech1_tpu``: it keeps its own copies of
+the modules it needs (``config``, ``utils.tokenizer``,
+``models.convert.load_npz``).
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,7 @@
 """Model loading, saving and feature upload for the PyTorch port: the torch
-side of ``neuspeech1_tpu/cli/common.py`` (which imports JAX, so it is not
-reused; its numpy-only pieces are repeated here).
+side of ``neuspeech1_tpu/cli/common.py``. The port imports nothing of the
+JAX package: the pieces it needs are repeated here and in the port's own
+``config``, ``utils/tokenizer`` and ``models/convert``.
 
 A full-model directory holds ``params.npz`` (the JAX tree, ``/``-joined
 names) and ``config.json`` (``{"config": {...WhisperConfig fields...},
@@ -17,11 +18,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from neuspeech1_tpu.config import StemConfig, WhisperConfig, preset_config
-from neuspeech1_tpu.models.convert import load_npz
-from neuspeech1_tpu.utils.tokenizer import make_tokenizer
-from neuspeech1_tpu_torch.models.convert import module_from_params, save_npz
+from neuspeech1_tpu_torch.config import StemConfig, WhisperConfig, preset_config
+from neuspeech1_tpu_torch.models.convert import (load_npz, module_from_params,
+                                                 save_npz)
 from neuspeech1_tpu_torch.models.whisper import Whisper
+from neuspeech1_tpu_torch.utils.tokenizer import make_tokenizer
 
 # The WhisperConfig fields save_full_model writes (the JAX package's list).
 _SAVED_CONFIG_KEYS = (

@@ -1,17 +1,19 @@
-"""Logits processors for greedy decoding: the port of the dense forms in
-``neuspeech1_tpu/decode/logits_process.py`` (HF's SuppressTokens,
+"""Logits processors for greedy and beam decoding: the port of the dense
+forms in ``neuspeech1_tpu/decode/logits_process.py`` (HF's SuppressTokens,
 SuppressTokensAtBegin, MinNewTokens, RepetitionPenalty and
 NoRepeatNGram processors).
 
-Each takes logits [B, V] and, where it needs them, the token buffer
-``tokens`` [B, L] and the current length ``cur_len``; positions at or past
-``cur_len`` are never read. Decoding here is eager, so ``cur_len`` is a
-Python int and a processor that cannot fire at this step returns at once.
-Bans build a dense [V] or [B, V] mask and apply it with one ``where``.
+Each takes scores [B, V] (greedy's logits, or beam search's log-probs) and,
+where it needs them, the token buffer ``tokens`` [B, L] and the current
+length ``cur_len``; positions at or past ``cur_len`` are never read.
+Decoding here is eager, so ``cur_len`` is a Python int and a processor that
+cannot fire at this step returns at once. Bans build a dense [V] or [B, V]
+mask and apply it with one ``where``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -19,7 +21,11 @@ import torch
 NEG_INF = -1e9
 
 
+@functools.lru_cache(maxsize=64)
 def _ban_mask(ids: Sequence[int], vocab: int, device) -> torch.Tensor:
+    """The dense [V] mask of ``ids`` (a tuple), made once per (ids, vocab,
+    device): building it copies the ids from the host, which would wait for
+    the device at every decode step."""
     mask = torch.zeros(vocab, dtype=torch.bool, device=device)
     mask[torch.as_tensor(list(ids), dtype=torch.long, device=device)] = True
     return mask
@@ -29,7 +35,7 @@ def suppress_tokens(logits, ids: Sequence[int]):
     """Always-banned ids."""
     if not len(ids):
         return logits
-    mask = _ban_mask(ids, logits.shape[-1], logits.device)
+    mask = _ban_mask(tuple(ids), logits.shape[-1], logits.device)
     return torch.where(mask, NEG_INF, logits)
 
 

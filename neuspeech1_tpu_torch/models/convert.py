@@ -8,8 +8,8 @@ stored ``[in, out]`` (``{"w", "b"}``), convs ``[out, in, k]``, layer norms
 the walk below is generic: ``nn.Linear`` weights are transposed to
 ``[out, in]``, an ``nn.ModuleList`` takes (or gives) the ``[L]`` axis.
 
-``save_npz`` writes the ``/``-joined leaf names that
-``neuspeech1_tpu.models.convert.load_npz`` reads back into a tree.
+``save_npz`` writes the ``/``-joined leaf names that ``load_npz`` (the
+port's copy of the JAX package's reader) reads back into a tree.
 ``lora_from_params`` / ``params_from_lora`` do the same for adapter trees:
 the JAX package stacks each entry's leaves on ``[L, ...]``, the port keeps a
 list of per-layer entries (``models/lora.py``).
@@ -23,7 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from neuspeech1_tpu.config import StemConfig, WhisperConfig
+from neuspeech1_tpu_torch.config import StemConfig, WhisperConfig
 from neuspeech1_tpu_torch.models.whisper import Whisper
 
 Params = Dict[str, Any]
@@ -117,7 +117,7 @@ def _tree(module: nn.Module):
 
 
 def module_from_params(tree: Params, config: WhisperConfig, stem: StemConfig,
-                       device="cpu", dtype: Optional[torch.dtype] = None
+                       device="cuda", dtype: Optional[torch.dtype] = None
                        ) -> Whisper:
     """A ``Whisper`` module holding the JAX tree's weights (numpy or torch
     leaves) on ``device`` in ``dtype`` (default: ``config.dtype``; pass
@@ -133,6 +133,20 @@ def module_from_params(tree: Params, config: WhisperConfig, stem: StemConfig,
 def params_from_module(model: Whisper) -> Params:
     """The JAX-layout tree (float32 numpy leaves) of a ``Whisper`` module."""
     return _tree(model)
+
+
+def load_npz(path: str) -> Params:
+    """The tree of an npz written by ``save_npz`` (or by the JAX package):
+    ``/``-joined entry names become nested dicts of numpy leaves."""
+    data = np.load(path)
+    tree: Params = {}
+    for name in data.files:
+        node = tree
+        parts = name.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = data[name]
+    return tree
 
 
 def save_npz(path: str, params: Params) -> None:
@@ -151,7 +165,7 @@ def save_npz(path: str, params: Params) -> None:
     np.savez(path, **flat)
 
 
-def lora_from_params(tree: Params, device="cpu") -> Params:
+def lora_from_params(tree: Params, device="cuda") -> Params:
     """The port's adapter tree from the JAX package's (leaves stacked on
     ``[L, ...]``, numpy or torch): per part, a list of per-layer entries of
     f32 tensors on ``device``, values copied exactly."""

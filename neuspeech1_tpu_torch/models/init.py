@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from neuspeech1_tpu.config import StemConfig, WhisperConfig
+from neuspeech1_tpu_torch.config import StemConfig, WhisperConfig
 
 INIT_STD = 0.02
 

@@ -46,7 +46,7 @@ def _entry_shapes(d_model: int, ffn: int, name: str) -> Tuple[int, int]:
 def init_lora(config, rank: int = 32, alpha: float = 64.0,
               targets: Sequence[str] = DEFAULT_TARGETS,
               parts: Sequence[str] = ("encoder",), adalora: bool = False,
-              seed: int = 1, device="cpu", dtype=torch.float32,
+              seed: int = 1, device="cuda", dtype=torch.float32,
               layer_range: Optional[Tuple[int, int]] = None) -> Params:
     """The adapter tree of ``neuspeech1_tpu.models.lora.init_lora``: A ~
     N(0, 1/r), B = 0, so the model starts at its base weights; with

@@ -11,14 +11,19 @@ the JAX package casts its f32 master weights. A serving model holds its
 weights in the compute dtype (no casts), a training model f32 masters.
 
 Public functions keep the JAX package's layouts: features [B, ch, T],
-attention in BTHD, decode caches ``k_t``/``v_t`` as [B, H, Dh, T].
+attention in BTHD, the decode cross cache ``k``/``v`` as [B, H, T_src, Dh]
+and the self cache ``k_t``/``v_t`` as [B, H, Dh, Tmax].
 Attention goes through ``ops.flash_attention`` (the Hopper kernels on CUDA
 tensors) where the JAX package takes its flash kernel: encoder
 self-attention, and teacher-forcing decoder cross- and self-attention from
-the ``decoder_flash_*_min_q`` lengths on. Elsewhere it is plain tensor code,
-as it is XLA in the JAX package, with the same rounding points: scores from
-a product in the compute dtype, softmax in f32, probabilities cast back to
-the compute dtype for the PV product.
+the ``decoder_flash_*_min_q`` lengths on. The cached decoder goes through
+the decode kernels: every cross-attention call through ``ops.decode_cross``
+(K6) and every width-1 self-attention step through ``ops.decode_step``
+(K7). With ``config.flash_attention == "off"`` all of these run their plain
+versions. Elsewhere attention is plain tensor code, as it is XLA in the JAX
+package, with the same rounding points: scores from a product in the
+compute dtype, softmax in f32, probabilities cast back to the compute dtype
+for the PV product.
 """
 
 from __future__ import annotations
@@ -30,8 +35,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from neuspeech1_tpu.config import StemConfig, WhisperConfig
+from neuspeech1_tpu_torch.config import StemConfig, WhisperConfig
 from neuspeech1_tpu_torch.models.lora import folded_linear, lora_delta
+from neuspeech1_tpu_torch.ops.decode_cross import decode_cross, decode_cross_plain
+from neuspeech1_tpu_torch.ops.decode_step import decode_step, decode_step_plain
 from neuspeech1_tpu_torch.ops.flash_attention import flash_attention_bthd
 
 # --------------------------------------------------------------------------
@@ -80,11 +87,12 @@ class DecoderLayer(nn.Module):
     def forward(self, h, enc_out, self_mask, self_cache=None,
                 cross_cache=None, cache_index: Optional[int] = None,
                 lora=None, flash_self: bool = False,
-                flash_cross: bool = False):
+                flash_cross: bool = False, kernels: bool = True):
         """Teacher forcing without caches, self-attention causal through
         flash with ``flash_self`` (else under ``self_mask``) and
         cross-attention through flash with ``flash_cross``; one incremental
-        step with caches (updated in place)."""
+        step with caches (updated in place), through the decode kernels
+        with ``kernels`` and their plain versions without."""
         lora = lora or {}
         x = layer_norm(h, self.self_attn_ln)
         if self_cache is None:
@@ -93,8 +101,8 @@ class DecoderLayer(nn.Module):
                                mask=None if flash_self else self_mask,
                                lora=lora.get("self_attn"), causal=True)
         else:
-            x = self_decode_dt(x, self.self_attn, self.n_heads, self_cache,
-                               cache_index, self_mask)
+            x = self_decode(x, self.self_attn, self.n_heads, self_cache,
+                            cache_index, self_mask, kernels)
         h = h + x
         x = layer_norm(h, self.cross_attn_ln)
         if cross_cache is None:
@@ -103,7 +111,8 @@ class DecoderLayer(nn.Module):
                                 flash_cross, kv_len=None,
                                 lora=lora.get("cross_attn"))
         else:
-            x = cross_decode_dt(x, self.cross_attn, self.n_heads, cross_cache)
+            x = cross_decode(x, self.cross_attn, self.n_heads, cross_cache,
+                             kernels)
         h = h + x
         return h + mlp(layer_norm(h, self.final_ln), self, lora)
 
@@ -316,26 +325,41 @@ def cross_attention(x, enc_out, p: Attention, n_heads: int,
     return linear(_merge_heads(out), p.out, lora.get("out"))
 
 
-def self_decode_dt(x, p: Attention, n_heads: int, cache: dict,
-                   cache_index: int, mask):
-    """Incremental self-attention on the [B, H, Dh, Tmax] cache: the new
-    K/V columns are written at ``cache_index`` in place (the JAX package
-    returns an updated copy), then all Tmax columns are scored under
-    ``mask``."""
+def self_decode(x, p: Attention, n_heads: int, cache: dict,
+                cache_index: int, mask, kernels: bool = True):
+    """Incremental self-attention on the [B, H, Dh, Tmax] cache, updated in
+    place (the JAX package returns an updated copy). A width-1 step attends
+    the contiguous columns 0..cache_index: it goes through `decode_step`
+    (K7), which writes the new column and attends in one launch. A wider
+    call (the prompt's prefill) writes its columns, then scores all Tmax
+    columns under ``mask`` with plain tensor code, as in the JAX package."""
     q = _split_heads(linear(x, p.q), n_heads)
-    t = q.shape[1]
+    k = _split_heads(linear(x, p.k), n_heads)
+    v = _split_heads(linear(x, p.v), n_heads)
     k_t, v_t = cache["k_t"], cache["v_t"]
-    k_t[..., cache_index:cache_index + t] = (
-        _split_heads(linear(x, p.k), n_heads).permute(0, 2, 3, 1))
-    v_t[..., cache_index:cache_index + t] = (
-        _split_heads(linear(x, p.v), n_heads).permute(0, 2, 3, 1))
-    return linear(_merge_heads(_attend_t(q, k_t, v_t, mask)), p.out)
-
-
-def cross_decode_dt(x, p: Attention, n_heads: int, cache: dict):
-    q = _split_heads(linear(x, p.q), n_heads)
-    out = _attend_t(q, cache["k_t"], cache["v_t"])
+    t = q.shape[1]
+    if t == 1:
+        step = decode_step if kernels else decode_step_plain
+        out = step(q, k, v, k_t, v_t, cache_index)
+    else:
+        k_t[..., cache_index:cache_index + t] = k.permute(0, 2, 3, 1)
+        v_t[..., cache_index:cache_index + t] = v.permute(0, 2, 3, 1)
+        out = _attend_t(q, k_t, v_t, mask)
     return linear(_merge_heads(out), p.out)
+
+
+def cross_decode(x, p: Attention, n_heads: int, cache: dict,
+                 kernels: bool = True):
+    """Cross-attention of the cached decoder over the encoder cache
+    ``k``/``v`` [B, H, T_src, Dh], through `decode_cross` (K6). Beam search
+    runs B*K decoder rows against one cache per utterance: the beam rows
+    fold into the query, [B*K, t, H, Dh] -> [B, K*t, H, Dh], beam-major
+    within an utterance (cross K/V is beam-invariant)."""
+    q = _split_heads(linear(x, p.q), n_heads)
+    b = cache["k"].shape[0]
+    attend = decode_cross if kernels else decode_cross_plain
+    out = attend(q.reshape(b, -1, *q.shape[2:]), cache["k"], cache["v"])
+    return linear(_merge_heads(out.reshape(q.shape)), p.out)
 
 
 def _attend_t(q, k_t, v_t, mask=None):
@@ -416,49 +440,56 @@ def decoder_apply(model: Whisper, tokens, enc_out, cache=None,
                       flash_self=flash_self, flash_cross=flash_cross)
     else:
         h = h + _cast(dec.pos_embed[cache_index:cache_index + t], h.dtype)
-        t_max = cache["self"][0]["k_t"].shape[-1]
-        positions = torch.arange(t_max, device=h.device)
-        rows = cache_index + torch.arange(t, device=h.device)
-        mask = (positions[None, :] <= rows[:, None])[None, None]
+        mask = None  # a width-1 step attends the contiguous columns
+        if t > 1:
+            t_max = cache["self"][0]["k_t"].shape[-1]
+            positions = torch.arange(t_max, device=h.device)
+            rows = cache_index + torch.arange(t, device=h.device)
+            mask = (positions[None, :] <= rows[:, None])[None, None]
+        kernels = resolve_flash(model)
         for layer, sc, cc in zip(dec.layers, cache["self"], cache["cross"]):
             h = layer(h, None, mask, self_cache=sc, cross_cache=cc,
-                      cache_index=cache_index)
+                      cache_index=cache_index, kernels=kernels)
     h = layer_norm(h, dec.ln)
     logits = F.linear(h, _cast(dec.token_embed.weight, h.dtype))
     return logits if cache is None else (logits, cache)
 
 
 def init_cache(model: Whisper, enc_out, max_len: int, int8_cross: bool = False,
-               cross_layout: str = "bhtd", self_t_major: bool = False):
-    """Decode caches for the default layout: per layer, cross K/V
-    precomputed from ``enc_out`` as ``k_t``/``v_t`` [B, H, Dh, T_src] and
-    zeroed self K/V ``k_t``/``v_t`` [B, H, Dh, max_len], in the model dtype.
+               cross_layout: str = "bhtd", self_t_major: bool = False,
+               self_batch: Optional[int] = None):
+    """Decode caches: per layer, the cross K/V ``k``/``v`` [B, H, T_src, Dh]
+    projected from ``enc_out`` once (the layout `decode_cross` reads
+    natively), and zeroed self K/V ``k_t``/``v_t`` [self_batch or B, H, Dh,
+    max_len], in the model dtype. ``self_batch`` is the decoder's row count
+    when it exceeds the encoder batch: beam search runs B*K rows against one
+    cross cache per utterance.
 
     The JAX package's int8 cross cache (``int8_cross``), its 'btc' cross
     layout and its speculative-decode self caches (``self_t_major``) are
     not ported yet: they raise (ROADMAP.md queue 1)."""
     if int8_cross or cross_layout != "bhtd" or self_t_major:
         raise NotImplementedError(
-            "only the 'bhtd' k_t cache layout is ported; the int8 and 'btc' "
-            "cross caches and the speculative self caches are queued in "
-            "ROADMAP.md")
+            "only the 'bhtd' cross cache layout is ported; the int8 and "
+            "'btc' cross caches and the speculative self caches are queued "
+            "in ROADMAP.md")
     config = model.config
-    b = enc_out.shape[0]
     h = config.decoder_heads
     dh = config.d_model // h
     enc_out = enc_out.to(model.dtype)
+    rows = self_batch or enc_out.shape[0]
+
+    def bhtd(x):
+        return _split_heads(x, h).transpose(1, 2).contiguous()
+
     cross: List[dict] = []
     selfc: List[dict] = []
     for layer in model.decoder.layers:
         ca = layer.cross_attn
-        cross.append({
-            "k_t": _split_heads(linear(enc_out, ca.k), h).permute(0, 2, 3, 1)
-            .contiguous(),
-            "v_t": _split_heads(linear(enc_out, ca.v), h).permute(0, 2, 3, 1)
-            .contiguous(),
-        })
+        cross.append({"k": bhtd(linear(enc_out, ca.k)),
+                      "v": bhtd(linear(enc_out, ca.v))})
         selfc.append({
-            name: torch.zeros((b, h, dh, max_len), dtype=model.dtype,
+            name: torch.zeros((rows, h, dh, max_len), dtype=model.dtype,
                               device=enc_out.device)
             for name in ("k_t", "v_t")})
     return {"self": selfc, "cross": cross}

@@ -1,5 +1,7 @@
 """Inference API of the PyTorch port: load a full model, transcribe brain
-signals. The port of ``neuspeech1_tpu/serve.py`` for greedy decoding:
+signals. The port of ``neuspeech1_tpu/serve.py`` for greedy decoding and
+beam search (the eval CLI's decode: ``num_beams=5,
+repetition_penalty=5.0, no_repeat_ngram_size=2``):
 
     from neuspeech1_tpu_torch.serve import Transcriber
     t = Transcriber("runs/gwilliams_base/full_model", tokenizer="byte",
@@ -42,11 +44,9 @@ class Transcriber:
     ):
         """``suppress_tokens``: 'default' derives the HF whisper suppress /
         begin-suppress lists from the tokenizer's vocab, 'none' disables
-        both, or a comma-separated id list. Beam search, sampling, int8
-        weights or caches and speculative decoding are not ported yet and
-        raise."""
-        unported = {"num_beams > 1": num_beams > 1,
-                    "int8_weights": int8_weights,
+        both, or a comma-separated id list. Sampling, int8 weights or caches
+        and speculative decoding are not ported yet and raise."""
+        unported = {"int8_weights": int8_weights,
                     "int8_kv_cache": int8_kv_cache, "do_sample": do_sample,
                     "spec_gamma": spec_gamma >= 2,
                     "spec_draft_from": spec_draft_from is not None}
@@ -68,6 +68,7 @@ class Transcriber:
         self.gen = GenerationConfig.for_model(
             config,
             max_length=self.prompt.shape[1] + max_new_tokens,
+            num_beams=num_beams,
             repetition_penalty=repetition_penalty,
             no_repeat_ngram_size=no_repeat_ngram_size,
             **common.suppress_kwargs(suppress_tokens, self.tokenizer),
@@ -96,8 +97,9 @@ class Transcriber:
         return signals
 
     def transcribe(self, signals: np.ndarray) -> List[str]:
-        """Batched greedy decode; the last chunk is padded to
-        ``batch_size`` rows by repeating its last signal."""
+        """Batched decode (greedy, or beam search with ``num_beams > 1``);
+        the last chunk is padded to ``batch_size`` rows by repeating its
+        last signal."""
         signals = self._prepare(signals)
         out_texts: List[str] = []
         bs = self.batch_size

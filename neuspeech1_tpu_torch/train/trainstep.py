@@ -23,7 +23,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from neuspeech1_tpu.config import StemConfig, WhisperConfig
+from neuspeech1_tpu_torch.config import StemConfig, WhisperConfig
 from neuspeech1_tpu_torch.models import whisper as tw
 from neuspeech1_tpu_torch.models.lora import (
     has_entries, merge_lora, split_lora_fc)

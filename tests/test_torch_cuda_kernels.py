@@ -10,6 +10,8 @@ there without the conftest:
 import pytest
 import torch
 
+from neuspeech1_tpu_torch.ops import decode_cross as tdc
+from neuspeech1_tpu_torch.ops import decode_step as tds
 from neuspeech1_tpu_torch.ops import flash_attention as tfa
 from neuspeech1_tpu_torch.ops import lora_bwd as tlb
 
@@ -97,3 +99,52 @@ def test_lora_bwd_kernel_matches_plain_on_card(cuda_device, n, din, dout, r):
     # moves a sum far less than 2^-8 of its largest entry
     for g, p in zip(got, ref):
         assert g.shape == p.shape and _rel_err(g, p) <= 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t_q,t,kv_len,d", [
+    (8, 1, 1500, None, 64), (16, 5, 1500, None, 64), (16, 20, 1500, 1400, 64),
+    (2, 64, 300, 257, 32), (3, 3, 100, None, 128), (2, 85, 300, 257, 64)])
+def test_decode_cross_kernel_matches_plain_on_card(cuda_device, b, t_q, t,
+                                                   kv_len, d):
+    h = 8
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q = (torch.randn((b, t_q, h * d), generator=gen, device=cuda_device)
+         .to(torch.bfloat16).view(b, t_q, h, d))
+    k, v = (torch.randn((b, h, t, d), generator=gen, device=cuda_device)
+            .to(torch.bfloat16) for _ in range(2))
+    before = tdc.launches
+    o = tdc.decode_cross(q, k, v, kv_len)
+    # one launch per chunk of at most MAX_TQ query rows
+    assert tdc.launches == before + -(-t_q // tdc.MAX_TQ)
+    o_p = tdc.decode_cross_plain(q, k, v, kv_len)
+    # two bf16 ulps of the largest |o| (chip_smoke.py K6_REL_TOL)
+    assert _rel_err(o, o_p) <= 2.0 ** -6
+    # the [B, T, H*D] entry reads the same cache through other strides
+    kb, vb = (x.transpose(1, 2).reshape(b, t, h * d) for x in (k, v))
+    o_btc = tdc.decode_cross_btc(q[:, :1], kb, vb, kv_len)
+    torch.testing.assert_close(o_btc, o[:, :1], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,t_max,idx,dh", [
+    (80, 132, 3, 64), (80, 132, 131, 64), (8, 36, 0, 64), (4, 448, 300, 128),
+    (5, 20, 10, 32)])
+def test_decode_step_kernel_matches_plain_on_card(cuda_device, rows, t_max,
+                                                  idx, dh):
+    h = 8
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    q, kn, vn = (torch.randn((rows, 1, h * dh), generator=gen,
+                             device=cuda_device).to(torch.bfloat16)
+                 .view(rows, 1, h, dh) for _ in range(3))
+    k_t, v_t = (torch.randn((rows, h, dh, t_max), generator=gen,
+                            device=cuda_device).to(torch.bfloat16)
+                for _ in range(2))
+    kp, vp = k_t.clone(), v_t.clone()
+    before = tds.launches
+    ctx = tds.decode_step(q, kn, vn, k_t, v_t, idx)
+    assert tds.launches == before + 1
+    ctx_p = tds.decode_step_plain(q, kn, vn, kp, vp, idx)
+    assert torch.equal(k_t, kp) and torch.equal(v_t, vp)
+    # a flipped bf16 score rounding, and an ulp of ctx (chip_smoke.py K7_TOL)
+    assert (ctx.float() - ctx_p.float()).abs().max().item() <= 2e-2

@@ -22,6 +22,8 @@ from neuspeech1_tpu_torch.decode import generate as tg
 from neuspeech1_tpu_torch.decode import logits_process as tlp
 from neuspeech1_tpu_torch.models.convert import module_from_params
 from neuspeech1_tpu_torch.serve import Transcriber
+from neuspeech1_tpu_torch.utils.tokenizer import ByteTokenizer as TByteTokenizer
+from tests.test_torch_whisper import port
 
 torch.set_num_threads(1)
 
@@ -51,7 +53,8 @@ def setup():
         (3, 8, 400)).astype(np.float32)
     tok = ByteTokenizer(config)
     prompt = np.asarray([tok.prefix_tokens()] * 3, np.int32)
-    return (config, stem, params, module_from_params(params, config, stem),
+    return (config, stem, params,
+            module_from_params(params, port(config), port(stem), device="cpu"),
             feats, prompt, tok)
 
 
@@ -59,13 +62,17 @@ def setup():
 def test_greedy_tokens_equal_jax(setup, mode):
     config, stem, params, model, feats, prompt, tok = setup
     kw = {"plain": {},
-          "suppress_rp_ngram": dict(tokenizer=tok, repetition_penalty=5.0,
+          "suppress_rp_ngram": dict(repetition_penalty=5.0,
                                     no_repeat_ngram_size=2),
           "min_new": dict(min_new_tokens=3, no_repeat_ngram_size=3)}[mode]
+    tokenizers = ({"tokenizer": tok}, {"tokenizer": TByteTokenizer(
+        port(config))}) if mode == "suppress_rp_ngram" else ({}, {})
     ref = np.asarray(jg.greedy_decode(
         params, feats, prompt, config, stem,
-        jg.GenerationConfig.for_model(config, max_length=24, **kw)))
-    gen = tg.GenerationConfig.for_model(config, max_length=24, **kw)
+        jg.GenerationConfig.for_model(config, max_length=24, **kw,
+                                      **tokenizers[0])))
+    gen = tg.GenerationConfig.for_model(port(config), max_length=24, **kw,
+                                        **tokenizers[1])
     if mode == "suppress_rp_ngram":
         assert gen.suppress_ids and gen.begin_suppress_ids
     ours = tg.generate(model, torch.from_numpy(feats),
@@ -77,12 +84,12 @@ def test_greedy_stops_and_pads_finished_rows(setup):
     """A row that emits eos keeps emitting pad; the loop ends once every row
     has finished, the buffer stays pad-filled to max_length."""
     config, stem, params, model, feats, prompt, tok = setup
-    gen = tg.GenerationConfig.for_model(config, max_length=24)
+    gen = tg.GenerationConfig.for_model(port(config), max_length=24)
     free = tg.greedy_decode(model, torch.from_numpy(feats),
                             torch.from_numpy(prompt.astype(np.int64)), gen)
     # make the first generated token of row 0 the eos token
     eos_gen = tg.GenerationConfig.for_model(
-        config, max_length=24, eos_id=int(free[0, prompt.shape[1]]))
+        port(config), max_length=24, eos_id=int(free[0, prompt.shape[1]]))
     out = tg.greedy_decode(model, torch.from_numpy(feats),
                            torch.from_numpy(prompt.astype(np.int64)), eos_gen)
     p = prompt.shape[1]
@@ -131,12 +138,13 @@ def test_logits_processors_match_jax():
                                    jnp.asarray(nxt.numpy()))))
 
 
-@pytest.mark.parametrize("kw", [dict(num_beams=2), dict(do_sample=True),
+@pytest.mark.parametrize("kw", [dict(num_beams=2, do_sample=True),
+                                dict(do_sample=True),
                                 dict(penalty_alpha=0.6, top_k=4),
                                 dict(spec_gamma=4)])
 def test_generate_raises_for_unported_modes(setup, kw):
     config, stem, params, model, feats, prompt, tok = setup
-    gen = tg.GenerationConfig.for_model(config, max_length=8, **kw)
+    gen = tg.GenerationConfig.for_model(port(config), max_length=8, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tg.generate(model, torch.from_numpy(feats),
                     torch.from_numpy(prompt.astype(np.int64)), gen)
@@ -173,7 +181,8 @@ def test_transcriber_texts_equal_jax(model_dir, kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(num_beams=5), dict(int8_weights=True), dict(int8_kv_cache=True),
+    dict(num_beams=5, do_sample=True), dict(int8_weights=True),
+    dict(int8_kv_cache=True),
     dict(do_sample=True), dict(spec_gamma=2)])
 def test_transcriber_raises_for_unported_options(model_dir, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

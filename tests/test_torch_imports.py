@@ -1,5 +1,6 @@
-"""The PyTorch port never imports JAX: the machine it serves and trains on
-has none."""
+"""The PyTorch port never imports JAX, nor anything of the JAX package
+neuspeech1_tpu (not even a module that does not import JAX): the machine it
+serves and trains on has neither."""
 
 import os
 import subprocess
@@ -13,16 +14,23 @@ SCRIPT = textwrap.dedent("""
 
     class NoJax:
         def find_spec(self, name, path=None, target=None):
-            if name == "jax" or name.startswith(("jax.", "jaxlib")):
+            if name in ("jax", "neuspeech1_tpu") or name.startswith(
+                    ("jax.", "jaxlib", "neuspeech1_tpu.")):
                 raise ImportError(f"the port imported {name}")
             return None
+
+    def check_clean(after):
+        bad = [m for m in sys.modules
+               if m in ("jax", "neuspeech1_tpu")
+               or m.startswith(("jax.", "neuspeech1_tpu."))]
+        assert not bad, (after, bad)
 
     sys.meta_path.insert(0, NoJax())
 
     import numpy as np
     import torch
     import neuspeech1_tpu_torch
-    from neuspeech1_tpu.config import StemConfig, tiny_config
+    from neuspeech1_tpu_torch.config import StemConfig, tiny_config
 
     names = [m.name for m in pkgutil.walk_packages(
         neuspeech1_tpu_torch.__path__, "neuspeech1_tpu_torch.")]
@@ -42,7 +50,14 @@ SCRIPT = textwrap.dedent("""
         texts = Transcriber(tmp, batch_size=2, max_new_tokens=4,
                             device="cpu").transcribe(
             np.ones((3, 4, 400), np.float32))
-    assert len(texts) == 3, texts
+        assert len(texts) == 3, texts
+        check_clean("greedy Transcriber")
+        texts = Transcriber(tmp, batch_size=2, max_new_tokens=4,
+                            num_beams=3, repetition_penalty=5.0,
+                            no_repeat_ngram_size=2, device="cpu").transcribe(
+            np.ones((3, 4, 400), np.float32))
+        assert len(texts) == 3, texts
+        check_clean("beam Transcriber")
 
     # one LoRA training step (fold_lora, the 'fc' regime) on the CPU
     from neuspeech1_tpu_torch.models.convert import module_from_params
@@ -52,17 +67,17 @@ SCRIPT = textwrap.dedent("""
             "neuspeech1_tpu_torch.train.optimizer",
             "neuspeech1_tpu_torch.train.trainstep"} <= set(names)
     model = module_from_params(init_params(config, stem, seed=0), config,
-                               stem, dtype=torch.float32)
+                               stem, device="cpu", dtype=torch.float32)
     tx = optimizer.make_optimizer(warmup_steps=0)
     state, frozen = trainstep.init_train_state(
-        model, init_lora(config, rank=4, alpha=8), tx)
+        model, init_lora(config, rank=4, alpha=8, device="cpu"), tx)
     step = trainstep.make_train_step(config, stem, tx, fold_lora=True)
     metrics = step(state, frozen, {
         "input_features": torch.ones((2, 4, 400)),
         "labels": torch.ones((2, 5), dtype=torch.long),
         "decoder_input_ids": torch.ones((2, 5), dtype=torch.long)})
     assert float(metrics["grad_norm"]) > 0, metrics
-    assert "jax" not in sys.modules
+    check_clean("training step")
     print("modules", len(names))
 """)
 

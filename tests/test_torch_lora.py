@@ -22,7 +22,7 @@ from neuspeech1_tpu_torch.models.convert import (
     lora_from_params, module_from_params, params_from_lora)
 from neuspeech1_tpu_torch.ops import lora_bwd as tlb
 from tests.test_torch_flash_attention import _OnCuda
-from tests.test_torch_whisper import scaled_params, tiny
+from tests.test_torch_whisper import port, scaled_params, tiny
 
 torch.set_num_threads(1)
 
@@ -140,7 +140,7 @@ def trees():
 
 def test_lora_bridge_round_trip_is_exact(trees):
     config, lora = trees
-    ours = lora_from_params(lora)
+    ours = lora_from_params(lora, device="cpu")
     assert len(ours["encoder"]["layers"]) == config.encoder_layers
     assert ours["encoder"]["layers"][1]["fc1"]["A"].shape == (128, 4)
     back = params_from_lora(ours)
@@ -153,7 +153,7 @@ def test_lora_bridge_round_trip_is_exact(trees):
 def test_split_lora_fc_matches_jax(trees):
     _, lora = trees
     m_ref, f_ref = jl.split_lora_fc(lora)
-    m, f = tl.split_lora_fc(lora_from_params(lora))
+    m, f = tl.split_lora_fc(lora_from_params(lora, device="cpu"))
     for ours, ref in ((m, m_ref), (f, f_ref)):
         back = params_from_lora(ours)
         assert jax.tree_util.tree_structure(back) == \
@@ -169,8 +169,8 @@ def test_merge_lora_matches_jax(trees):
     stem = StemConfig("base", in_channels=8)
     params = scaled_params(config, stem)
     ref = jax.device_get(jl.merge_lora(params, lora))
-    model = module_from_params(params, config, stem)
-    merged = tl.merge_lora(model, lora_from_params(lora))
+    model = module_from_params(params, port(config), port(stem), device="cpu")
+    merged = tl.merge_lora(model, lora_from_params(lora, device="cpu"))
     assert len(merged) == 6 * config.encoder_layers
     for name, w in merged.items():
         _, _, layer, *path, _ = name.split(".")
@@ -184,8 +184,9 @@ def test_merge_lora_matches_jax(trees):
 def test_init_lora_tree_and_distributions():
     config = tiny()
     for adalora in (False, True):
-        ours = params_from_lora(tl.init_lora(config, rank=8, alpha=16,
-                                             adalora=adalora, seed=0))
+        ours = params_from_lora(tl.init_lora(port(config), rank=8, alpha=16,
+                                             adalora=adalora, seed=0,
+                                             device="cpu"))
         ref = jax.device_get(jl.init_lora(jax.random.key(0), config, rank=8,
                                           alpha=16, adalora=adalora))
         assert jax.tree_util.tree_structure(ours) == \
@@ -200,7 +201,8 @@ def test_init_lora_tree_and_distributions():
             else:
                 std = 0.02 if adalora else 8 ** -0.5
                 assert abs(a.std() / std - 1) < 0.1, path
-    ranged = tl.init_lora(config, rank=4, layer_range=(1, 2))
+    ranged = tl.init_lora(port(config), rank=4, layer_range=(1, 2),
+                          device="cpu")
     assert [float(layer["fc1"]["alpha"]) for layer in
             ranged["encoder"]["layers"]] == [0.0, 64.0]
 
@@ -218,8 +220,8 @@ def test_forward_with_lora_matches_jax(trees, fold):
     dec = rng.integers(0, config.vocab_size, (2, 6)).astype(np.int32)
     ref = np.asarray(jax.jit(lambda p, f, d, lo: jw.forward(
         p, f, d, config, stem, lora=lo))(params, feats, dec, lora))
-    model = module_from_params(params, config, stem)
-    ours_lora = lora_from_params(lora)
+    model = module_from_params(params, port(config), port(stem), device="cpu")
+    ours_lora = lora_from_params(lora, device="cpu")
     with torch.no_grad(), (tw.fold_at_linear() if fold
                            else contextlib.nullcontext()):
         out = tw.forward(model, torch.from_numpy(feats),

@@ -22,7 +22,7 @@ from neuspeech1_tpu_torch.models.convert import (
     lora_from_params, module_from_params, params_from_lora)
 from neuspeech1_tpu_torch.train import optimizer as topt
 from neuspeech1_tpu_torch.train import trainstep as tts
-from tests.test_torch_whisper import tiny
+from tests.test_torch_whisper import port, tiny
 
 torch.set_num_threads(1)
 
@@ -30,6 +30,7 @@ torch.set_num_threads(1)
 RTOL, ATOL = 1e-4, 2e-4
 N_STEPS = 3
 STEM = StemConfig("base", in_channels=8)
+TSTEM = port(STEM)
 
 
 def _batch(config, seed=0):
@@ -53,8 +54,9 @@ def _setup(config):
     params = jax.device_get(init_params(jax.random.key(0), config, STEM))
     lora = jax.device_get(init_lora(jax.random.key(1), config, rank=8,
                                     alpha=16))
-    model = module_from_params(params, config, STEM, dtype=torch.float32)
-    return params, lora, model, lora_from_params(lora)
+    model = module_from_params(params, port(config), TSTEM, device="cpu",
+                               dtype=torch.float32)
+    return params, lora, model, lora_from_params(lora, device="cpu")
 
 
 def _optimizers():
@@ -91,7 +93,7 @@ def runs():
     jstep = jts.make_train_step(config, STEM, jtx, fold_lora=True,
                                 donate=False)
     tstate, tfrozen = tts.init_train_state(model, t_lora, ttx)
-    tstep = tts.make_train_step(config, STEM, ttx, fold_lora=True)
+    tstep = tts.make_train_step(port(config), TSTEM, ttx, fold_lora=True)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     tb = _torch_batch(batch)
     out = []
@@ -232,8 +234,8 @@ def test_fold_lora_grads_equal_the_delta_path():
     batch = _torch_batch(_batch(config, seed=5))
     grads = []
     for fold in (False, True):
-        loss, _ = tts.make_loss_fn(config, STEM, fold_lora=fold)(frozen,
-                                                                 batch)
+        loss, _ = tts.make_loss_fn(port(config), TSTEM, fold_lora=fold)(
+            frozen, batch)
         grads.append((loss.item(), dict(zip(state.trainable, torch.autograd.grad(
             loss, list(state.trainable.values()), allow_unused=True)))))
     (l0, g0), (l1, g1) = grads
@@ -258,7 +260,8 @@ def test_eval_step_matches_jax():
         jstate.trainable, jfrozen, {k: jnp.asarray(v) for k, v in
                                     batch.items()})
     state, frozen = tts.init_train_state(model, t_lora, ttx)
-    got = tts.make_eval_step(config, STEM)(state, frozen, _torch_batch(batch))
+    got = tts.make_eval_step(port(config), TSTEM)(state, frozen,
+                                             _torch_batch(batch))
     np.testing.assert_allclose(got["loss"].item(), float(ref["loss"]),
                                rtol=RTOL, atol=ATOL)
     assert int(got["n_tokens"]) == int(ref["n_tokens"]) == 12
@@ -266,19 +269,19 @@ def test_eval_step_matches_jax():
 
 UNPORTED = {
     "augment": lambda c, tx: tts.make_train_step(
-        c, STEM, tx, augment_config={"noise": 0.1}),
-    "dropout": lambda c, tx: tts.make_train_step(c, STEM, tx,
+        c, TSTEM, tx, augment_config={"noise": 0.1}),
+    "dropout": lambda c, tx: tts.make_train_step(c, TSTEM, tx,
                                                  use_dropout=True),
-    "orth_reg": lambda c, tx: tts.make_train_step(c, STEM, tx,
+    "orth_reg": lambda c, tx: tts.make_train_step(c, TSTEM, tx,
                                                   orth_reg_weight=0.5),
     "adalora_importance": lambda c, tx: tts.make_train_step(
-        c, STEM, tx, track_adalora_importance=True),
-    "int8": lambda c, tx: tts.make_train_step(c, STEM, tx,
+        c, TSTEM, tx, track_adalora_importance=True),
+    "int8": lambda c, tx: tts.make_train_step(c, TSTEM, tx,
                                               int8_matmul="fwd"),
-    "fold_merge": lambda c, tx: tts.make_loss_fn(c, STEM, fold_lora=True,
+    "fold_merge": lambda c, tx: tts.make_loss_fn(c, TSTEM, fold_lora=True,
                                                  fold_impl="merge"),
     "remat": lambda c, tx: tts.make_train_step(
-        tiny(remat=True), STEM, tx),
+        port(tiny(remat=True)), TSTEM, tx),
     "accum_steps": lambda c, tx: topt.make_optimizer(accum_steps=4),
 }
 
@@ -286,4 +289,4 @@ UNPORTED = {
 @pytest.mark.parametrize("option", list(UNPORTED))
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        UNPORTED[option](tiny(), topt.make_optimizer())
+        UNPORTED[option](port(tiny()), topt.make_optimizer())

@@ -15,8 +15,10 @@ from neuspeech1_tpu.models import whisper as jw
 from neuspeech1_tpu.models.convert import load_npz
 from neuspeech1_tpu.models.init import init_params as jax_init_params
 from neuspeech1_tpu.models.init import sinusoids as jax_sinusoids
+from neuspeech1_tpu_torch import config as tc
 from neuspeech1_tpu_torch.cli import common
 from neuspeech1_tpu_torch.models import whisper as tw
+from neuspeech1_tpu_torch.models.convert import load_npz as port_load_npz
 from neuspeech1_tpu_torch.models.convert import (
     module_from_params, params_from_module, save_npz)
 from neuspeech1_tpu_torch.models.init import init_params, sinusoids
@@ -37,6 +39,13 @@ def tiny(**kw):
                        flash_attention="on", **kw)
 
 
+def port(cfg):
+    """The port's config (or stem config) with the same fields as the JAX
+    one: the port is never handed a JAX config object."""
+    cls = tc.WhisperConfig if isinstance(cfg, WhisperConfig) else tc.StemConfig
+    return cls(**dataclasses.asdict(cfg))
+
+
 def scaled_params(config, stem, scale=8.0):
     """init_params weights with every weight matrix and embedding scaled to
     std 0.16, so that outputs depend visibly on the input."""
@@ -54,7 +63,9 @@ def pair():
     params = scaled_params(config, stem)
     rng = np.random.default_rng(0)
     feats = rng.standard_normal((2, 8, 400)).astype(np.float32)
-    return config, stem, params, module_from_params(params, config, stem), feats
+    return (config, stem, params,
+            module_from_params(params, port(config), port(stem), device="cpu"),
+            feats)
 
 
 def test_encoder_matches_jax(pair):
@@ -104,7 +115,7 @@ def test_stems_match_jax(kind):
     config = tiny()
     stem = StemConfig(kind, in_channels=8)
     params = scaled_params(config, stem)
-    model = module_from_params(params, config, stem)
+    model = module_from_params(params, port(config), port(stem), device="cpu")
     n_in = config.num_mel_bins if kind == "speech" else 8
     t_in = config.max_source_positions * (2 if kind == "speech" else 4)
     feats = np.random.default_rng(3).standard_normal(
@@ -125,25 +136,26 @@ def test_weight_bridge_round_trip_is_exact(pair, tmp_path):
     assert model.encoder.layers[1].fc1.weight.shape == (256, 128)  # [out, in]
     path = str(tmp_path / "params.npz")
     save_npz(path, back)
-    loaded = load_npz(path)
-    assert jax.tree_util.tree_structure(loaded) == \
-        jax.tree_util.tree_structure(params)
-    assert jax.tree_util.tree_all(jax.tree_util.tree_map(
-        np.array_equal, loaded, params))
+    for loaded in (load_npz(path), port_load_npz(path)):
+        assert jax.tree_util.tree_structure(loaded) == \
+            jax.tree_util.tree_structure(params)
+        assert jax.tree_util.tree_all(jax.tree_util.tree_map(
+            np.array_equal, loaded, params))
 
 
 def test_bridge_rejects_a_tree_that_does_not_fit(pair):
     config, stem, params, _, _ = pair
     with pytest.raises(KeyError):
-        module_from_params({**params, "extra": {}}, config, stem)
+        module_from_params({**params, "extra": {}}, port(config), port(stem),
+                           device="cpu")
     wider = dataclasses.replace(config, encoder_ffn=512)
     with pytest.raises(ValueError):
-        module_from_params(params, wider, stem)
+        module_from_params(params, port(wider), port(stem), device="cpu")
 
 
 def test_init_matches_jax_tree_and_distributions():
     config, stem = tiny(), StemConfig("premel", in_channels=8)
-    ours = init_params(config, stem, seed=0)
+    ours = init_params(port(config), port(stem), seed=0)
     ref = jax.device_get(jax_init_params(jax.random.key(0), config, stem))
     ours_np = jax.tree_util.tree_map(lambda t: t.numpy(), ours)
     assert jax.tree_util.tree_structure(ours_np) == \
@@ -187,11 +199,16 @@ def test_f32_model_on_cuda_raises_instead_of_plain_attention(pair,
 
 def test_preset_model_is_whisper_base_over_208_channels():
     config, stem = common.preset_model("base", "base", in_channels=208)
-    assert config == WhisperConfig(**WHISPER_PRESETS["base"])
+    assert config == tc.WhisperConfig(**tc.WHISPER_PRESETS["base"])
+    # the port's own copy of the config: field for field the JAX preset
+    assert dataclasses.asdict(config) == dataclasses.asdict(
+        WhisperConfig(**WHISPER_PRESETS["base"]))
     assert (config.d_model, config.encoder_layers, config.decoder_layers,
             config.encoder_heads, config.vocab_size, config.dtype) == \
         (512, 6, 6, 8, 51865, "bfloat16")
-    assert stem == StemConfig("base", in_channels=208)
+    assert stem == tc.StemConfig("base", in_channels=208)
+    assert dataclasses.asdict(stem) == dataclasses.asdict(
+        StemConfig("base", in_channels=208))
 
 
 def test_unported_cache_layouts_raise(pair):
@@ -211,7 +228,8 @@ def test_decoder_flash_gates(monkeypatch, t):
     decode steps never take flash."""
     config = tiny(decoder_flash_self_min_q=4)
     stem = StemConfig("base", in_channels=8)
-    model = module_from_params(scaled_params(config, stem), config, stem)
+    model = module_from_params(scaled_params(config, stem), port(config),
+                               port(stem), device="cpu")
     calls = []
 
     def counting(q, k, v, causal=False, kv_len=None, return_lse=False):
@@ -248,7 +266,8 @@ def test_forward_with_decoder_self_flash_matches_jax():
     ref = np.asarray(jax.jit(lambda p, f, d: jw.forward(p, f, d, config, stem))(
         params, feats, dec.astype(np.int32)))
     with torch.no_grad():
-        ours = tw.forward(module_from_params(params, config, stem),
+        ours = tw.forward(module_from_params(params, port(config), port(stem),
+                                             device="cpu"),
                           torch.from_numpy(feats),
                           torch.from_numpy(dec)).numpy()
     np.testing.assert_allclose(ours, ref, rtol=RTOL, atol=ATOL)
@@ -261,8 +280,9 @@ def test_f32_master_model_computes_in_config_dtype():
     config = dataclasses.replace(tiny(), dtype="bfloat16")
     stem = StemConfig("base", in_channels=8)
     params = scaled_params(config, stem)
-    f32 = module_from_params(params, config, stem, dtype=torch.float32)
-    bf16 = module_from_params(params, config, stem)
+    f32 = module_from_params(params, port(config), port(stem), device="cpu",
+                             dtype=torch.float32)
+    bf16 = module_from_params(params, port(config), port(stem), device="cpu")
     assert f32.encoder.conv2.weight.dtype == torch.float32
     feats = torch.from_numpy(np.random.default_rng(6).standard_normal(
         (1, 8, 400)).astype(np.float32))
