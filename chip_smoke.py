@@ -15,7 +15,8 @@ each printing JSON lines:
             one PyTorch library call of the same function where there is
             one: K1 (flash forward), K2 (flash backward), K3 (LoRA adapter
             backward), K6 (decode cross-attention), K7 (decode
-            self-attention step).
+            self-attention step), K8 (multi-query decode step of
+            speculative decoding).
 3. slice    serves 16 synthetic [208, 6000] signals in two batches of 8
             greedily through ``neuspeech1_tpu_torch.serve.Transcriber`` with
             whisper-base weights made from a seed, counts the kernels'
@@ -29,7 +30,17 @@ each printing JSON lines:
             logits over 8 teacher-forced steps against the plain versions,
             and the share of tokens equal to the plain path's and to an
             f32 reference's.
-5. train    runs the LoRA training step (whisper-base, batch 64, r=32, the
+5. spec     self-speculative greedy serving (gamma 4, batch 16, 128 new
+            tokens) on the same model, with the self-prefix drafter and with
+            a corpus-table drafter built from the greedy outputs of the same
+            signals, beside a plain greedy request, and greedy and spec with
+            the int8 cross cache: latency, utterances/s, iterations and
+            accepted tokens per iteration, host syncs, the device's busy
+            share, launches of K1, K6, K7 and K8 against the model calls,
+            the cached decoder's logits over forced verify iterations
+            against the plain versions, and spec tokens against greedy (in
+            f32 with the plain versions they must be equal up to near-ties).
+6. train    runs the LoRA training step (whisper-base, batch 64, r=32, the
             'fc' fold) from seeded weights: kernel launches per step, the
             schedule's first steps, finite loss, ms per step and samples/s,
             and one step's gradients at batch 4 against the plain versions
@@ -116,6 +127,18 @@ K7_TOL = 2e-2
 # and the caches of the steps before pass the flips on, and the logits are
 # bf16 (2^-8 relative). A few percent of the largest logit.
 LOGITS_REL_TOL = 5e-2
+# K8: as K7, per query: a score whose bf16 rounding flips between the f32
+# sums of the kernel and the plain version moves that column's p by 1.6% of
+# itself, plus an ulp of the bf16 context (|ctx| < 1). The caches after the
+# in-place writes must be equal exactly.
+K8_TOL = 2e-2
+# Spec against greedy in f32 with the plain versions: the verify step runs
+# the decoder at width gamma where greedy runs it at width 1, so the
+# products sum in another order, as two f32 implementations of the same
+# function do. A first difference is a near-tie when greedy's top-2 logit
+# gap lies within the repo's f32 bound for such pairs (tests/
+# test_model_parity.py: rtol 1e-4 of the logit, atol 2e-4).
+F32_TIE_RTOL, F32_TIE_ATOL = 1e-4, 2e-4
 
 # NVIDIA H100 SXM peaks (data sheet, dense, at the 700 W limit): HBM3 rate
 # and bf16 tensor-core rate. The bound of a call is the larger of its bytes
@@ -162,6 +185,19 @@ DECODE_STEP_CASES = (
     ("beam_last", 80, 132, 131),
     ("greedy_last", 8, 36, 35),
 )
+# (name, rows, G, Tmax, idx, mask): K8 at the speculative serving path's
+# shapes, whisper-base, batch 16, gamma 4, 4 prompt + 128 new tokens (the
+# self cache holds 4 + 4 x 128 = 516 columns): the verify step early and
+# late with the holes of rejected drafts, and the prompt's prefill under the
+# contiguous rule broadcast over rows
+DECODE_STEP_MULTI_CASES = (
+    ("verify_early", 16, 4, 516, 8, "holes"),
+    ("verify_late", 16, 4, 516, 508, "holes"),
+    ("prefill", 16, 4, 516, 0, "broadcast"),
+)
+# the share of earlier verify columns a row keeps (accepted drafts) in the
+# K8 cases' hole masks
+ACCEPTED_SHARE = 0.7
 DECODE_HEADS, DECODE_HEAD_DIM = 8, 64
 # K6 timings cycle through this many copies of the cache, more bytes than
 # the 50 MB L2 holds, so that each call reads device memory as the decoder
@@ -203,6 +239,15 @@ BEAM_BATCH = 16
 BEAM_NEW_TOKENS = 128
 BEAM_REPEATS = 3
 BEAM_FORCED_STEPS = 8
+# Speculative serving: the JAX package's measured gamma, at the beam phase's
+# batch and budget
+SPEC_BATCH = 16
+SPEC_NEW_TOKENS = 128
+SPEC_GAMMA = 4
+SPEC_REPEATS = 3
+# tokens accepted in each forced verify iteration of the logits check: the
+# 4 - m rejected columns of each iteration stay as holes
+SPEC_FORCED_ACCEPTS = (1, 4, 2, 3, 1)
 SAMPLE_RATE = 200  # Hz: a 30 s clip is the stem's 6000 samples
 
 
@@ -262,7 +307,8 @@ def phase_build() -> list:
 
     loaders = {"flash_fwd_btc": fa._library, "flash_bwd_btc": fa._bwd_library,
                "lora_bwd": lb._library, "decode_cross": dc._library,
-               "decode_step": ds._library}
+               "decode_step": ds._library,
+               "decode_step_multi": ds._multi_library}
 
     def timed(name):
         t0 = time.perf_counter()
@@ -357,6 +403,7 @@ def phase_kernels() -> list:
     results.extend(_check_lora_bwd(gen))
     results.extend(_check_decode_cross(gen))
     results.extend(_check_decode_step(gen))
+    results.extend(_check_decode_step_multi(gen))
     return results
 
 
@@ -619,6 +666,73 @@ def _check_decode_step(gen) -> list:
     return out
 
 
+def _check_decode_step_multi(gen) -> list:
+    """K8 against its plain version at the speculative serving path's
+    shapes: the context within K8_TOL and the caches after the in-place
+    writes equal; timed over CACHE_COPIES caches in turn. No single PyTorch
+    call computes this function (G cache writes and a masked attention
+    per query)."""
+    from neuspeech1_tpu_torch.decode.spec import verify_mask
+    from neuspeech1_tpu_torch.ops import decode_step as ds
+
+    h, d = DECODE_HEADS, DECODE_HEAD_DIM
+    out = []
+    for name, rows, g, t_max, idx, kind in DECODE_STEP_MULTI_CASES:
+        q, kn, vn = (torch.randn((rows, g, h * d), generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+                     .view(rows, g, h, d) for _ in range(3))
+        caches = [tuple(torch.randn((rows, h, d, t_max), generator=gen,
+                                    device="cuda").to(torch.bfloat16)
+                        for _ in range(2)) for _ in range(CACHE_COPIES)]
+        if kind == "broadcast":
+            valid = torch.zeros((1, t_max), dtype=torch.bool, device="cuda")
+        else:
+            valid = torch.rand((rows, t_max), generator=gen,
+                               device="cuda") < ACCEPTED_SHARE
+        valid[:, :4] = True  # the prompt
+        valid[:, idx:] = False
+        mask = verify_mask(valid, idx, g)
+        kp, vp = (x.clone() for x in caches[0])
+        ds.multi_launches = 0
+        ctx_k = ds.decode_step_multi(q, kn, vn, mask, *caches[0], idx)
+        launches = ds.multi_launches
+        ctx_p = ds.decode_step_multi_plain(q, kn, vn, mask, kp, vp, idx)
+        torch.cuda.synchronize()
+        err = (ctx_k.float() - ctx_p.float()).abs().max().item()
+        caches_equal = bool(torch.equal(caches[0][0], kp)
+                            and torch.equal(caches[0][1], vp))
+        # what this run's data needs: the K and V columns some query's mask
+        # allows before the block (the kernel skips the holes), per row;
+        # the block's G columns written; q, k_new, v_new and the mask read;
+        # the context written. Operations: the score and PV products over
+        # every (query, allowed column) pair.
+        allowed = mask[:, 0].expand(rows, g, t_max)
+        old_cols = int(allowed[:, :, :idx].any(dim=1).sum())
+        pairs = int(allowed.sum())
+        n_bytes = (2 * h * d * 2 * (old_cols + rows * g)
+                   + 2 * rows * g * h * d * 4 + mask.numel())
+        cycle = itertools.cycle(caches)
+        res = {"phase": "kernels", "kernel": "K8", "case": name,
+               "shape": [rows, g, h, d, t_max], "idx": idx, "mask": kind,
+               "columns_read": old_cols, "launches": launches,
+               "max_abs_err": err, "tol": K8_TOL,
+               "caches_equal": caches_equal,
+               "ms": cuda_ms(lambda: ds.decode_step_multi(
+                   q, kn, vn, mask, *next(cycle), idx)),
+               "plain_ms": cuda_ms(lambda: ds.decode_step_multi_plain(
+                   q, kn, vn, mask, *next(cycle), idx)),
+               "library_ms": None,
+               **bound(n_bytes, 4 * h * d * pairs)}
+        emit(res)
+        check(launches == 1, f"K8 {name}: {launches} launches for one call")
+        check(caches_equal, f"K8 {name}: caches differ from the plain write")
+        check(bool(torch.isfinite(ctx_k.float()).all()),
+              f"K8 {name}: non-finite")
+        check(err <= K8_TOL, f"K8 {name}: kernel disagrees with plain version")
+        out.append(res)
+    return out
+
+
 def _signals(n_channels: int, n_samples: int, seed: int = 0) -> np.ndarray:
     """Synthetic clips of 2-10 s (a sinusoid per clip plus noise), then
     zeros: [SLICE_SIGNALS, n_channels, n_samples], 30 s at 200 Hz."""
@@ -654,15 +768,17 @@ def serving_model(tmp: str):
 @contextlib.contextmanager
 def count_model_calls():
     """Counts the calls the decode loops make into the model while the
-    context is open: encoder calls, cached decoder calls, the cached calls
-    one token wide, and the chunks of at most K6's MAX_TQ rows that the
-    cached calls' cross-attention queries take (an utterance's beam rows
-    fold into its query)."""
+    context is open: encoder calls; cached decoder calls; of those, the
+    calls on a speculative (``k_tu``) self cache, the calls one token wide
+    without a mask on the other self cache, and the calls on an int8 cross
+    cache; and the chunks of at most K6's MAX_TQ rows that the
+    cross-attention queries of the calls on a bf16 cross cache take (an
+    utterance's beam rows fold into its query)."""
     from neuspeech1_tpu_torch.models import whisper as tw
     from neuspeech1_tpu_torch.ops.decode_cross import MAX_TQ
 
-    calls = {"encoder": 0, "cached_decoder": 0, "width1": 0,
-             "cross_chunks": 0}
+    calls = {"encoder": 0, "cached_decoder": 0, "k_tu": 0, "width1": 0,
+             "int8": 0, "cross_chunks": 0}
     encoder_apply, decoder_apply = tw.encoder_apply, tw.decoder_apply
 
     def counted_encoder(*args, **kw):
@@ -670,13 +786,21 @@ def count_model_calls():
         return encoder_apply(*args, **kw)
 
     def counted_decoder(model, tokens, enc_out, cache=None, cache_index=None,
-                        lora=None):
+                        lora=None, pos_ids=None, self_attn_mask=None):
         if cache is not None:
             calls["cached_decoder"] += 1
-            calls["width1"] += int(tokens.shape[1] == 1)
-            rows = tokens.shape[0] // enc_out.shape[0] * tokens.shape[1]
-            calls["cross_chunks"] += -(-rows // MAX_TQ)
-        return decoder_apply(model, tokens, enc_out, cache, cache_index, lora)
+            if "k_tu" in cache["self"][0]:
+                calls["k_tu"] += 1
+            else:
+                calls["width1"] += int(tokens.shape[1] == 1
+                                       and self_attn_mask is None)
+            if "k_qt" in cache["cross"][0]:
+                calls["int8"] += 1
+            else:
+                rows = tokens.shape[0] // enc_out.shape[0] * tokens.shape[1]
+                calls["cross_chunks"] += -(-rows // MAX_TQ)
+        return decoder_apply(model, tokens, enc_out, cache, cache_index, lora,
+                             pos_ids, self_attn_mask)
 
     tw.encoder_apply, tw.decoder_apply = counted_encoder, counted_decoder
     try:
@@ -687,19 +811,24 @@ def count_model_calls():
 
 def _expected_launches(config, calls) -> dict:
     """K1 once per encoder layer and encoder call, K6 once per decoder layer
-    and query chunk of a cached decoder call (one chunk per call at the
-    served shapes), K7 once per decoder layer and width-1 call."""
+    and query chunk of a cached decoder call on a bf16 cross cache (one
+    chunk per call at the served shapes), K7 once per decoder layer and
+    width-1 call, K8 once per decoder layer and call on a k_tu cache."""
     return {"K1": config.encoder_layers * calls["encoder"],
             "K2": 0, "K3": 0,
             "K6": config.decoder_layers * calls["cross_chunks"],
-            "K7": config.decoder_layers * calls["width1"]}
+            "K7": config.decoder_layers * calls["width1"],
+            "K8": config.decoder_layers * calls["k_tu"]}
 
 
-def _check_serving_launches(name, config, calls, counts) -> None:
+def _check_serving_launches(name, config, calls, counts,
+                            path=("K1", "K6", "K7")) -> None:
+    """The launches equal the model calls' count, and each kernel of
+    ``path`` ran."""
     expect = _expected_launches(config, calls)
     check(counts == expect, f"{name}: kernel launches {counts}, expected "
           f"{expect} from the model calls {calls}")
-    check(all(counts[k] > 0 for k in ("K1", "K6", "K7")),
+    check(all(counts[k] > 0 for k in path),
           f"{name}: a kernel of the path was never launched: {counts}")
 
 
@@ -969,6 +1098,231 @@ def phase_beam(model) -> dict:
     return out
 
 
+def _forced_verify_logits(model, enc, tokens, prompt_len: int, gamma: int,
+                          accepts):
+    """The cached decoder's logits on the speculative (k_tu) cache for the
+    rows of ``tokens`` [B, L]: the prompt's prefill, then one verify
+    iteration per entry of ``accepts``, each feeding gamma tokens of
+    ``tokens`` from the last accepted one and then accepting that many, so
+    that the rejected columns stay as holes; [B, P + gamma * iterations,
+    V]."""
+    from neuspeech1_tpu_torch.decode.spec import verify_mask
+    from neuspeech1_tpu_torch.models import whisper as tw
+
+    b = tokens.shape[0]
+    t_max = prompt_len + gamma * len(accepts)
+    cache = tw.init_cache(model, enc, max_len=t_max, self_t_major=True)
+    logits, cache = tw.decoder_apply(model, tokens[:, :prompt_len], enc,
+                                     cache=cache, cache_index=0)
+    out = [logits]
+    valid = torch.zeros((b, t_max), dtype=torch.bool, device=tokens.device)
+    valid[:, :prompt_len] = True
+    n, phys = prompt_len + 1, prompt_len  # tokens accepted, next column
+    ar = torch.arange(gamma, device=tokens.device)
+    for m in accepts:
+        logits, cache = tw.decoder_apply(
+            model, tokens[:, n - 1:n - 1 + gamma], enc, cache=cache,
+            cache_index=phys, pos_ids=(n - 1 + ar).expand(b, gamma),
+            self_attn_mask=verify_mask(valid, phys, gamma))
+        out.append(logits)
+        valid[:, phys:phys + m] = True
+        n += m
+        phys += gamma
+    return torch.cat(out, dim=1)
+
+
+def _generated_lengths(tokens, prompt_len: int, eos_id: int):
+    """Per row, the tokens generated up to and including the first eos (all
+    of them where there is none)."""
+    is_eos = tokens[:, prompt_len:] == eos_id
+    return torch.where(is_eos.any(dim=1), is_eos.int().argmax(dim=1) + 1,
+                       is_eos.shape[1])
+
+
+def _spec_f32_ties(trs, feats, prompt) -> dict:
+    """Spec tokens against greedy tokens in f32 with the plain versions, for
+    both drafters: a row may part from greedy only at a near-tie, where
+    greedy's top-2 processed logit gap lies within F32_TIE_RTOL/ATOL.
+    Returns, per drafter, the rows that part, where, and their gaps."""
+    from neuspeech1_tpu_torch.decode.generate import _process_logits, generate
+    from neuspeech1_tpu_torch.models import whisper as tw
+
+    greedy = trs["greedy"]
+    model, gen = greedy.model, greedy.gen
+    p = prompt.shape[1]
+    out = {}
+    with torch.no_grad(), _plain_kernels(), _f32_compute(model):
+        ref = generate(model, feats, prompt, gen)
+        # greedy's logits at every position, as its cached steps take them
+        logits = _forced_logits(model, tw.encoder_apply(model, feats), ref, p,
+                                ref.shape[1] - p - 1)
+        for name in ("spec_self", "spec_table"):
+            got = generate(model, feats, prompt, trs[name].gen,
+                           draft_table=trs[name]._draft_table)
+            parts = []
+            for r in (got != ref).any(dim=1).nonzero()[:, 0].tolist():
+                j = int((got[r] != ref[r]).nonzero()[0])
+                scores = _process_logits(logits[r:r + 1, j - 1], ref[r:r + 1],
+                                         j, gen, p, None)[0]
+                top = scores.topk(2).values.tolist()
+                gap, tol = top[0] - top[1], F32_TIE_ATOL + F32_TIE_RTOL * abs(
+                    top[0])
+                parts.append({"row": r, "generated_position": j - p,
+                              "top2_gap": gap, "tie_bound": tol})
+                check(gap <= tol, f"spec {name} in f32: row {r} parts from "
+                      f"greedy at generated position {j - p}, where greedy's "
+                      f"top-2 gap {gap} is no near-tie (bound {tol})")
+            out[name] = {"rows": prompt.shape[0], "rows_parting": parts}
+    return out
+
+
+def phase_spec(model) -> dict:
+    """Self-speculative greedy serving at full width: gamma 4, batch 16,
+    128 new tokens, one request of 16 signals per reading, with the
+    self-prefix drafter and with the corpus-table drafter, beside plain
+    greedy, and greedy and spec with the int8 cross cache."""
+    from neuspeech1_tpu_torch.cli import common
+    from neuspeech1_tpu_torch.decode.generate import generate
+    from neuspeech1_tpu_torch.models import whisper as tw
+    from neuspeech1_tpu_torch.serve import Transcriber
+
+    config, model_dir, tokenizer = model
+    kw = dict(tokenizer=tokenizer, batch_size=SPEC_BATCH,
+              max_new_tokens=SPEC_NEW_TOKENS, device="cuda")
+    greedy = Transcriber(model_dir, **kw)
+    signals = _signals(greedy.stem.in_channels,
+                       4 * config.max_source_positions)[:SPEC_BATCH]
+    # the table drafter's corpus: the greedy texts of the same signals, so
+    # that its drafts are greedy's own continuations (full acceptance, up to
+    # pairs whose followers differ between rows)
+    manifest = os.path.join(os.path.dirname(model_dir), "train.jsonl")
+    with open(manifest, "w") as f:
+        for text in greedy.transcribe(signals):
+            f.write(json.dumps({"sentence": text}) + "\n")
+    spec = dict(kw, spec_gamma=SPEC_GAMMA)
+    trs = {"greedy": greedy,
+           "spec_self": Transcriber(model_dir, **spec),
+           "spec_table": Transcriber(model_dir, spec_draft_from=manifest,
+                                     **spec),
+           "greedy_int8": Transcriber(model_dir, int8_kv_cache=True, **kw),
+           "spec_int8": Transcriber(model_dir, int8_kv_cache=True, **spec)}
+    paths = {"greedy": ("K1", "K6", "K7"), "spec_self": ("K1", "K6", "K8"),
+             "spec_table": ("K1", "K6", "K8"), "greedy_int8": ("K1", "K7"),
+             "spec_int8": ("K1", "K8")}
+    feats = common.upload_features(greedy._prepare(signals),
+                                   greedy.model.dtype, greedy.device)
+    prompt = torch.as_tensor(np.repeat(greedy.prompt, SPEC_BATCH, axis=0),
+                             device=greedy.device)
+    p = prompt.shape[1]
+
+    reqs, tokens = {}, {}
+    for name, tr in trs.items():
+        tr.transcribe(signals)  # warm-up
+        torch.cuda.synchronize()
+        _reset_counts()
+        lat = []
+        with count_model_calls() as calls:
+            for _ in range(SPEC_REPEATS):
+                t0 = time.perf_counter()
+                texts = tr.transcribe(signals)
+                torch.cuda.synchronize()
+                lat.append(time.perf_counter() - t0)
+        launches = _kernel_counts()
+        _check_serving_launches(f"spec/{name}", config, calls, launches,
+                                paths[name])
+        if name.startswith("spec"):
+            check(launches["K7"] == 0, f"spec/{name}: K7 launched {launches}")
+        if name.endswith("int8"):
+            check(launches["K6"] == 0, f"spec/{name}: K6 launched on the "
+                  f"int8 cache {launches}")
+        check(len(texts) == SPEC_BATCH, f"{len(texts)} texts for {SPEC_BATCH}")
+        # iterations (greedy: steps) per request: the cached decoder calls
+        # after the prompt's prefill
+        iters = calls["cached_decoder"] / SPEC_REPEATS - 1
+        with torch.no_grad():
+            tokens[name] = generate(tr.model, feats, prompt, tr.gen,
+                                    draft_table=tr._draft_table)
+        check(tuple(tokens[name].shape) == (SPEC_BATCH, tr.gen.max_length),
+              f"spec/{name}: tokens shape {tuple(tokens[name].shape)}")
+        check(bool(((tokens[name] >= 0)
+                    & (tokens[name] < config.vocab_size)).all()),
+              f"spec/{name}: token id outside the vocabulary")
+        n_gen = _generated_lengths(tokens[name], p, tr.gen.eos_id).float()
+        syncs = _count_syncs(lambda: tr.transcribe(signals))
+        # one wait per iteration, plus a few of the request's own (the
+        # upload, the tokens' copy to the host)
+        check(syncs <= iters + 8,
+              f"spec/{name}: {syncs} host syncs for {iters} iterations")
+        med = statistics.median(lat)
+        reqs[name] = {
+            "request_latency_s": med, "request_latency_all_s": lat,
+            "utterances_per_s": SPEC_BATCH / med,
+            "utterances_per_s_all": [SPEC_BATCH / x for x in lat],
+            "iterations_per_request": iters,
+            "accepted_tokens_per_iteration":
+                ((n_gen - 1) / iters).mean().item(),
+            "ms_per_iteration": 1e3 * med / iters,
+            "host_syncs_per_request": syncs, "launches": launches,
+            "model_calls": calls, "sample_text": texts[0][:60]}
+        emit({"phase": "spec_request", "request": name, **reqs[name]})
+
+    profiles = {name: _profile_request(lambda: trs[name].transcribe(signals))
+                for name in ("greedy", "spec_self", "spec_table")}
+    with _plain_kernels():
+        profiles["spec_self_plain"] = _profile_request(
+            lambda: trs["spec_self"].transcribe(signals))
+    for name, prof in profiles.items():
+        prof["kernels_per_iteration"] = prof["kernel_launches"] / reqs[
+            name.removesuffix("_plain")]["iterations_per_request"]
+
+    # the cached decoder over forced verify iterations (with holes), K8 and
+    # K6 against their plain versions, on one set of encoder states
+    model_k = greedy.model
+    with torch.no_grad():
+        enc = tw.encoder_apply(model_k, feats)
+        logits_k = _forced_verify_logits(model_k, enc, tokens["greedy"], p,
+                                         SPEC_GAMMA, SPEC_FORCED_ACCEPTS)
+        with _plain_kernels():
+            logits_p = _forced_verify_logits(model_k, enc, tokens["greedy"],
+                                             p, SPEC_GAMMA,
+                                             SPEC_FORCED_ACCEPTS)
+    torch.cuda.synchronize()
+    ref_max = logits_p.float().abs().max().item()
+    diff = (logits_k.float() - logits_p.float()).abs()
+    rel = diff.max().item() / ref_max
+    check(bool(torch.isfinite(logits_k.float()).all()), "non-finite logits")
+    check(rel <= LOGITS_REL_TOL, f"spec: cached decoder logits with K8/K6 "
+          f"{rel} of the largest logit off the plain versions")
+    # bf16 with the kernels: reported, not gated (the verify step's width-4
+    # GEMMs round otherwise than greedy's width-1 steps)
+    agree = {"spec_self_vs_greedy": _agreement(tokens["spec_self"],
+                                               tokens["greedy"], p),
+             "spec_table_vs_greedy": _agreement(tokens["spec_table"],
+                                                tokens["greedy"], p),
+             "spec_int8_vs_greedy_int8": _agreement(
+                 tokens["spec_int8"], tokens["greedy_int8"], p)}
+    ties = _spec_f32_ties(trs, feats, prompt)
+    check(_jax_free(), "jax or the JAX package was imported")
+    out = {
+        "phase": "spec", "model": "whisper-base", "stem": "base/208",
+        "dtype": config.dtype, "batch_size": SPEC_BATCH,
+        "max_new_tokens": SPEC_NEW_TOKENS, "gamma": SPEC_GAMMA,
+        "table_drafter": f"corpus of the greedy texts of the same "
+                         f"{SPEC_BATCH} signals: the full-acceptance case",
+        "requests": reqs, "profiles": profiles,
+        "forced_accepts": SPEC_FORCED_ACCEPTS,
+        "logits_max_abs_err": diff.max().item(),
+        "logits_mean_abs_err": diff.mean().item(),
+        "logits_max_abs": ref_max, "logits_rel_err": rel,
+        "logits_rel_tol": LOGITS_REL_TOL,
+        "token_agreement_bf16": agree, "f32_spec_vs_greedy": ties,
+        "f32_tie_tol": [F32_TIE_RTOL, F32_TIE_ATOL],
+        "jax_imported": not _jax_free(), "card": card(),
+    }
+    emit(out)
+    return out
+
+
 def _train_setup(batch_size: int, device: str = "cuda"):
     """The bench configuration on the card: whisper-base with the 'base'
     stem over 208 channels, f32 masters computing in bf16, LoRA r=32 alpha=64
@@ -1009,7 +1363,7 @@ def _kernel_counts():
     from neuspeech1_tpu_torch.ops import lora_bwd as lb
 
     return {"K1": fa.launches, "K2": fa.bwd_launches, "K3": lb.launches,
-            "K6": dc.launches, "K7": ds.launches}
+            "K6": dc.launches, "K7": ds.launches, "K8": ds.multi_launches}
 
 
 def _reset_counts():
@@ -1019,7 +1373,7 @@ def _reset_counts():
     from neuspeech1_tpu_torch.ops import lora_bwd as lb
 
     fa.launches = fa.bwd_launches = lb.launches = 0
-    dc.launches = ds.launches = 0
+    dc.launches = ds.launches = ds.multi_launches = 0
 
 
 def _adapter_b_max(frozen) -> float:
@@ -1046,6 +1400,7 @@ def _plain_kernels():
         (lb, "_lora_bwd_cuda", lb.lora_adapter_bwd_plain),
         (dc, "_decode_cross_cuda", dc.decode_cross_plain),
         (ds, "_decode_step_cuda", ds.decode_step_plain),
+        (ds, "_decode_step_multi_cuda", ds.decode_step_multi_plain),
     ]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
@@ -1144,7 +1499,7 @@ def phase_train() -> dict:
     stem = frozen.model.stem_config
     n_layers = config.encoder_layers
     expect = {"K1": 2 * n_layers, "K2": 2 * n_layers, "K3": 2 * n_layers,
-              "K6": 0, "K7": 0}
+              "K6": 0, "K7": 0, "K8": 0}
 
     def run_step():
         _reset_counts()
@@ -1282,11 +1637,12 @@ def phase_train_profile(trace_dir=None) -> dict:
     return out
 
 
-def summary(kernels, sl, bm, tr) -> dict:
+def summary(kernels, sl, bm, sp, tr) -> dict:
     """One entry per kernel: launches on its path (training for K1, K2, K3;
-    beam serving for K6, K7; greedy serving beside them), the error and the
-    times of its case at that path's shape, its bound and the library
-    call's time."""
+    beam serving for K6, K7; speculative serving with the self-prefix
+    drafter for K8; greedy serving beside them), the error and the times of
+    its case at that path's shape, its bound and the library call's
+    time."""
     def first(kernel, case):
         return next(r for r in kernels
                     if r["kernel"] == kernel and r["case"] == case)
@@ -1301,6 +1657,9 @@ def summary(kernels, sl, bm, tr) -> dict:
     k5, k3 = first("K5", "bhtd_fwd_bwd"), first("K3", "fc1")
     k6, k6_btc = first("K6", "beam_step"), first("K6", "btc")
     k7 = first("K7", "beam_last")
+    k8 = first("K8", "verify_late")
+    spec_launches = {n: r["launches"]["K8"]
+                     for n, r in sp["requests"].items()}
     launches = tr["launches_per_step"]
     src = "neuspeech1_tpu_torch/csrc/"
     fa_py = "neuspeech1_tpu/ops/flash_attention.py"
@@ -1350,6 +1709,13 @@ def summary(kernels, sl, bm, tr) -> dict:
          "launches": bm["launches"]["K7"],
          "greedy_launches": sl["launches"]["K7"],
          "max_abs_err": k7["max_abs_err"], **timing(k7)},
+        {"name": "decode_step_multi (K8)", "route": "cuda",
+         "source": src + "decode_step_multi.cu",
+         "replaces": "neuspeech1_tpu/ops/decode_step.py:189",
+         "launches": spec_launches["spec_self"],
+         "table_drafter_launches": spec_launches["spec_table"],
+         "int8_launches": spec_launches["spec_int8"],
+         "max_abs_err": k8["max_abs_err"], **timing(k8)},
     ]}
 
 
@@ -1374,8 +1740,9 @@ def main(argv) -> int:
         model = serving_model(tmp)
         sl = phase_slice(model)
         bm = phase_beam(model)
+        sp = phase_spec(model)
     tr = phase_train()
-    emit(summary(kernels, sl, bm, tr))
+    emit(summary(kernels, sl, bm, sp, tr))
     print(card(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,17 @@
 """PyTorch and CUDA port of neuspeech1_tpu (brain signal -> text with a
 Whisper-style encoder-decoder) for one NVIDIA Hopper GPU.
 
-Serving: ``serve.Transcriber`` -> ``decode.generate`` (greedy or beam
-search) -> ``models.whisper`` (encoder through the flash-attention kernel in
-``csrc/flash_fwd_btc.cu``; cached decoder through the decode kernels in
-``csrc/decode_cross.cu`` and ``csrc/decode_step.cu``). Training:
+Serving: ``serve.Transcriber`` -> ``decode.generate`` (greedy, beam search,
+or self-speculative greedy in ``decode.spec``) -> ``models.whisper``
+(encoder through the flash-attention kernel in ``csrc/flash_fwd_btc.cu``;
+cached decoder through the decode kernels in ``csrc/decode_cross.cu``,
+``csrc/decode_step.cu`` and ``csrc/decode_step_multi.cu``). Training:
 ``train.trainstep`` (LoRA step through the flash backward and LoRA adapter
 backward kernels). The package imports ``torch`` and never ``jax``, and
 nothing of the JAX package ``neuspeech1_tpu``: it keeps its own copies of
 the modules it needs (``config``, ``utils.tokenizer``,
-``models.convert.load_npz``).
+``models.convert.load_npz``, ``models.quantize.quantize_int8``,
+``data.manifest.read_jsonlines``).
 """
 
 __version__ = "0.1.0"

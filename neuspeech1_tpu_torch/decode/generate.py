@@ -7,8 +7,9 @@ with ``pad_id``. Beam search follows transformers 4.57's ``_beam_search``
 as the JAX package does (see `beam_search`). Each loop waits for the device
 once per step, to read its stop condition. The JAX package's length buckets
 only bound XLA's fixed buffer shapes; tokens are the same without them, so
-they are not ported. Sampling, beam-sample, contrastive search and
-speculative decoding raise here until they are ported (ROADMAP.md queue 1).
+they are not ported. `generate` also dispatches self-speculative greedy
+decoding (``spec_gamma >= 2``, ``decode/spec.py``). Sampling, beam-sample and
+contrastive search raise here until they are ported (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -44,6 +45,9 @@ class GenerationConfig:
     min_new_tokens: int = 0
     eos_id: int = 50257
     pad_id: int = 50257
+    # the decode cross cache in int8 with per-channel scales
+    # (models/whisper.py::init_cache(int8_cross=True))
+    int8_kv_cache: bool = False
     do_sample: bool = False
     top_k: int = 0
     penalty_alpha: float = 0.0
@@ -91,7 +95,8 @@ def greedy_decode(model: tw.Whisper, features, prompt_ids,
     enc = tw.encoder_apply(model, features)
     b, p = prompt_ids.shape
     length = gen.max_length
-    cache = tw.init_cache(model, enc, max_len=length)
+    cache = tw.init_cache(model, enc, max_len=length,
+                          int8_cross=gen.int8_kv_cache)
     tokens = torch.full((b, length), gen.pad_id, dtype=torch.long,
                         device=enc.device)
     tokens[:, :p] = prompt_ids
@@ -169,7 +174,8 @@ def beam_search(model: tw.Whisper, features, prompt_ids,
     enc = tw.encoder_apply(model, features)
     dev = enc.device
     # one cross cache per utterance; the self cache holds B*K rows
-    cache = tw.init_cache(model, enc, max_len=length, self_batch=b * k)
+    cache = tw.init_cache(model, enc, max_len=length,
+                          int8_cross=gen.int8_kv_cache, self_batch=b * k)
     tokens = torch.full((b, k, length), gen.pad_id, dtype=torch.long,
                         device=dev)
     tokens[:, :, :p] = prompt_ids[:, None, :]
@@ -252,12 +258,18 @@ def beam_search(model: tw.Whisper, features, prompt_ids,
     return fin_seq[:, 0], fin_scores[:, 0]
 
 
-def generate(model: tw.Whisper, features, prompt_ids, gen: GenerationConfig):
-    """Mode dispatch as in the JAX package; greedy and beam search (without
-    sampling) are ported. Returns tokens [B, max_length]."""
-    if gen.spec_gamma >= 2:
+def generate(model: tw.Whisper, features, prompt_ids, gen: GenerationConfig,
+             draft_table=None):
+    """Mode dispatch as in the JAX package; greedy, beam search (without
+    sampling) and self-speculative greedy (``spec_gamma >= 2``, drafting
+    from ``draft_table`` when given, see `decode.spec.spec_greedy_decode`)
+    are ported. Returns tokens [B, max_length]."""
+    if gen.spec_gamma >= 2 and (
+            gen.do_sample or gen.num_beams > 1
+            or (gen.penalty_alpha > 0 and gen.top_k > 1)):
         raise NotImplementedError(
-            "speculative decoding is not ported yet (ROADMAP.md queue 1)")
+            "spec_gamma only applies to plain greedy decode; unset "
+            "do_sample/num_beams/penalty_alpha or spec_gamma")
     if gen.penalty_alpha > 0 and gen.top_k > 1 and not gen.do_sample:
         raise NotImplementedError(
             "contrastive search is not ported yet (ROADMAP.md queue 1)")
@@ -266,4 +278,11 @@ def generate(model: tw.Whisper, features, prompt_ids, gen: GenerationConfig):
             "sampling and beam-sample are not ported yet (ROADMAP.md queue 1)")
     if gen.num_beams > 1:
         return beam_search(model, features, prompt_ids, gen)[0]
+    if gen.spec_gamma >= 2:
+        # imported here: decode.spec builds on this module
+        from neuspeech1_tpu_torch.decode.spec import spec_greedy_decode
+
+        return spec_greedy_decode(model, features, prompt_ids, gen,
+                                  gamma=gen.spec_gamma,
+                                  draft_table=draft_table)[0]
     return greedy_decode(model, features, prompt_ids, gen)

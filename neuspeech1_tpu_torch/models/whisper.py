@@ -12,16 +12,20 @@ weights in the compute dtype (no casts), a training model f32 masters.
 
 Public functions keep the JAX package's layouts: features [B, ch, T],
 attention in BTHD, the decode cross cache ``k``/``v`` as [B, H, T_src, Dh]
-and the self cache ``k_t``/``v_t`` as [B, H, Dh, Tmax].
+(or int8 ``k_qt``/``v_qt`` [B, H, Dh, T_src] with scales ``k_s``/``v_s``
+[B, H, 1, Dh]) and the self cache ``k_t``/``v_t`` (greedy and beam) or
+``k_tu``/``v_tu`` (speculative decoding) as [B, H, Dh, Tmax].
 Attention goes through ``ops.flash_attention`` (the Hopper kernels on CUDA
 tensors) where the JAX package takes its flash kernel: encoder
 self-attention, and teacher-forcing decoder cross- and self-attention from
 the ``decoder_flash_*_min_q`` lengths on. The cached decoder goes through
-the decode kernels: every cross-attention call through ``ops.decode_cross``
-(K6) and every width-1 self-attention step through ``ops.decode_step``
-(K7). With ``config.flash_attention == "off"`` all of these run their plain
-versions. Elsewhere attention is plain tensor code, as it is XLA in the JAX
-package, with the same rounding points: scores from a product in the
+the decode kernels: every cross-attention call on the bf16 cache through
+``ops.decode_cross`` (K6), every width-1 self-attention step on a ``k_t``
+cache through ``ops.decode_step`` (K7) and every call on a ``k_tu`` cache
+through ``ops.decode_step_multi`` (K8). With ``config.flash_attention ==
+"off"`` all of these run their plain versions. Elsewhere attention is plain
+tensor code, as it is XLA in the JAX package (the int8 cross cache
+included), with the same rounding points: scores from a product in the
 compute dtype, softmax in f32, probabilities cast back to the compute dtype
 for the PV product.
 """
@@ -37,8 +41,10 @@ from torch import nn
 
 from neuspeech1_tpu_torch.config import StemConfig, WhisperConfig
 from neuspeech1_tpu_torch.models.lora import folded_linear, lora_delta
+from neuspeech1_tpu_torch.models.quantize import quantize_int8
 from neuspeech1_tpu_torch.ops.decode_cross import decode_cross, decode_cross_plain
-from neuspeech1_tpu_torch.ops.decode_step import decode_step, decode_step_plain
+from neuspeech1_tpu_torch.ops.decode_step import (
+    decode_step, decode_step_multi, decode_step_multi_plain, decode_step_plain)
 from neuspeech1_tpu_torch.ops.flash_attention import flash_attention_bthd
 
 # --------------------------------------------------------------------------
@@ -327,21 +333,30 @@ def cross_attention(x, enc_out, p: Attention, n_heads: int,
 
 def self_decode(x, p: Attention, n_heads: int, cache: dict,
                 cache_index: int, mask, kernels: bool = True):
-    """Incremental self-attention on the [B, H, Dh, Tmax] cache, updated in
-    place (the JAX package returns an updated copy). A width-1 step attends
-    the contiguous columns 0..cache_index: it goes through `decode_step`
-    (K7), which writes the new column and attends in one launch. A wider
-    call (the prompt's prefill) writes its columns, then scores all Tmax
-    columns under ``mask`` with plain tensor code, as in the JAX package."""
+    """Incremental self-attention on the [B, H, Dh, Tmax] cache, writing
+    columns ``cache_index ..`` in place (the JAX package returns an updated
+    copy).
+
+    The speculative-decode cache ``k_tu``/``v_tu`` sends every call, the
+    prompt's prefill included, through `decode_step_multi` (K8) under
+    ``mask``, as the JAX package routes every ``k_tu`` call before any width
+    check. On the ``k_t``/``v_t`` cache a width-1 step without a mask
+    attends the contiguous columns 0..cache_index through `decode_step`
+    (K7); a wider call (the prompt's prefill) writes its columns, then
+    scores all Tmax columns under ``mask`` with plain tensor code, as in the
+    JAX package."""
     q = _split_heads(linear(x, p.q), n_heads)
     k = _split_heads(linear(x, p.k), n_heads)
     v = _split_heads(linear(x, p.v), n_heads)
-    k_t, v_t = cache["k_t"], cache["v_t"]
     t = q.shape[1]
-    if t == 1:
+    if "k_tu" in cache:
+        step = decode_step_multi if kernels else decode_step_multi_plain
+        out = step(q, k, v, mask, cache["k_tu"], cache["v_tu"], cache_index)
+    elif t == 1 and mask is None:
         step = decode_step if kernels else decode_step_plain
-        out = step(q, k, v, k_t, v_t, cache_index)
+        out = step(q, k, v, cache["k_t"], cache["v_t"], cache_index)
     else:
+        k_t, v_t = cache["k_t"], cache["v_t"]
         k_t[..., cache_index:cache_index + t] = k.permute(0, 2, 3, 1)
         v_t[..., cache_index:cache_index + t] = v.permute(0, 2, 3, 1)
         out = _attend_t(q, k_t, v_t, mask)
@@ -350,15 +365,26 @@ def self_decode(x, p: Attention, n_heads: int, cache: dict,
 
 def cross_decode(x, p: Attention, n_heads: int, cache: dict,
                  kernels: bool = True):
-    """Cross-attention of the cached decoder over the encoder cache
-    ``k``/``v`` [B, H, T_src, Dh], through `decode_cross` (K6). Beam search
-    runs B*K decoder rows against one cache per utterance: the beam rows
-    fold into the query, [B*K, t, H, Dh] -> [B, K*t, H, Dh], beam-major
-    within an utterance (cross K/V is beam-invariant)."""
+    """Cross-attention of the cached decoder over the encoder cache: the
+    bf16 ``k``/``v`` [B, H, T_src, Dh] through `decode_cross` (K6), or the
+    int8 ``k_qt``/``v_qt`` [B, H, Dh, T_src] with per-channel scales in
+    plain tensor code (XLA in the JAX package): the K scales fold into q,
+    the V scales into the output, and the products read the int8 values
+    cast to the compute dtype. Beam search runs B*K decoder rows against
+    one cache per utterance: the beam rows fold into the query,
+    [B*K, t, H, Dh] -> [B, K*t, H, Dh], beam-major within an utterance
+    (cross K/V is beam-invariant)."""
     q = _split_heads(linear(x, p.q), n_heads)
-    b = cache["k"].shape[0]
-    attend = decode_cross if kernels else decode_cross_plain
-    out = attend(q.reshape(b, -1, *q.shape[2:]), cache["k"], cache["v"])
+    b = next(iter(cache.values())).shape[0]
+    qb = q.reshape(b, -1, *q.shape[2:])
+    if "k_qt" in cache:
+        k_s, v_s = (cache[n][:, :, 0].to(q.dtype)[:, None]
+                    for n in ("k_s", "v_s"))
+        out = _attend_t(qb * k_s, cache["k_qt"].to(q.dtype),
+                        cache["v_qt"].to(q.dtype)) * v_s
+    else:
+        attend = decode_cross if kernels else decode_cross_plain
+        out = attend(qb, cache["k"], cache["v"])
     return linear(_merge_heads(out.reshape(q.shape)), p.out)
 
 
@@ -411,7 +437,8 @@ def encoder_apply(model: Whisper, features, lora=None):
 
 
 def decoder_apply(model: Whisper, tokens, enc_out, cache=None,
-                  cache_index: Optional[int] = None, lora=None):
+                  cache_index: Optional[int] = None, lora=None, pos_ids=None,
+                  self_attn_mask=None):
     """Token ids [B, T] -> logits [B, T, vocab].
 
     Without ``cache``: causal teacher forcing over ``enc_out``, with the
@@ -420,7 +447,15 @@ def decoder_apply(model: Whisper, tokens, enc_out, cache=None,
     and causal self-attention at T >= ``decoder_flash_self_min_q``.
     With ``cache`` (from `init_cache`): one incremental step writing
     positions ``cache_index .. cache_index + T - 1``; returns (logits,
-    cache) with the cache updated in place."""
+    cache) with the cache updated in place.
+
+    ``pos_ids`` / ``self_attn_mask`` (cached decode only): per-row logical
+    position ids [B, T] for the learned position embedding, and a
+    [B, 1, T, Tmax] bool mask replacing the contiguous
+    ``position <= cache_index + i`` rule. Speculative decoding needs both:
+    accepted tokens sit at non-contiguous cache columns (rejected drafts
+    leave holes) while their logical positions stay dense
+    (``decode/spec.py``)."""
     dec = model.decoder
     config = model.config
     t = tokens.shape[1]
@@ -439,10 +474,15 @@ def decoder_apply(model: Whisper, tokens, enc_out, cache=None,
                       lora=None if layers_lora is None else layers_lora[i],
                       flash_self=flash_self, flash_cross=flash_cross)
     else:
-        h = h + _cast(dec.pos_embed[cache_index:cache_index + t], h.dtype)
-        mask = None  # a width-1 step attends the contiguous columns
-        if t > 1:
-            t_max = cache["self"][0]["k_t"].shape[-1]
+        pos = (dec.pos_embed[cache_index:cache_index + t] if pos_ids is None
+               else F.embedding(pos_ids, dec.pos_embed))
+        h = h + _cast(pos, h.dtype)
+        # a width-1 step on the k_t cache attends the contiguous columns
+        # without a mask (K7); K8 takes the mask of every call
+        mask = self_attn_mask
+        sc0 = cache["self"][0]
+        if mask is None and (t > 1 or "k_tu" in sc0):
+            t_max = sc0["k_tu" if "k_tu" in sc0 else "k_t"].shape[-1]
             positions = torch.arange(t_max, device=h.device)
             rows = cache_index + torch.arange(t, device=h.device)
             mask = (positions[None, :] <= rows[:, None])[None, None]
@@ -458,40 +498,53 @@ def decoder_apply(model: Whisper, tokens, enc_out, cache=None,
 def init_cache(model: Whisper, enc_out, max_len: int, int8_cross: bool = False,
                cross_layout: str = "bhtd", self_t_major: bool = False,
                self_batch: Optional[int] = None):
-    """Decode caches: per layer, the cross K/V ``k``/``v`` [B, H, T_src, Dh]
-    projected from ``enc_out`` once (the layout `decode_cross` reads
-    natively), and zeroed self K/V ``k_t``/``v_t`` [self_batch or B, H, Dh,
-    max_len], in the model dtype. ``self_batch`` is the decoder's row count
-    when it exceeds the encoder batch: beam search runs B*K rows against one
-    cross cache per utterance.
+    """Decode caches: per layer, the cross K/V projected from ``enc_out``
+    once, and zeroed self K/V [self_batch or B, H, Dh, max_len] in the
+    model dtype. ``self_batch`` is the decoder's row count when it exceeds
+    the encoder batch: beam search runs B*K rows against one cross cache per
+    utterance.
 
-    The JAX package's int8 cross cache (``int8_cross``), its 'btc' cross
-    layout and its speculative-decode self caches (``self_t_major``) are
-    not ported yet: they raise (ROADMAP.md queue 1)."""
-    if int8_cross or cross_layout != "bhtd" or self_t_major:
+    The cross cache is ``k``/``v`` [B, H, T_src, Dh] in the model dtype (the
+    layout `decode_cross` reads natively) or, with ``int8_cross``, the JAX
+    package's int8 cache: the projections in the model dtype, quantized in
+    f32 over T_src with one scale per (row, head, channel), stored as
+    ``k_qt``/``v_qt`` int8 [B, H, Dh, T_src] and ``k_s``/``v_s`` f32
+    [B, H, 1, Dh]. The self cache is ``k_t``/``v_t``, or ``k_tu``/``v_tu``
+    with ``self_t_major`` (the JAX package's default speculative-decode
+    cache, whose every call goes through K8). The 'btc' cross layout is not
+    ported: no decode path of the JAX package builds it by default; it
+    raises (ROADMAP.md queue 1)."""
+    if cross_layout != "bhtd":
         raise NotImplementedError(
-            "only the 'bhtd' cross cache layout is ported; the int8 and "
-            "'btc' cross caches and the speculative self caches are queued "
-            "in ROADMAP.md")
+            "only the 'bhtd' cross cache layout is ported; the 'btc' cross "
+            "cache is queued in ROADMAP.md")
     config = model.config
     h = config.decoder_heads
     dh = config.d_model // h
     enc_out = enc_out.to(model.dtype)
     rows = self_batch or enc_out.shape[0]
+    names = ("k_tu", "v_tu") if self_t_major else ("k_t", "v_t")
 
     def bhtd(x):
-        return _split_heads(x, h).transpose(1, 2).contiguous()
+        return _split_heads(x, h).transpose(1, 2)
+
+    def int8_cross_cache(k, v):
+        (k_q, k_s), (v_q, v_s) = (quantize_int8(bhtd(x).float())
+                                  for x in (k, v))
+        return {"k_qt": k_q.transpose(2, 3).contiguous(), "k_s": k_s,
+                "v_qt": v_q.transpose(2, 3).contiguous(), "v_s": v_s}
 
     cross: List[dict] = []
     selfc: List[dict] = []
     for layer in model.decoder.layers:
         ca = layer.cross_attn
-        cross.append({"k": bhtd(linear(enc_out, ca.k)),
-                      "v": bhtd(linear(enc_out, ca.v))})
+        k, v = linear(enc_out, ca.k), linear(enc_out, ca.v)
+        cross.append(int8_cross_cache(k, v) if int8_cross else
+                     {"k": bhtd(k).contiguous(), "v": bhtd(v).contiguous()})
         selfc.append({
             name: torch.zeros((rows, h, dh, max_len), dtype=model.dtype,
                               device=enc_out.device)
-            for name in ("k_t", "v_t")})
+            for name in names})
     return {"self": selfc, "cross": cross}
 
 

@@ -1,20 +1,28 @@
-"""One cached self-attention decode step (K7): the new K/V column written
-into the cache in place, then attention over the columns up to it. The port
-of the TPU kernel ``neuspeech1_tpu/ops/decode_step.py::fused_self_decode``.
+"""Cached self-attention decode steps, each writing its new K/V columns into
+the [B, H, Dh, Tmax] cache in place and then attending. The port of the TPU
+kernels in ``neuspeech1_tpu/ops/decode_step.py``:
 
-The cached decoder runs every width-1 step through it: the mask of such a
-step is the contiguous ``position <= cache_index`` rule, so the step needs
-no mask tensor. On CUDA tensors ``decode_step`` launches the hand-written
-Hopper kernel in ``csrc/decode_step.cu``, or raises; there is no fallback.
-On CPU tensors it runs ``decode_step_plain``, the same function in plain
-PyTorch, which is also the gold the kernel is checked against on the card.
+- ``decode_step`` (K7, ``fused_self_decode``): one query per row; the
+  cached decoder runs every width-1 step on the greedy and beam caches
+  through it. The mask of such a step is the contiguous
+  ``position <= cache_index`` rule, so the step needs no mask tensor.
+- ``decode_step_multi`` (K8, ``fused_self_decode_multi``): G queries per
+  row under an explicit [B or 1, 1, G, Tmax] mask; the cached decoder runs
+  every call on the speculative-decode cache (``k_tu``) through it: the
+  prompt's prefill and each draft-verify step.
 
-Both keep the TPU kernel's rounding points (``_kernel``): the score is
-accumulated in f32 and rounded once to the cache dtype, then scaled in f32;
-softmax in f32 over the columns ``t <= cache_index``; the probabilities are
-normalised, then rounded to the cache dtype; the PV sum is f32 and rounded
-once. The cache is updated in place (the JAX package returns updated
-copies through aliased outputs).
+On CUDA tensors each launches its hand-written Hopper kernel
+(``csrc/decode_step.cu``, ``csrc/decode_step_multi.cu``), or raises; there is
+no fallback. On CPU tensors each runs its plain version, the same function
+in plain PyTorch, which is also the gold the kernel is checked against on
+the card.
+
+All keep the TPU kernels' rounding points (``_kernel``, ``_kernel_multi``):
+the score is accumulated in f32 and rounded once to the cache dtype, then
+scaled in f32; masked lanes take -1e30; softmax in f32; the probabilities
+are normalised, then rounded to the cache dtype; the PV sum is f32 and
+rounded once. The caches are updated in place (the JAX package returns
+updated copies through aliased outputs).
 """
 
 from __future__ import annotations
@@ -28,13 +36,22 @@ from neuspeech1_tpu_torch.ops import _build
 
 MAX_HEAD_DIM = 128
 MAX_T = 448  # max_target_positions
+# K8: queries per launch, and the dynamic shared memory a block may use
+# (the H100's 227 KB); the speculative cache's Tmax is not bounded by 448
+MAX_G = 16
+MAX_SMEM_BYTES = 232448
+NEG_INF = -1e30  # a masked lane's score, as in the TPU kernel
 
 # Kernel launches since the count was last set to 0 (read by chip_smoke.py
-# to show that a path went through the kernel): one per wrapper call.
+# to show that a path went through the kernel): one per wrapper call, K7's
+# in ``launches``, K8's in ``multi_launches``.
 launches = 0
+multi_launches = 0
 
 _NAME = ("decode_step", "nsp_decode_step_bf16")
+_MULTI_NAME = ("decode_step_multi", "nsp_decode_step_multi_bf16")
 _lib: Optional[ctypes.CDLL] = None
+_multi_lib: Optional[ctypes.CDLL] = None
 
 
 def _library() -> ctypes.CDLL:
@@ -132,3 +149,133 @@ def decode_step(q, k_new, v_new, k_t, v_t, cache_index: int):
     if not q.is_cuda:
         raise ValueError(f"decode_step: unsupported device {q.device}")
     return _decode_step_cuda(q, k_new, v_new, k_t, v_t, cache_index)
+
+
+def _multi_library() -> ctypes.CDLL:
+    """Build and load K8's library; declare its signature."""
+    global _multi_lib
+    if _multi_lib is None:
+        lib = _build.load(_MULTI_NAME[0])
+        fn = getattr(lib, _MULTI_NAME[1])
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = ([ptr] * 7 + [i32] * 6 + [i64] * 14
+                       + [ctypes.c_float, ptr])
+        fn.restype = ctypes.c_int
+        _multi_lib = lib
+    return _multi_lib
+
+
+def _check_multi(q, k_new, v_new, mask, k_t, v_t, cache_index: int) -> None:
+    if q.dim() != 4:
+        raise ValueError(f"decode_step_multi takes q [B, G, H, Dh]; got "
+                         f"{tuple(q.shape)}")
+    b, g, h, dh = q.shape
+    if k_new.shape != q.shape or v_new.shape != q.shape:
+        raise ValueError(f"k_new {tuple(k_new.shape)} / v_new "
+                         f"{tuple(v_new.shape)} differ from q {tuple(q.shape)}")
+    if k_t.dim() != 4 or k_t.shape[:3] != (b, h, dh) or v_t.shape != k_t.shape:
+        raise ValueError(f"caches must be [B, H, Dh, Tmax] = [{b}, {h}, {dh}, "
+                         f"T]; got {tuple(k_t.shape)}, {tuple(v_t.shape)}")
+    t_max = k_t.shape[3]
+    if (mask.dtype != torch.bool or mask.dim() != 4
+            or mask.shape[0] not in (1, b) or mask.shape[1:] != (1, g, t_max)):
+        raise ValueError(f"mask must be bool [B or 1, 1, G, Tmax] = [{b} or "
+                         f"1, 1, {g}, {t_max}]; got {mask.dtype} "
+                         f"{tuple(mask.shape)}")
+    if not 0 <= cache_index <= t_max - g:
+        raise ValueError(f"cache_index {cache_index}: columns {cache_index}.."
+                         f"{cache_index + g - 1} outside [0, {t_max})")
+
+
+def decode_step_multi_plain(q, k_new, v_new, mask, k_t, v_t,
+                            cache_index: int):
+    """Plain PyTorch version of K8: writes k_new, v_new [B, G, H, Dh] into
+    columns ``cache_index .. cache_index + G - 1`` of k_t, v_t
+    [B, H, Dh, Tmax] (in place), then attends each query i over the columns
+    ``mask[:, 0, i]`` allows; returns the context [B, G, H, Dh] in q's
+    dtype."""
+    _check_multi(q, k_new, v_new, mask, k_t, v_t, cache_index)
+    dt = k_t.dtype
+    cols = slice(cache_index, cache_index + q.shape[1])
+    k_t[..., cols] = k_new.permute(0, 2, 3, 1).to(dt)
+    v_t[..., cols] = v_new.permute(0, 2, 3, 1).to(dt)
+    s = torch.einsum("bghd,bhdt->bhgt", q.float(), k_t.float())
+    s = s.to(dt).float() * q.shape[3] ** -0.5
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    probs = (p / p.sum(dim=-1, keepdim=True)).to(dt)
+    ctx = torch.einsum("bhgt,bhdt->bghd", probs.float(), v_t.float())
+    return ctx.to(q.dtype)
+
+
+def multi_smem_bytes(g: int, head_dim: int, t_max: int) -> int:
+    """K8's dynamic shared memory per block (``csrc/decode_step_multi.cu``):
+    q and the new K/V columns, a G x Tmax score row, the reduction slots."""
+    return 4 * (g * (3 * head_dim + t_max) + 4 * MAX_G)
+
+
+def _decode_step_multi_cuda(q, k_new, v_new, mask, k_t, v_t,
+                            cache_index: int):
+    global multi_launches
+    b, g, h, dh = q.shape
+    t_max = k_t.shape[3]
+    if g > MAX_G or dh > MAX_HEAD_DIM:
+        raise ValueError(f"decode_step_multi kernel takes G <= {MAX_G} "
+                         f"queries and Dh <= {MAX_HEAD_DIM}; got G {g}, "
+                         f"Dh {dh}")
+    if multi_smem_bytes(g, dh, t_max) > MAX_SMEM_BYTES:
+        raise ValueError(f"decode_step_multi kernel: G {g} x Tmax {t_max} "
+                         f"scores need {multi_smem_bytes(g, dh, t_max)} bytes "
+                         f"of shared memory, more than {MAX_SMEM_BYTES}")
+    for name, x in (("q", q), ("k_new", k_new), ("v_new", v_new),
+                    ("k_t", k_t), ("v_t", v_t)):
+        if x.dtype != torch.bfloat16:
+            raise ValueError(f"decode_step_multi kernel takes bfloat16; "
+                             f"{name} is {x.dtype}")
+    for name, x in (("k_new", k_new), ("v_new", v_new), ("mask", mask),
+                    ("k_t", k_t), ("v_t", v_t)):
+        if x.device != q.device:
+            raise ValueError(f"{name} on {x.device}, q on {q.device}")
+    for name, x in (("q", q), ("k_new", k_new), ("v_new", v_new)):
+        if x.stride(3) != 1:
+            raise ValueError(f"{name} must have a contiguous head dim")
+    if not (k_t.is_contiguous() and v_t.is_contiguous()):
+        raise ValueError("the caches must be contiguous: they are updated "
+                         "in place")
+    m = mask[:, 0]  # [B or 1, G, Tmax]; a broadcast row has stride 0
+    if m.stride(2) != 1:
+        raise ValueError("mask must be contiguous along Tmax")
+    m_sb = 0 if m.shape[0] == 1 else m.stride(0)
+    fn = getattr(_multi_library(), _MULTI_NAME[1])
+    ctx = torch.empty_like(q, memory_format=torch.contiguous_format)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                 m.data_ptr(), k_t.data_ptr(), v_t.data_ptr(), ctx.data_ptr(),
+                 b, g, h, dh, t_max, cache_index,
+                 *q.stride()[:3], *k_new.stride()[:3], *v_new.stride()[:3],
+                 *ctx.stride()[:3], m_sb, m.stride(1), dh ** -0.5,
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"decode_step_multi launch failed: CUDA error "
+                           f"{err}")
+    multi_launches += 1
+    return ctx
+
+
+def decode_step_multi(q, k_new, v_new, mask, k_t, v_t, cache_index: int):
+    """G queries of cached self-attention in one step: q, k_new, v_new
+    [B, G, H, Dh]; mask [B or 1, 1, G, Tmax] bool, query i's allowed
+    columns (the caller's mask excludes the block's columns past i and any
+    holes); k_t, v_t [B, H, Dh, Tmax], updated in place at columns
+    ``cache_index .. cache_index + G - 1``; returns the context
+    [B, G, H, Dh]. CPU tensors run the plain version; CUDA tensors launch
+    the kernel (bfloat16, G <= 16, Dh <= 128, G x Tmax scores within the
+    block's shared memory) or raise."""
+    _check_multi(q, k_new, v_new, mask, k_t, v_t, cache_index)
+    if q.device.type == "cpu":
+        return decode_step_multi_plain(q, k_new, v_new, mask, k_t, v_t,
+                                       cache_index)
+    if not q.is_cuda:
+        raise ValueError(f"decode_step_multi: unsupported device {q.device}")
+    return _decode_step_multi_cuda(q, k_new, v_new, mask, k_t, v_t,
+                                   cache_index)

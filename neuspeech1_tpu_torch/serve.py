@@ -1,7 +1,10 @@
 """Inference API of the PyTorch port: load a full model, transcribe brain
-signals. The port of ``neuspeech1_tpu/serve.py`` for greedy decoding and
-beam search (the eval CLI's decode: ``num_beams=5,
-repetition_penalty=5.0, no_repeat_ngram_size=2``):
+signals. The port of ``neuspeech1_tpu/serve.py`` for greedy decoding, beam
+search (the eval CLI's decode: ``num_beams=5, repetition_penalty=5.0,
+no_repeat_ngram_size=2``), self-speculative greedy decoding
+(``spec_gamma``, drafting from the row's own prefix or, with
+``spec_draft_from``, from a training manifest's sentences) and the int8
+decode cross cache (``int8_kv_cache``):
 
     from neuspeech1_tpu_torch.serve import Transcriber
     t = Transcriber("runs/gwilliams_base/full_model", tokenizer="byte",
@@ -19,7 +22,9 @@ import numpy as np
 import torch
 
 from neuspeech1_tpu_torch.cli import common
+from neuspeech1_tpu_torch.data.manifest import read_jsonlines
 from neuspeech1_tpu_torch.decode.generate import GenerationConfig, generate
+from neuspeech1_tpu_torch.decode.spec import build_draft_table
 
 
 class Transcriber:
@@ -44,12 +49,11 @@ class Transcriber:
     ):
         """``suppress_tokens``: 'default' derives the HF whisper suppress /
         begin-suppress lists from the tokenizer's vocab, 'none' disables
-        both, or a comma-separated id list. Sampling, int8 weights or caches
-        and speculative decoding are not ported yet and raise."""
-        unported = {"int8_weights": int8_weights,
-                    "int8_kv_cache": int8_kv_cache, "do_sample": do_sample,
-                    "spec_gamma": spec_gamma >= 2,
-                    "spec_draft_from": spec_draft_from is not None}
+        both, or a comma-separated id list. ``spec_gamma >= 2`` decodes
+        greedily in gamma-token draft-verify steps; ``spec_draft_from`` (a
+        jsonl manifest) drafts from its ``sentence`` texts. Sampling and
+        int8 weights are not ported yet and raise."""
+        unported = {"int8_weights": int8_weights, "do_sample": do_sample}
         asked = [name for name, on in unported.items() if on]
         if asked:
             raise NotImplementedError(
@@ -71,8 +75,20 @@ class Transcriber:
             num_beams=num_beams,
             repetition_penalty=repetition_penalty,
             no_repeat_ngram_size=no_repeat_ngram_size,
+            int8_kv_cache=int8_kv_cache,
+            spec_gamma=spec_gamma,
             **common.suppress_kwargs(suppress_tokens, self.tokenizer),
         )
+        if spec_gamma >= 2 and num_beams > 1:
+            raise ValueError(
+                "spec_gamma only applies to plain greedy decode; unset "
+                "num_beams/do_sample or spec_gamma")
+        self._draft_table = None
+        if spec_draft_from:
+            texts = [r["sentence"] for r in read_jsonlines(spec_draft_from)]
+            table = build_draft_table(texts, self.tokenizer, config.vocab_size)
+            self._draft_table = {k: torch.as_tensor(v, device=self.device)
+                                 for k, v in table.items()}
 
     @property
     def expected_samples(self) -> int:
@@ -97,8 +113,8 @@ class Transcriber:
         return signals
 
     def transcribe(self, signals: np.ndarray) -> List[str]:
-        """Batched decode (greedy, or beam search with ``num_beams > 1``);
-        the last chunk is padded to ``batch_size`` rows by repeating its
+        """Batched decode (greedy, speculative greedy with ``spec_gamma``, or
+        beam search with ``num_beams > 1``); the last chunk is padded to ``batch_size`` rows by repeating its
         last signal."""
         signals = self._prepare(signals)
         out_texts: List[str] = []
@@ -113,7 +129,8 @@ class Transcriber:
                     [chunk, np.repeat(chunk[-1:], bs - n, axis=0)], axis=0)
             feats = common.upload_features(chunk, self.model.dtype,
                                            self.device)
-            out = generate(self.model, feats, prompt, self.gen).cpu().numpy()
+            out = generate(self.model, feats, prompt, self.gen,
+                           draft_table=self._draft_table).cpu().numpy()
             out_texts.extend(self.tokenizer.batch_decode(out[:n]))
         return out_texts
 

@@ -148,3 +148,38 @@ def test_decode_step_kernel_matches_plain_on_card(cuda_device, rows, t_max,
     assert torch.equal(k_t, kp) and torch.equal(v_t, vp)
     # a flipped bf16 score rounding, and an ulp of ctx (chip_smoke.py K7_TOL)
     assert (ctx.float() - ctx_p.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,g,t_max,idx,dh,broadcast", [
+    (16, 4, 516, 8, 64, False), (16, 4, 516, 508, 64, False),
+    (16, 4, 516, 0, 64, True), (3, 8, 3556, 1000, 64, False),
+    (2, 16, 300, 40, 128, False), (5, 2, 20, 7, 32, True),
+    (4, 1, 50, 49, 64, False)])
+def test_decode_step_multi_kernel_matches_plain_on_card(
+        cuda_device, rows, g, t_max, idx, dh, broadcast):
+    h = 8
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q, kn, vn = (torch.randn((rows, g, h * dh), generator=gen,
+                             device=cuda_device).to(torch.bfloat16)
+                 .view(rows, g, h, dh) for _ in range(3))
+    k_t, v_t = (torch.randn((rows, h, dh, t_max), generator=gen,
+                            device=cuda_device).to(torch.bfloat16)
+                for _ in range(2))
+    # accepted columns before idx with holes (or the prefill's contiguous
+    # rule, broadcast over rows), and the block's own columns up to query i
+    n = 1 if broadcast else rows
+    valid = torch.rand((n, t_max), generator=gen, device=cuda_device) < (
+        1.0 if broadcast else 0.7)
+    valid[:, idx:] = False
+    off = torch.arange(t_max, device=cuda_device) - idx
+    inblock = (off >= 0) & (off <= torch.arange(g, device=cuda_device)[:, None])
+    mask = valid[:, None, None, :] | inblock[None, None]
+    kp, vp = k_t.clone(), v_t.clone()
+    before = tds.multi_launches
+    ctx = tds.decode_step_multi(q, kn, vn, mask, k_t, v_t, idx)
+    assert tds.multi_launches == before + 1
+    ctx_p = tds.decode_step_multi_plain(q, kn, vn, mask, kp, vp, idx)
+    assert torch.equal(k_t, kp) and torch.equal(v_t, vp)
+    # a flipped bf16 score rounding, and an ulp of ctx (chip_smoke.py K8_TOL)
+    assert (ctx.float() - ctx_p.float()).abs().max().item() <= 2e-2

@@ -141,7 +141,7 @@ def test_logits_processors_match_jax():
 @pytest.mark.parametrize("kw", [dict(num_beams=2, do_sample=True),
                                 dict(do_sample=True),
                                 dict(penalty_alpha=0.6, top_k=4),
-                                dict(spec_gamma=4)])
+                                dict(do_sample=True, top_k=5)])
 def test_generate_raises_for_unported_modes(setup, kw):
     config, stem, params, model, feats, prompt, tok = setup
     gen = tg.GenerationConfig.for_model(port(config), max_length=8, **kw)
@@ -182,8 +182,8 @@ def test_transcriber_texts_equal_jax(model_dir, kw):
 
 @pytest.mark.parametrize("kw", [
     dict(num_beams=5, do_sample=True), dict(int8_weights=True),
-    dict(int8_kv_cache=True),
-    dict(do_sample=True), dict(spec_gamma=2)])
+    dict(int8_weights=True, int8_kv_cache=True),
+    dict(do_sample=True), dict(do_sample=True, spec_gamma=2)])
 def test_transcriber_raises_for_unported_options(model_dir, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Transcriber(model_dir, device="cpu", **kw)

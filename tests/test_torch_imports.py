@@ -10,7 +10,7 @@ import textwrap
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = textwrap.dedent("""
-    import importlib, pkgutil, sys, tempfile
+    import importlib, os, pkgutil, sys, tempfile
 
     class NoJax:
         def find_spec(self, name, path=None, target=None):
@@ -58,6 +58,20 @@ SCRIPT = textwrap.dedent("""
             np.ones((3, 4, 400), np.float32))
         assert len(texts) == 3, texts
         check_clean("beam Transcriber")
+        manifest = os.path.join(tmp, "train.jsonl")
+        with open(manifest, "w") as f:
+            f.write('{"sentence": "a b a b a c"}\\n')
+        texts = Transcriber(tmp, batch_size=2, max_new_tokens=4,
+                            spec_gamma=3, spec_draft_from=manifest,
+                            device="cpu").transcribe(
+            np.ones((3, 4, 400), np.float32))
+        assert len(texts) == 3, texts
+        check_clean("speculative Transcriber")
+        texts = Transcriber(tmp, batch_size=2, max_new_tokens=4,
+                            int8_kv_cache=True, device="cpu").transcribe(
+            np.ones((3, 4, 400), np.float32))
+        assert len(texts) == 3, texts
+        check_clean("int8-cache Transcriber")
 
     # one LoRA training step (fold_lora, the 'fc' regime) on the CPU
     from neuspeech1_tpu_torch.models.convert import module_from_params
@@ -65,7 +79,10 @@ SCRIPT = textwrap.dedent("""
     from neuspeech1_tpu_torch.train import optimizer, trainstep
     assert {"neuspeech1_tpu_torch.models.lora",
             "neuspeech1_tpu_torch.train.optimizer",
-            "neuspeech1_tpu_torch.train.trainstep"} <= set(names)
+            "neuspeech1_tpu_torch.train.trainstep",
+            "neuspeech1_tpu_torch.decode.spec",
+            "neuspeech1_tpu_torch.models.quantize",
+            "neuspeech1_tpu_torch.data.manifest"} <= set(names)
     model = module_from_params(init_params(config, stem, seed=0), config,
                                stem, device="cpu", dtype=torch.float32)
     tx = optimizer.make_optimizer(warmup_steps=0)

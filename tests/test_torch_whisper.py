@@ -212,10 +212,13 @@ def test_preset_model_is_whisper_base_over_208_channels():
 
 
 def test_unported_cache_layouts_raise(pair):
+    """The 'btc' cross layout raises, alone and beside the int8 and
+    speculative caches (which are ported: tests/test_torch_int8_cache.py)."""
     config, stem, params, model, feats = pair
     enc = torch.zeros((1, config.max_source_positions, config.d_model))
-    for kw in (dict(int8_cross=True), dict(cross_layout="btc"),
-               dict(self_t_major=True)):
+    for kw in (dict(cross_layout="btc"),
+               dict(cross_layout="btc", int8_cross=True),
+               dict(cross_layout="btc", self_t_major=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tw.init_cache(model, enc, max_len=8, **kw)
 
