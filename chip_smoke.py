@@ -14,7 +14,8 @@ each printing JSON lines:
             head dims and layouts), and times both with CUDA events, beside
             one PyTorch library call of the same function where there is
             one: K1 (flash forward), K2 (flash backward), K3 (LoRA adapter
-            backward), K6 (decode cross-attention), K7 (decode
+            backward), K4 (flash forward and backward with a bias row, ring
+            attention's blocks), K6 (decode cross-attention), K7 (decode
             self-attention step), K8 (multi-query decode step of
             speculative decoding).
 3. slice    serves 16 synthetic [208, 6000] signals in two batches of 8
@@ -45,6 +46,14 @@ each printing JSON lines:
             schedule's first steps, finite loss, ms per step and samples/s,
             and one step's gradients at batch 4 against the plain versions
             and against an f32 reference, at two states of the adapters.
+7. ring     sequence-parallel (ring) attention: a LocalRing of 4 threads on
+            the card at whisper-base widths (B=8, T=1536) through K4's
+            forward and backward bodies, against K1/K2 on the whole
+            sequence at kv_valid_len 1500 and 1000; then the training step
+            with ``seq_parallel_axis`` over a one-rank NCCL group from
+            ``parallel/mesh.py`` (whisper-base, batch 64): K4 launches per
+            step, ms per step and samples/s beside the train phase's, and
+            one step's loss and gradients against the non-SP kernel step.
 
 Then it prints the kernel summary (with each kernel's bound: the least time
 the card could take for the same bytes or operations, from NVIDIA's H100 SXM
@@ -54,10 +63,13 @@ its last line
 non-zero and prints no ``ok`` line. Without CUDA it fails at once.
 
     python3 chip_smoke.py --profile-train [TRACE_DIR]
+    python3 chip_smoke.py --profile-train-sp [TRACE_DIR]
 
 builds the kernels and prints where the training step's time goes
 (CUDA events per phase, device busy share under torch.profiler) instead,
-writing the profiler's trace into TRACE_DIR when one is given.
+writing the profiler's trace into TRACE_DIR when one is given; ``-sp``
+profiles the ring phase's step (``seq_parallel_axis`` over a one-rank NCCL
+group).
 """
 
 from __future__ import annotations
@@ -215,6 +227,13 @@ GRAD_CHECK_BATCH = 4
 # rounding (2^-8 relative) of an attention output or gradient; twelve
 # attention blocks and twelve adapters pass such flips on, so a few percent.
 GRAD_REL_TOL = 5e-2
+# Ring attention at n = 4 against K1/K2 on the whole sequence: each of the
+# n partial outputs and gradients is rounded to bf16 by K4 before the f32
+# merge or sum, and rounded again at the end, so the ring adds about five
+# roundings of 2^-9 of the largest value to K1's bound (O_TOL: o is bf16 with
+# |o| < 1, at most 2^-8 spacing) and to K2's relative bound: 2e-2 + 5 x 2^-9.
+RING_O_TOL = 2e-2
+RING_GRAD_REL_TOL = 3e-2
 # Both bf16 paths against an f32 reference (plain attention and plain
 # adapter backward computing in f32, on the same weights): the kernels may
 # add their own summation-order noise, of bf16's size and independent of
@@ -249,6 +268,24 @@ SPEC_REPEATS = 3
 # 4 - m rejected columns of each iteration stay as holes
 SPEC_FORCED_ACCEPTS = (1, 4, 2, 3, 1)
 SAMPLE_RATE = 200  # Hz: a 30 s clip is the stem's 6000 samples
+# K4, the flash forward and backward with a bias row (ring attention's
+# blocks): (name, B, T, H, D, masked key columns at the end). (a) the SP
+# training step's encoder at n = 1 (1500 frames padded to 1536, the last 36
+# keys masked); (b) a round of a ring of 4 over whisper-base's padded 1536
+# frames whose key block lies wholly past kv_valid_len; (c) a block of it
+# partly past (kv_valid_len 1000: keys 768..1151 keep 232)
+BIAS_CASES = (
+    ("sp_step_n1", 64, 1536, 8, 64, 36),
+    ("ring_n4_masked_block", 8, 384, 8, 64, 384),
+    ("ring_n4_partial_block", 8, 384, 8, 64, 152),
+)
+# The ring phase: a LocalRing of RING_N threads on the card at whisper-base
+# widths, 1500 frames padded to 1536, and kv_valid_len 1000, which masks the
+# fourth shard entirely
+RING_N = 4
+RING_BATCH = 8
+RING_T = 1536
+RING_KV_VALID = (1500, 1000)
 
 
 def emit(obj) -> None:
@@ -401,6 +438,7 @@ def phase_kernels() -> list:
             results.append(_check_flash_bwd(case, q, k, v, o_k, lse_k, gen))
     results.append(_check_bhtd_layout(gen))
     results.extend(_check_lora_bwd(gen))
+    results.extend(_check_flash_bias(gen))
     results.extend(_check_decode_cross(gen))
     results.extend(_check_decode_step(gen))
     results.extend(_check_decode_step_multi(gen))
@@ -559,6 +597,127 @@ def _check_lora_bwd(gen) -> list:
               f"K3 {name}: kernel disagrees with plain version")
         out.append(res)
     return out
+
+
+def _bias_row(t: int, masked: int):
+    from neuspeech1_tpu_torch.ops import flash_attention as fa
+
+    bias = torch.zeros(t, device="cuda")
+    bias[t - masked:] = fa.NEG_INF
+    return bias
+
+
+def _check_flash_bias(gen) -> list:
+    """K4's forward and backward against their plain versions at
+    BIAS_CASES: o and lse (NaN and -inf in the same places; every row of a
+    fully masked block NaN and -inf), then dq, dk, dv against one block
+    with the global o and lse of a two-block merge (the block and an
+    unmasked one), as the ring's backward takes them. Timed beside SDPA
+    with the bias as a float mask where it computes the same function (not
+    for a fully masked block, where SDPA's rows are not NaN)."""
+    import torch.nn.functional as F
+
+    from neuspeech1_tpu_torch.ops import flash_attention as fa
+    from neuspeech1_tpu_torch.parallel.ring_attention import merge
+
+    out = []
+    for name, b, t, h, d, masked in BIAS_CASES:
+        q, k, v, k2, v2, do = (_bthd(gen, b, t, h, d) for _ in range(6))
+        bias = _bias_row(t, masked)
+        o_k, lse_k = fa.flash_bias_fwd(q, k, v, bias)
+        o_p, lse_p = fa.flash_bias_fwd_plain(q, k, v, bias)
+        torch.cuda.synchronize()
+        nan_k, nan_p = torch.isnan(o_k), torch.isnan(o_p)
+        ninf_k, ninf_p = lse_k == float("-inf"), lse_p == float("-inf")
+        fin = ~nan_p
+        o_err = ((o_k.float() - o_p.float())[fin].abs().max().item()
+                 if fin.any() else 0.0)
+        lse_err = ((lse_k - lse_p)[~ninf_p].abs().max().item()
+                   if (~ninf_p).any() else 0.0)
+        kept = t - masked
+        sq, sk, sv = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        mask = bias.to(q.dtype).view(1, 1, 1, t)
+        library = kept > 0
+        res = {"phase": "kernels", "kernel": "K4", "case": name,
+               "shape": [b, t, t, h, d], "masked_columns": masked,
+               "o_max_abs_err": o_err,
+               "lse_max_abs_err": lse_err,
+               "nan_equal": bool(torch.equal(nan_k, nan_p)),
+               "ninf_equal": bool(torch.equal(ninf_k, ninf_p)),
+               "o_tol": O_TOL, "lse_tol": LSE_TOL,
+               "ms": cuda_ms(lambda: fa.flash_bias_fwd(q, k, v, bias)),
+               "plain_ms": cuda_ms(lambda: fa.flash_bias_fwd_plain(
+                   q, k, v, bias)),
+               "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                   sq, sk, sv, attn_mask=mask)) if library else None,
+               # q, k, v read, o written (bf16), lse written and the bias
+               # read (f32); the products over the kept columns only
+               **bound(2 * b * h * d * 4 * t + 4 * b * h * t + 4 * t,
+                       4 * b * h * t * kept * d)}
+        check(res["nan_equal"] and res["ninf_equal"],
+              f"K4 {name}: NaN / -inf rows differ from the plain version")
+        if kept == 0:
+            res["all_rows_nan_and_ninf"] = bool(nan_k.all() and ninf_k.all())
+            check(res["all_rows_nan_and_ninf"],
+                  f"K4 {name}: a fully masked block must give o NaN and "
+                  "lse -inf on every row")
+        else:
+            check(not nan_k.any(), f"K4 {name}: NaN in a kept row")
+        check(o_err <= O_TOL and lse_err <= LSE_TOL,
+              f"K4 {name}: kernel disagrees with plain version")
+        emit(res)
+        out.append(res)
+
+        # the backward against this block with the global o and lse of a
+        # merge with an unmasked block
+        o2, lse2 = fa.flash_bias_fwd_plain(q, k2, v2, torch.zeros_like(bias))
+        o_g, lse_g = merge(o_p.float(), lse_p, o2.float(), lse2)
+        args = (q, k, v, o_g.to(q.dtype), do, lse_g.contiguous(), bias)
+        grads = fa.flash_bias_bwd(*args)
+        plain = fa.flash_bias_bwd_plain(*args)
+        torch.cuda.synchronize()
+        abs_err = max((g.float() - p.float()).abs().max().item()
+                      for g, p in zip(grads, plain))
+        if kept == 0:  # every p is 0: the plain grads are exactly 0
+            errs = {f"{n}_max_abs": g.float().abs().max().item()
+                    for n, g in zip(("dq", "dk", "dv"), grads)}
+            ok = abs_err == 0.0 and not any(errs.values())
+        else:
+            errs = {f"{n}_rel_err": _rel_err(g, p)
+                    for n, g, p in zip(("dq", "dk", "dv"), grads, plain)}
+            ok = max(errs.values()) <= K2_REL_TOL
+        bwd = {"phase": "kernels", "kernel": "K4_bwd", "case": name,
+               "shape": [b, t, t, h, d], "masked_columns": masked,
+               "max_abs_err": abs_err, **errs,
+               "rel_tol": K2_REL_TOL,
+               "ms": cuda_ms(lambda: fa.flash_bias_bwd(*args)),
+               "plain_ms": cuda_ms(lambda: fa.flash_bias_bwd_plain(*args)),
+               # SDPA's backward computes this function where the block's
+               # lse is the global one: at (a), a ring of one
+               "library_ms": (_sdpa_bias_bwd_ms(q, k, v, mask, do)
+                              if name == "sp_step_n1" else None),
+               # q, k, v, o, do read and dq, dk, dv written (bf16), lse and
+               # the bias read; five products over the kept columns
+               **bound(2 * b * h * d * 8 * t + 4 * b * h * t + 4 * t,
+                       2.5 * 4 * b * h * t * kept * d)}
+        emit(bwd)
+        check(all(torch.isfinite(g.float()).all() for g in grads),
+              f"K4 backward {name}: non-finite gradients")
+        check(ok, f"K4 backward {name}: kernel disagrees with plain version")
+        out.append(bwd)
+    return out
+
+
+def _sdpa_bias_bwd_ms(q, k, v, mask, do) -> float:
+    """One autograd call through SDPA's backward with a float mask."""
+    import torch.nn.functional as F
+
+    sq, sk, sv = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    o = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask)
+    sdo = do.transpose(1, 2).contiguous()
+    return cuda_ms(lambda: torch.autograd.grad(o, (sq, sk, sv), sdo,
+                                               retain_graph=True))
 
 
 def _check_decode_cross(gen) -> list:
@@ -815,7 +974,7 @@ def _expected_launches(config, calls) -> dict:
     chunk per call at the served shapes), K7 once per decoder layer and
     width-1 call, K8 once per decoder layer and call on a k_tu cache."""
     return {"K1": config.encoder_layers * calls["encoder"],
-            "K2": 0, "K3": 0,
+            "K2": 0, "K3": 0, "K4": 0, "K4_bwd": 0,
             "K6": config.decoder_layers * calls["cross_chunks"],
             "K7": config.decoder_layers * calls["width1"],
             "K8": config.decoder_layers * calls["k_tu"]}
@@ -1323,11 +1482,16 @@ def phase_spec(model) -> dict:
     return out
 
 
-def _train_setup(batch_size: int, device: str = "cuda"):
+def _train_setup(batch_size: int, device: str = "cuda",
+                 seq_parallel_axis=None):
     """The bench configuration on the card: whisper-base with the 'base'
     stem over 208 channels, f32 masters computing in bf16, LoRA r=32 alpha=64
     on encoder q/k/v/out/fc1/fc2 from seeds, AdamW with warmup, and a
-    synthetic batch from a seeded numpy generator (bench.py's recipe)."""
+    synthetic batch from a seeded numpy generator (bench.py's recipe);
+    with ``seq_parallel_axis`` the encoder's self-attention runs the ring
+    over that axis of the ambient mesh."""
+    import dataclasses
+
     from neuspeech1_tpu_torch.cli import common
     from neuspeech1_tpu_torch.models.convert import module_from_params
     from neuspeech1_tpu_torch.models.init import init_params
@@ -1335,6 +1499,7 @@ def _train_setup(batch_size: int, device: str = "cuda"):
     from neuspeech1_tpu_torch.train import optimizer, trainstep
 
     config, stem = common.preset_model("base", "base", in_channels=208)
+    config = dataclasses.replace(config, seq_parallel_axis=seq_parallel_axis)
     model = module_from_params(init_params(config, stem, seed=0), config, stem,
                                device=device, dtype=torch.float32)
     lora = init_lora(config, rank=32, alpha=64, seed=1, device=device)
@@ -1363,6 +1528,7 @@ def _kernel_counts():
     from neuspeech1_tpu_torch.ops import lora_bwd as lb
 
     return {"K1": fa.launches, "K2": fa.bwd_launches, "K3": lb.launches,
+            "K4": fa.bias_launches, "K4_bwd": fa.bias_bwd_launches,
             "K6": dc.launches, "K7": ds.launches, "K8": ds.multi_launches}
 
 
@@ -1373,6 +1539,7 @@ def _reset_counts():
     from neuspeech1_tpu_torch.ops import lora_bwd as lb
 
     fa.launches = fa.bwd_launches = lb.launches = 0
+    fa.bias_launches = fa.bias_bwd_launches = 0
     dc.launches = ds.launches = ds.multi_launches = 0
 
 
@@ -1397,6 +1564,8 @@ def _plain_kernels():
          lambda q, k, v, causal, kv_len: fa.flash_attention_bthd_plain(
              q, k, v, causal, kv_len, return_lse=True)),
         (fa, "_flash_bwd_cuda", fa.flash_attention_bthd_bwd_plain),
+        (fa, "_flash_bias_fwd_cuda", fa.flash_bias_fwd_plain),
+        (fa, "_flash_bias_bwd_cuda", fa.flash_bias_bwd_plain),
         (lb, "_lora_bwd_cuda", lb.lora_adapter_bwd_plain),
         (dc, "_decode_cross_cuda", dc.decode_cross_plain),
         (ds, "_decode_step_cuda", ds.decode_step_plain),
@@ -1413,19 +1582,23 @@ def _plain_kernels():
 
 
 @contextlib.contextmanager
-def _f32_compute(model):
-    """The model computing in f32 with plain attention while the context is
-    open (its masters are f32 already): the reference of the gradient
-    checks. Run it under `_plain_kernels`, since K3 takes bf16 only."""
+def _replaced_config(model, **changes):
+    """The model with its config's ``changes`` while the context is open."""
     import dataclasses
 
     config = model.config
-    model.config = dataclasses.replace(config, dtype="float32",
-                                       flash_attention="off")
+    model.config = dataclasses.replace(config, **changes)
     try:
         yield
     finally:
         model.config = config
+
+
+def _f32_compute(model):
+    """The model computing in f32 with plain attention while the context is
+    open (its masters are f32 already): the reference of the gradient
+    checks. Run it under `_plain_kernels`, since K3 takes bf16 only."""
+    return _replaced_config(model, dtype="float32", flash_attention="off")
 
 
 def _grads(loss_fn, state, frozen, batch):
@@ -1499,7 +1672,7 @@ def phase_train() -> dict:
     stem = frozen.model.stem_config
     n_layers = config.encoder_layers
     expect = {"K1": 2 * n_layers, "K2": 2 * n_layers, "K3": 2 * n_layers,
-              "K6": 0, "K7": 0, "K8": 0}
+              "K4": 0, "K4_bwd": 0, "K6": 0, "K7": 0, "K8": 0}
 
     def run_step():
         _reset_counts()
@@ -1568,15 +1741,48 @@ def phase_train() -> dict:
     return out
 
 
-def phase_train_profile(trace_dir=None) -> dict:
+@contextlib.contextmanager
+def _one_rank_mesh():
+    """A one-rank NCCL process group (a FileStore in a temp dir) and a
+    (data 1, seq 1) DeviceMesh over it, ambient while the context is open;
+    the group is destroyed at exit."""
+    import torch.distributed as dist
+
+    from neuspeech1_tpu_torch.parallel import mesh as pmesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pmesh.initialize_distributed(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = pmesh.make_mesh("cuda", data=1, seq=1)
+            with pmesh.set_mesh(mesh):
+                yield mesh
+        finally:
+            dist.destroy_process_group()
+
+
+def phase_train_profile(trace_dir=None, seq_parallel: bool = False) -> dict:
     """Where the training step's time goes: CUDA events around forward
     (loss), backward and the optimizer over a few steps, then the device's
     busy and idle share under torch.profiler. Prints one JSON line and
-    writes the chrome trace into ``trace_dir`` when one is given."""
-    from neuspeech1_tpu_torch.train.optimizer import global_norm
-    from neuspeech1_tpu_torch.train.trainstep import make_loss_fn
+    writes the chrome trace into ``trace_dir`` when one is given. With
+    ``seq_parallel``, the step of the ring phase (``seq_parallel_axis``
+    over a one-rank NCCL group)."""
+    if seq_parallel:
+        with _one_rank_mesh():
+            return _train_profile(trace_dir, "seq")
+    return _train_profile(trace_dir, None)
 
-    config, tx, state, frozen, step, batch = _train_setup(TRAIN_BATCH)
+
+def _train_profile(trace_dir, seq_parallel_axis) -> dict:
+    from neuspeech1_tpu_torch.parallel import mesh as pmesh
+    from neuspeech1_tpu_torch.train.optimizer import global_norm
+    from neuspeech1_tpu_torch.train.trainstep import (
+        make_loss_fn, sum_seq_sharded_grads)
+
+    config, tx, state, frozen, step, batch = _train_setup(
+        TRAIN_BATCH, seq_parallel_axis=seq_parallel_axis)
     loss_fn = make_loss_fn(config, frozen.model.stem_config, fold_lora=True)
     for _ in range(TRAIN_WARMUP):
         float(step(state, frozen, batch)["loss"])
@@ -1592,6 +1798,9 @@ def phase_train_profile(trace_dir=None) -> dict:
         ev[2].record()
         grads = {k: t.grad for k, t in state.trainable.items()
                  if t.grad is not None}
+        if seq_parallel_axis is not None:
+            grads = sum_seq_sharded_grads(
+                grads, pmesh.axis_ring(seq_parallel_axis))
         tx.update(state.trainable, grads, state.opt_state,
                   global_norm(grads.values()))
         ev[3].record()
@@ -1618,10 +1827,12 @@ def phase_train_profile(trace_dir=None) -> dict:
                  reverse=True)[:15]
     if trace_dir:
         os.makedirs(trace_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(trace_dir,
-                                              "train_step_trace.json"))
+        name = "sp_" if seq_parallel_axis else ""
+        prof.export_chrome_trace(os.path.join(
+            trace_dir, f"{name}train_step_trace.json"))
     out = {
         "phase": "train_profile", "batch_size": TRAIN_BATCH,
+        "seq_parallel_axis": seq_parallel_axis,
         "events_ms_median": {k: statistics.median(v)
                              for k, v in phases.items()},
         "events_ms_all": phases,
@@ -1637,12 +1848,157 @@ def phase_train_profile(trace_dir=None) -> dict:
     return out
 
 
-def summary(kernels, sl, bm, sp, tr) -> dict:
+def _local_ring(gen, kv_valid_len: int) -> dict:
+    """Ring attention over a LocalRing of RING_N threads on the card at
+    whisper-base widths, each rank calling the ring's forward and backward
+    bodies on its shard (CUDA autograd runs every backward on one worker
+    thread per device, where the ranks' waits in permute would deadlock),
+    against K1/K2 on the whole sequence with kv_len = kv_valid_len."""
+    from neuspeech1_tpu_torch.ops import flash_attention as fa
+    from neuspeech1_tpu_torch.parallel.ring_attention import (
+        LocalRing, ring_bwd, ring_fwd, shard_bias)
+
+    b, t, h, d = RING_BATCH, RING_T, DECODE_HEADS, DECODE_HEAD_DIM
+    q, k, v, do = (_bthd(gen, b, t, h, d) for _ in range(4))
+    t_loc = t // RING_N
+
+    def rank(ring):
+        rows = slice(ring.rank * t_loc, (ring.rank + 1) * t_loc)
+        ql, kl, vl, dol = (x[:, rows] for x in (q, k, v, do))
+        bias = shard_bias(t_loc, ring.rank, kv_valid_len, q.device)
+        o, lse = ring_fwd(ql, kl, vl, bias, ring)
+        return (o, *ring_bwd(ql, kl, vl, bias, o, lse, dol, ring))
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    parts = LocalRing.run(rank, RING_N)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _kernel_counts()
+    o, dq, dk, dv = (torch.cat([p[i] for p in parts], 1) for i in range(4))
+    o_ref, lse_ref = fa.flash_attention_bthd(q, k, v, kv_len=kv_valid_len,
+                                             return_lse=True)
+    refs = fa._flash_bwd_cuda(q, k, v, o_ref, do, lse_ref, False,
+                              kv_valid_len)
+    torch.cuda.synchronize()
+    o_err = (o.float() - o_ref.float()).abs().max().item()
+    errs = {f"{n}_rel_err": _rel_err(g, r)
+            for n, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs)}
+    res = {"phase": "ring", "part": "local_ring", "ranks": RING_N,
+           "shape": [b, t, h, d], "kv_valid_len": kv_valid_len,
+           "fully_masked_shards": RING_N - -(-kv_valid_len // t_loc),
+           "launches": {"K4": counts["K4"], "K4_bwd": counts["K4_bwd"]},
+           "o_max_abs_err": o_err, **errs, "o_tol": RING_O_TOL,
+           "rel_tol": RING_GRAD_REL_TOL, "seconds": seconds}
+    emit(res)
+    check(counts["K4"] == RING_N ** 2 and counts["K4_bwd"] == RING_N ** 2,
+          f"LocalRing({RING_N}): K4 launches {counts}, expected "
+          f"{RING_N ** 2} forward and backward")
+    check(all(torch.isfinite(x.float()).all() for x in (o, dq, dk, dv)),
+          f"LocalRing({RING_N}) kv_valid_len {kv_valid_len}: non-finite")
+    check(not dk[:, kv_valid_len:].any() and not dv[:, kv_valid_len:].any(),
+          "ring: dk/dv of masked keys are not 0")
+    check(o_err <= RING_O_TOL and max(errs.values()) <= RING_GRAD_REL_TOL,
+          f"LocalRing({RING_N}) kv_valid_len {kv_valid_len}: ring disagrees "
+          "with K1/K2 on the whole sequence")
+    return res
+
+
+def _sp_train_step(tr) -> dict:
+    """The training step with ``seq_parallel_axis='seq'`` over a one-rank
+    NCCL group and a (data 1, seq 1) DeviceMesh: launches per step, the
+    schedule's first steps, ms per step and samples/s beside the train
+    phase's; then one step's loss and gradients against the non-SP kernel
+    step on the same weights."""
+    from neuspeech1_tpu_torch.models.lora import entries
+    from neuspeech1_tpu_torch.parallel import mesh as pmesh
+    from neuspeech1_tpu_torch.train.trainstep import make_loss_fn
+
+    with _one_rank_mesh() as mesh:
+        config, _, state, frozen, step, batch = _train_setup(
+            TRAIN_BATCH, seq_parallel_axis="seq")
+        stem = frozen.model.stem_config
+        # the encoder's self-attention on K4, the decoder's cross-attention
+        # on K1/K2, the fc adapters on K3
+        n_layers = config.encoder_layers
+        expect = {"K1": n_layers, "K2": n_layers, "K3": 2 * n_layers,
+                  "K4": n_layers, "K4_bwd": n_layers, "K6": 0, "K7": 0,
+                  "K8": 0}
+        check(pmesh.axis_ring("seq").size == 1
+              and pmesh.local_mesh_info(mesh)["process_count"] == 1,
+              "the SP mesh is not one rank")
+
+        def run_step():
+            _reset_counts()
+            t0 = time.perf_counter()
+            m = step(state, frozen, batch)
+            loss = float(m["loss"])  # a device -> host copy: the step ran
+            seconds = time.perf_counter() - t0
+            counts = _kernel_counts()
+            check(counts == expect, f"SP step launches {counts}, expected "
+                  f"{expect}")
+            check(math.isfinite(loss) and float(m["grad_norm"]) > 0,
+                  f"SP step {state.step}: loss {loss}")
+            return loss, seconds, counts
+
+        warm = [run_step() for _ in range(TRAIN_WARMUP)]
+        timed = [run_step() for _ in range(TRAIN_STEPS)]
+        # gradients where they carry signal: every LoRA B refilled at a
+        # trained magnitude, as the train phase's second check (with B near
+        # 0 the adapters' A gradients are bf16 noise)
+        gen = torch.Generator().manual_seed(3)
+        with torch.no_grad():
+            for _, e in entries(frozen.lora):
+                e["B"].copy_(TRAINED_B_STD * torch.randn(e["B"].shape,
+                                                         generator=gen))
+        small = {k: v[:GRAD_CHECK_BATCH] for k, v in batch.items()}
+        loss_fn = make_loss_fn(config, stem, fold_lora=True)
+        loss_sp, g_sp = _grads(loss_fn, state, frozen, small)
+        with _replaced_config(frozen.model, seq_parallel_axis=None):
+            loss_1, g_1 = _grads(loss_fn, state, frozen, small)
+    ms = [1e3 * t[1] for t in timed]
+    med = statistics.median(ms)
+    errs = _leaf_errs(g_sp, g_1)
+    out = {"phase": "ring", "part": "sp_train_step", "seq": 1,
+           "backend": "nccl", "batch_size": TRAIN_BATCH,
+           "launches_per_step": timed[-1][2],
+           "warmup_losses": [w[0] for w in warm],
+           "losses": [t[0] for t in timed], "step_ms": med, "step_ms_all": ms,
+           "samples_per_s": TRAIN_BATCH / (med / 1e3),
+           "train_phase_step_ms": tr["step_ms"],
+           "train_phase_samples_per_s": tr["samples_per_s"],
+           "grad_check_batch": GRAD_CHECK_BATCH,
+           "loss": {"sp": loss_sp, "non_sp": loss_1},
+           "sp_vs_non_sp": errs, "grad_rel_tol": GRAD_REL_TOL}
+    emit(out)
+    check(set(g_sp) == set(g_1), "SP and non-SP steps reach other leaves")
+    check(errs["max"] <= GRAD_REL_TOL,
+          f"SP step grads off the non-SP step: {errs['leaf']} {errs['max']}")
+    check(abs(loss_sp - loss_1) <= LOSS_TOL * abs(loss_1),
+          f"SP loss {loss_sp}, non-SP {loss_1}")
+    return out
+
+
+def phase_ring(tr) -> dict:
+    """Sequence-parallel attention: a LocalRing of RING_N threads on the
+    card at both kv_valid_len, then the SP training step at seq = 1."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    local = [_local_ring(gen, n) for n in RING_KV_VALID]
+    sp = _sp_train_step(tr)
+    torch.cuda.synchronize()
+    check(_jax_free(), "jax or the JAX package was imported")
+    out = {"phase": "ring", "local_ring": local, "sp_step": sp,
+           "jax_imported": not _jax_free(), "card": card()}
+    emit({k: v for k, v in out.items() if k not in ("local_ring", "sp_step")})
+    return out
+
+
+def summary(kernels, sl, bm, sp, tr, rg) -> dict:
     """One entry per kernel: launches on its path (training for K1, K2, K3;
-    beam serving for K6, K7; speculative serving with the self-prefix
-    drafter for K8; greedy serving beside them), the error and the times of
-    its case at that path's shape, its bound and the library call's
-    time."""
+    the sequence-parallel training step for K4; beam serving for K6, K7;
+    speculative serving with the self-prefix drafter for K8; greedy serving
+    beside them), the error and the times of its case at that path's shape,
+    its bound and the library call's time."""
     def first(kernel, case):
         return next(r for r in kernels
                     if r["kernel"] == kernel and r["case"] == case)
@@ -1658,6 +2014,9 @@ def summary(kernels, sl, bm, sp, tr) -> dict:
     k6, k6_btc = first("K6", "beam_step"), first("K6", "btc")
     k7 = first("K7", "beam_last")
     k8 = first("K8", "verify_late")
+    k4, k4_bwd = first("K4", "sp_step_n1"), first("K4_bwd", "sp_step_n1")
+    sp_launches = rg["sp_step"]["launches_per_step"]
+    ring_launches = [r["launches"] for r in rg["local_ring"]]
     spec_launches = {n: r["launches"]["K8"]
                      for n, r in sp["requests"].items()}
     launches = tr["launches_per_step"]
@@ -1692,6 +2051,16 @@ def summary(kernels, sl, bm, sp, tr) -> dict:
          "replaces": "neuspeech1_tpu/ops/lora_bwd.py:47",
          "launches": launches["K3"], "max_abs_err": k3["max_abs_err"],
          **timing(k3)},
+        {"name": "flash_fwd_btc_bias (K4 forward)", "route": "cuda",
+         "source": src + "flash_fwd_btc.cu", "replaces": fa_py + ":742",
+         "launches": sp_launches["K4"],
+         "local_ring_launches": [r["K4"] for r in ring_launches],
+         "max_abs_err": k4["o_max_abs_err"], **timing(k4)},
+        {"name": "flash_bwd_btc_bias (K4 backward)", "route": "cuda",
+         "source": src + "flash_bwd_btc.cu", "replaces": fa_py + ":786",
+         "launches": sp_launches["K4_bwd"],
+         "local_ring_launches": [r["K4_bwd"] for r in ring_launches],
+         "max_abs_err": k4_bwd["max_abs_err"], **timing(k4_bwd)},
         {"name": "decode_cross (K6, [B,H,T,D] cache)", "route": "cuda",
          "source": src + "decode_cross.cu", "replaces": fa_py + ":869",
          "launches": bm["launches"]["K6"],
@@ -1726,12 +2095,14 @@ def main(argv) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if argv[1:2] == ["--profile-train"] and len(argv) <= 3:
+    if argv[1:2] in (["--profile-train"], ["--profile-train-sp"]) \
+            and len(argv) <= 3:
         phase_build()
-        phase_train_profile(argv[2] if len(argv) == 3 else None)
+        phase_train_profile(argv[2] if len(argv) == 3 else None,
+                            seq_parallel=argv[1] == "--profile-train-sp")
         return 0
     if argv[1:]:
-        print(f"usage: {argv[0]} [--profile-train [TRACE_DIR]]",
+        print(f"usage: {argv[0]} [--profile-train[-sp] [TRACE_DIR]]",
               file=sys.stderr)
         return 2
     phase_build()
@@ -1742,7 +2113,8 @@ def main(argv) -> int:
         bm = phase_beam(model)
         sp = phase_spec(model)
     tr = phase_train()
-    emit(summary(kernels, sl, bm, sp, tr))
+    rg = phase_ring(tr)
+    emit(summary(kernels, sl, bm, sp, tr, rg))
     print(card(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

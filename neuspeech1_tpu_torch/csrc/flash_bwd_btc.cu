@@ -1,8 +1,10 @@
 // Flash-attention backward for Hopper (sm_90a) on [B, T, H, D] bf16 tensors.
 //
 // Replaces neuspeech1_tpu/ops/flash_attention.py::_bwd_kernel_btc, the Pallas
-// TPU kernel behind the custom_vjp of flash_attention_bthd. From q, k, v, the
-// forward's o and lse [B, H, Tq] f32, and do, per (batch, head):
+// TPU kernel behind the custom_vjp of flash_attention_bthd (K2), and the same
+// kernel body with has_bias=True behind bwd_arrays_btc_bias (K4, ring
+// attention). From q, k, v, the forward's o and lse [B, H, Tq] f32, and do,
+// per (batch, head):
 //   p     = exp(q k^T * scale - lse)              (masked entries 0)
 //   dv    = bf16(p)^T do
 //   delta = rowsum(do * o)                         (f32)
@@ -34,8 +36,19 @@
 // Under causal masking both loops skip fully masked tiles. wgmma, TMA and
 // pipelining are later work.
 //
-// C entry point: nsp_flash_bwd_btc_bf16 (below). It returns
-// cudaGetLastError() after the launches; 0 means the kernels were queued.
+// K4 (HAS_BIAS): instead of the kv_len and causal masks an additive f32 bias
+// row over the key axis enters p = exp(q k^T * scale + bias - lse), and a
+// column whose bias is at or below -1e29 gets p = 0 exactly, as the forward
+// keeps it out of the row max. lse and o are given: in ring attention they
+// are the GLOBAL ones, merged over every key block, so p and delta carry the
+// global normalisation and each block's dq, dk, dv are partial sums of the
+// global gradients. The dk/dv kernel reads its 16 rows' bias once; the dq
+// kernel stages each K tile's bias in shared memory beside the tile. The
+// HAS_BIAS=false instantiations are K2 unchanged.
+//
+// C entry points: nsp_flash_bwd_btc_bf16 (K2) and nsp_flash_bwd_btc_bias_bf16
+// (K4), below. Each returns cudaGetLastError() after the launches; 0 means
+// the kernels were queued.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,6 +63,8 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kPad = 8;       // shared row padding (bf16): conflict-free reads
 constexpr float kLog2e = 1.4426950408889634f;
+// A bias at or below this masks its column (the bias rows carry -1e30).
+constexpr float kMaskedBias = -1e29f;
 
 // q rows per shared tile of the dk/dv kernel: 64, or 32 at D=128 to bound
 // the registers of the score tiles.
@@ -163,7 +178,7 @@ flash_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o,
 // ---------------------------------------------------------------------------
 // 2. dk, dv: one CTA per 64-row K/V tile, looping over q tiles.
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
@@ -175,7 +190,7 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
                       __nv_bfloat16* __restrict__ dv, int n_heads, int t_q,
                       int t_kv, int kv_len, int causal, Strides qs, Strides ks,
                       Strides vs, Strides dos, Strides dks, Strides dvs,
-                      float scale) {
+                      float scale, const float* __restrict__ bias) {
   constexpr int BQ = DkdvTile<D>::kBlockQ;
   __shared__ __align__(16) __nv_bfloat16 q_s[BQ][D + kPad];
   __shared__ __align__(16) __nv_bfloat16 do_s[BQ][D + kPad];
@@ -216,6 +231,18 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
     uint32_t vf[D / 16][4];
     load_a_frags<D>(kf, k, ks.t, row_lo, kv_len, tg);
     load_a_frags<D>(vf, v, vs.t, row_lo, kv_len, tg);
+    // HAS_BIAS: this thread's two K rows' bias in log2 units, and whether
+    // the row is kept at all
+    float bb_lo = 0.f, bb_hi = 0.f;
+    bool keep_lo = true, keep_hi = true;
+    if constexpr (HAS_BIAS) {
+      const float b_lo = row_lo < kv_len ? bias[row_lo] : 0.f;
+      const float b_hi = row_hi < kv_len ? bias[row_hi] : 0.f;
+      keep_lo = b_lo > kMaskedBias;
+      keep_hi = b_hi > kMaskedBias;
+      bb_lo = b_lo * kLog2e;
+      bb_hi = b_hi * kLog2e;
+    }
 
     const float scale_log2 = scale * kLog2e;
     const int n_q_tiles = (t_q + BQ - 1) / BQ;
@@ -250,8 +277,15 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
         for (int e = 0; e < 4; ++e) {
           const int cl = nt * 8 + tg * 2 + (e & 1);  // q column in the tile
           const int row = e < 2 ? row_lo : row_hi;
-          const bool valid = row < kv_len && (!causal || row <= q0 + cl);
-          st[nt][e] = valid ? exp2f(st[nt][e] * scale_log2 - lse_s[cl]) : 0.f;
+          if constexpr (HAS_BIAS) {
+            const bool valid = row < kv_len && (e < 2 ? keep_lo : keep_hi);
+            st[nt][e] = valid ? exp2f(st[nt][e] * scale_log2 +
+                                      (e < 2 ? bb_lo : bb_hi) - lse_s[cl])
+                              : 0.f;
+          } else {
+            const bool valid = row < kv_len && (!causal || row <= q0 + cl);
+            st[nt][e] = valid ? exp2f(st[nt][e] * scale_log2 - lse_s[cl]) : 0.f;
+          }
         }
       }
       // dv += bf16(p^T) do
@@ -334,7 +368,7 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
 // ---------------------------------------------------------------------------
 // 3. dq: one CTA per 64-row q tile, looping over K/V tiles.
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
@@ -344,9 +378,12 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     const float* __restrict__ delta,
                     __nv_bfloat16* __restrict__ dq, int n_heads, int t_q,
                     int kv_len, int causal, Strides qs, Strides ks, Strides vs,
-                    Strides dos, Strides dqs, float scale) {
+                    Strides dos, Strides dqs, float scale,
+                    const float* __restrict__ bias) {
   __shared__ __align__(16) __nv_bfloat16 k_s[kBlockK][D + kPad];
   __shared__ __align__(16) __nv_bfloat16 v_s[kBlockK][D + kPad];
+  // HAS_BIAS: the tile's bias row in log2 units, -inf where masked
+  __shared__ float bias_s[HAS_BIAS ? kBlockK : 1];
 
   const int q0 = blockIdx.x * kBlockQdq;
   const int head = blockIdx.y;
@@ -395,6 +432,12 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
     const int kv0 = j * kBlockK;
     load_tile<kBlockK, D>(k_s, k, ks.t, kv0, kv_len);
     load_tile<kBlockK, D>(v_s, v, vs.t, kv0, kv_len);
+    if constexpr (HAS_BIAS) {
+      for (int i = threadIdx.x; i < kBlockK; i += kThreads) {
+        const float b = kv0 + i < kv_len ? bias[kv0 + i] : 0.f;
+        bias_s[i] = b <= kMaskedBias ? -INFINITY : b * kLog2e;
+      }
+    }
     __syncthreads();
 
     // s = Q K^T and dp = dO V^T for this warp's 16 rows, 64 columns.
@@ -419,9 +462,18 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         const int col = kv0 + nt * 8 + tg * 2 + (e & 1);
         const int row = e < 2 ? row_lo : row_hi;
-        const bool valid = col < kv_len && (!causal || col <= row);
-        const float p = valid
-            ? exp2f(s[nt][e] * scale_log2 - (e < 2 ? lse_lo : lse_hi)) : 0.f;
+        float p;
+        if constexpr (HAS_BIAS) {
+          const float bb = bias_s[nt * 8 + tg * 2 + (e & 1)];
+          const bool valid = col < kv_len && bb != -INFINITY;
+          p = valid ? exp2f(s[nt][e] * scale_log2 + bb -
+                            (e < 2 ? lse_lo : lse_hi))
+                    : 0.f;
+        } else {
+          const bool valid = col < kv_len && (!causal || col <= row);
+          p = valid
+              ? exp2f(s[nt][e] * scale_log2 - (e < 2 ? lse_lo : lse_hi)) : 0.f;
+        }
         dp[nt][e] = p * (dp[nt][e] - (e < 2 ? dl_lo : dl_hi));
       }
     }
@@ -460,26 +512,69 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
+template <int D, bool HAS_BIAS>
 void launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
             const __nv_bfloat16* v, const __nv_bfloat16* o,
             const __nv_bfloat16* dout, const float* lse, float* delta,
             __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv, int batch,
             int n_heads, int t_q, int t_kv, int kv_len, int causal,
-            const Strides (&st)[8], float scale, cudaStream_t stream) {
+            const Strides (&st)[8], float scale, const float* bias,
+            cudaStream_t stream) {
   const Strides &qs = st[0], &ks = st[1], &vs = st[2], &os = st[3],
                 &dos = st[4], &dqs = st[5], &dks = st[6], &dvs = st[7];
   flash_bwd_delta_kernel<D>
       <<<dim3((t_q + kWarps - 1) / kWarps, n_heads, batch), kThreads, 0, stream>>>(
           o, dout, delta, n_heads, t_q, os, dos);
-  flash_bwd_dkdv_kernel<D>
+  flash_bwd_dkdv_kernel<D, HAS_BIAS>
       <<<dim3((t_kv + kBlockK - 1) / kBlockK, n_heads, batch), kThreads, 0, stream>>>(
           q, k, v, dout, lse, delta, dk, dv, n_heads, t_q, t_kv, kv_len, causal,
-          qs, ks, vs, dos, dks, dvs, scale);
-  flash_bwd_dq_kernel<D>
+          qs, ks, vs, dos, dks, dvs, scale, bias);
+  flash_bwd_dq_kernel<D, HAS_BIAS>
       <<<dim3((t_q + kBlockQdq - 1) / kBlockQdq, n_heads, batch), kThreads, 0, stream>>>(
           q, k, v, dout, lse, delta, dq, n_heads, t_q, kv_len, causal, qs, ks,
-          vs, dos, dqs, scale);
+          vs, dos, dqs, scale, bias);
+}
+
+template <bool HAS_BIAS>
+int dispatch(const void* q, const void* k, const void* v, const void* o,
+             const void* dout, const void* lse, const void* bias, void* delta,
+             void* dq, void* dk, void* dv, int batch, int n_heads, int t_q,
+             int t_kv, int kv_len, int head_dim, int causal,
+             const long long* strides, float scale, void* stream) {
+  Strides st[8];
+  for (int i = 0; i < 8; ++i) {
+    st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  }
+  using bf = __nv_bfloat16;
+  const bf* q_ = static_cast<const bf*>(q);
+  const bf* k_ = static_cast<const bf*>(k);
+  const bf* v_ = static_cast<const bf*>(v);
+  const bf* o_ = static_cast<const bf*>(o);
+  const bf* do_ = static_cast<const bf*>(dout);
+  const float* lse_ = static_cast<const float*>(lse);
+  const float* bias_ = static_cast<const float*>(bias);
+  float* delta_ = static_cast<float*>(delta);
+  bf* dq_ = static_cast<bf*>(dq);
+  bf* dk_ = static_cast<bf*>(dk);
+  bf* dv_ = static_cast<bf*>(dv);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 32:
+      launch<32, HAS_BIAS>(q_, k_, v_, o_, do_, lse_, delta_, dq_, dk_, dv_, batch,
+                           n_heads, t_q, t_kv, kv_len, causal, st, scale, bias_, s);
+      break;
+    case 64:
+      launch<64, HAS_BIAS>(q_, k_, v_, o_, do_, lse_, delta_, dq_, dk_, dv_, batch,
+                           n_heads, t_q, t_kv, kv_len, causal, st, scale, bias_, s);
+      break;
+    case 128:
+      launch<128, HAS_BIAS>(q_, k_, v_, o_, do_, lse_, delta_, dq_, dk_, dv_, batch,
+                            n_heads, t_q, t_kv, kv_len, causal, st, scale, bias_, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -495,37 +590,19 @@ extern "C" int nsp_flash_bwd_btc_bf16(
     void* dv, int batch, int n_heads, int t_q, int t_kv, int kv_len,
     int head_dim, int causal, const long long* strides, float scale,
     void* stream) {
-  Strides st[8];
-  for (int i = 0; i < 8; ++i) {
-    st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  }
-  using bf = __nv_bfloat16;
-  const bf* q_ = static_cast<const bf*>(q);
-  const bf* k_ = static_cast<const bf*>(k);
-  const bf* v_ = static_cast<const bf*>(v);
-  const bf* o_ = static_cast<const bf*>(o);
-  const bf* do_ = static_cast<const bf*>(dout);
-  const float* lse_ = static_cast<const float*>(lse);
-  float* delta_ = static_cast<float*>(delta);
-  bf* dq_ = static_cast<bf*>(dq);
-  bf* dk_ = static_cast<bf*>(dk);
-  bf* dv_ = static_cast<bf*>(dv);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 32:
-      launch<32>(q_, k_, v_, o_, do_, lse_, delta_, dq_, dk_, dv_, batch, n_heads,
-                 t_q, t_kv, kv_len, causal, st, scale, s);
-      break;
-    case 64:
-      launch<64>(q_, k_, v_, o_, do_, lse_, delta_, dq_, dk_, dv_, batch, n_heads,
-                 t_q, t_kv, kv_len, causal, st, scale, s);
-      break;
-    case 128:
-      launch<128>(q_, k_, v_, o_, do_, lse_, delta_, dq_, dk_, dv_, batch, n_heads,
-                  t_q, t_kv, kv_len, causal, st, scale, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dispatch<false>(q, k, v, o, dout, lse, nullptr, delta, dq, dk, dv,
+                         batch, n_heads, t_q, t_kv, kv_len, head_dim, causal,
+                         strides, scale, stream);
+}
+
+// K4: as above with every key column kept (kv_len = Tk), no causal mask, and
+// bias: [Tk] f32, contiguous. lse and o may be the global ones of a ring.
+extern "C" int nsp_flash_bwd_btc_bias_bf16(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, const void* bias, void* delta,
+    void* dq, void* dk, void* dv, int batch, int n_heads, int t_q, int t_kv,
+    int head_dim, const long long* strides, float scale, void* stream) {
+  return dispatch<true>(q, k, v, o, dout, lse, bias, delta, dq, dk, dv, batch,
+                        n_heads, t_q, t_kv, t_kv, head_dim, 0, strides, scale,
+                        stream);
 }

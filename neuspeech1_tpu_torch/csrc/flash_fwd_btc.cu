@@ -1,10 +1,14 @@
 // Flash-attention forward for Hopper (sm_90a) on [B, T, H, D] bf16 tensors.
 //
 // Replaces neuspeech1_tpu/ops/flash_attention.py::_fwd_kernel_btc, the Pallas
-// TPU kernel behind flash_attention_bthd. Per (batch, head) it computes
+// TPU kernel behind flash_attention_bthd (K1), and the same kernel body with
+// has_bias=True behind fwd_arrays_btc_bias (K4, ring attention). Per (batch,
+// head) it computes
 //   o   = softmax(q k^T * D^-1/2 + mask) v
 //   lse = logsumexp over the columns of the scaled, masked scores
-// with two masks: kv_len (columns >= kv_len) and causal (column > row).
+// with two masks: kv_len (columns >= kv_len) and causal (column > row); or,
+// in the HAS_BIAS instantiation, an explicit additive f32 bias row over the
+// key axis (0 for a kept column, NEG_INF = -1e30 for a masked one).
 // Rounding points follow the TPU kernel: scores and softmax statistics in f32,
 // p rounded to bf16 before the PV product, f32 accumulation, o rounded once.
 //
@@ -24,8 +28,21 @@
 // [B, T, H*D] projection output is passed as it lies. wgmma, TMA and
 // double-buffered loads are later work.
 //
-// C entry point: nsp_flash_fwd_btc_bf16 (below). It returns
-// cudaGetLastError() after the launch; 0 means the kernel was queued.
+// The bias row (HAS_BIAS, K4) is staged per K tile in shared memory beside
+// the tile, in raw-score units: b / scale for a kept column, -inf for a bias
+// at or below kMaskedBias. It is added to the scores before the row max, so a
+// masked column never enters the max, as the kv_len mask above. The TPU
+// kernel instead took the max over the raw products of every column and
+// added the bias inside the exponent; that is safe only because the masked K
+// rows there (padded, layer-normed encoder states) are bounded, and this
+// choice needs no such bound. Both give a fully masked row lse = -inf and
+// o = 0/0 = NaN, on which the ring's merge gates: here its max stays -inf,
+// every p is exp2(-inf) = 0, l = 0. The HAS_BIAS=false instantiation is K1
+// unchanged.
+//
+// C entry points: nsp_flash_fwd_btc_bf16 (K1) and nsp_flash_fwd_btc_bias_bf16
+// (K4), below. Each returns cudaGetLastError() after the launch; 0 means the
+// kernel was queued.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,6 +58,8 @@ constexpr int kThreads = kWarps * 32;
 // Row padding of the shared tiles, in bf16 elements: with a row pitch of
 // D + 8 the fragment reads below touch 32 distinct banks per warp.
 constexpr int kPad = 8;
+// A bias at or below this masks its column (the bias rows carry -1e30).
+constexpr float kMaskedBias = -1e29f;
 
 struct Strides {
   long long b, t, h;  // in elements; the head dimension is contiguous
@@ -89,16 +108,19 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16 (*dst)[D + kPad],
   }
 }
 
-template <int D>
+template <int D, bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                  int n_heads, int t_q, int kv_len, int causal, Strides qs,
-                 Strides ks, Strides vs, Strides os, float scale) {
+                 Strides ks, Strides vs, Strides os, float scale,
+                 const float* __restrict__ bias) {
   __shared__ __align__(16) __nv_bfloat16 k_s[kBlockK][D + kPad];
   __shared__ __align__(16) __nv_bfloat16 v_s[kBlockK][D + kPad];
+  // HAS_BIAS: the tile's bias row in raw-score units, -inf where masked
+  __shared__ float bias_s[HAS_BIAS ? kBlockK : 1];
 
   const int q0 = blockIdx.x * kBlockQ;
   const int head = blockIdx.y;
@@ -148,6 +170,12 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     const int kv0 = j * kBlockK;
     load_tile<D>(k_s, k, ks.t, kv0, kv_len);
     load_tile<D>(v_s, v, vs.t, kv0, kv_len);
+    if constexpr (HAS_BIAS) {
+      for (int i = threadIdx.x; i < kBlockK; i += kThreads) {
+        const float b = kv0 + i < kv_len ? bias[kv0 + i] : 0.f;
+        bias_s[i] = b <= kMaskedBias ? -INFINITY : b / scale;
+      }
+    }
     __syncthreads();
 
     // s = q k^T for this warp's 16 rows and the tile's 64 columns.
@@ -159,6 +187,14 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       for (int kk = 0; kk < D / 16; ++kk) {
         const __nv_bfloat16* kr = &k_s[nt * 8 + g][kk * 16 + tg * 2];
         mma_16816(s[nt], qf[kk], load_u32(kr), load_u32(kr + 8));
+      }
+    }
+
+    if constexpr (HAS_BIAS) {
+#pragma unroll
+      for (int nt = 0; nt < kBlockK / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] += bias_s[nt * 8 + tg * 2 + (e & 1)];
       }
     }
 
@@ -264,17 +300,38 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
+template <int D, bool HAS_BIAS>
 void launch(const void* q, const void* k, const void* v, void* o, void* lse,
             int batch, int n_heads, int t_q, int kv_len, int causal,
             Strides qs, Strides ks, Strides vs, Strides os, float scale,
-            cudaStream_t stream) {
+            const void* bias, cudaStream_t stream) {
   const dim3 grid((t_q + kBlockQ - 1) / kBlockQ, n_heads, batch);
-  flash_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
+  flash_fwd_kernel<D, HAS_BIAS><<<grid, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       static_cast<float*>(lse), n_heads, t_q, kv_len, causal, qs, ks, vs, os,
-      scale);
+      scale, static_cast<const float*>(bias));
+}
+
+template <bool HAS_BIAS>
+int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
+             int batch, int n_heads, int t_q, int kv_len, int head_dim,
+             int causal, Strides qs, Strides ks, Strides vs, Strides os,
+             float scale, const void* bias, cudaStream_t st) {
+  switch (head_dim) {
+    case 32:
+      launch<32, HAS_BIAS>(q, k, v, o, lse, batch, n_heads, t_q, kv_len, causal, qs, ks, vs, os, scale, bias, st);
+      break;
+    case 64:
+      launch<64, HAS_BIAS>(q, k, v, o, lse, batch, n_heads, t_q, kv_len, causal, qs, ks, vs, os, scale, bias, st);
+      break;
+    case 128:
+      launch<128, HAS_BIAS>(q, k, v, o, lse, batch, n_heads, t_q, kv_len, causal, qs, ks, vs, os, scale, bias, st);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -292,19 +349,24 @@ extern "C" int nsp_flash_fwd_btc_bf16(
     float scale, void* stream) {
   const Strides qs{q_sb, q_st, q_sh}, ks{k_sb, k_st, k_sh};
   const Strides vs{v_sb, v_st, v_sh}, os{o_sb, o_st, o_sh};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 32:
-      launch<32>(q, k, v, o, lse, batch, n_heads, t_q, kv_len, causal, qs, ks, vs, os, scale, st);
-      break;
-    case 64:
-      launch<64>(q, k, v, o, lse, batch, n_heads, t_q, kv_len, causal, qs, ks, vs, os, scale, st);
-      break;
-    case 128:
-      launch<128>(q, k, v, o, lse, batch, n_heads, t_q, kv_len, causal, qs, ks, vs, os, scale, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dispatch<false>(q, k, v, o, lse, batch, n_heads, t_q, kv_len,
+                         head_dim, causal, qs, ks, vs, os, scale, nullptr,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// K4: as above with every key column kept (kv_len = Tk), no causal mask, and
+// bias: [Tk] f32, contiguous, added to the scaled scores of every row. A row
+// whose every column carries a bias <= -1e29 gets lse = -inf and o = NaN.
+extern "C" int nsp_flash_fwd_btc_bias_bf16(
+    const void* q, const void* k, const void* v, const void* bias, void* o,
+    void* lse, int batch, int n_heads, int t_q, int t_kv, int head_dim,
+    long long q_sb, long long q_st, long long q_sh, long long k_sb,
+    long long k_st, long long k_sh, long long v_sb, long long v_st,
+    long long v_sh, long long o_sb, long long o_st, long long o_sh,
+    float scale, void* stream) {
+  const Strides qs{q_sb, q_st, q_sh}, ks{k_sb, k_st, k_sh};
+  const Strides vs{v_sb, v_st, v_sh}, os{o_sb, o_st, o_sh};
+  return dispatch<true>(q, k, v, o, lse, batch, n_heads, t_q, t_kv, head_dim,
+                        0, qs, ks, vs, os, scale, bias,
+                        static_cast<cudaStream_t>(stream));
 }

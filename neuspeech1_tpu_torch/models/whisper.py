@@ -23,7 +23,10 @@ the decode kernels: every cross-attention call on the bf16 cache through
 ``ops.decode_cross`` (K6), every width-1 self-attention step on a ``k_t``
 cache through ``ops.decode_step`` (K7) and every call on a ``k_tu`` cache
 through ``ops.decode_step_multi`` (K8). With ``config.flash_attention ==
-"off"`` all of these run their plain versions. Elsewhere attention is plain
+"off"`` all of these run their plain versions. Under a config's
+``seq_parallel_axis`` the encoder's self-attention is ring attention over
+that axis of the ambient mesh (``parallel/ring_attention.py``, K4 in every
+round). Elsewhere attention is plain
 tensor code, as it is XLA in the JAX package (the int8 cross cache
 included), with the same rounding points: scores from a product in the
 compute dtype, softmax in f32, probabilities cast back to the compute dtype
@@ -33,6 +36,7 @@ for the PV product.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 from typing import List, Optional
 
 import torch
@@ -46,6 +50,9 @@ from neuspeech1_tpu_torch.ops.decode_cross import decode_cross, decode_cross_pla
 from neuspeech1_tpu_torch.ops.decode_step import (
     decode_step, decode_step_multi, decode_step_multi_plain, decode_step_plain)
 from neuspeech1_tpu_torch.ops.flash_attention import flash_attention_bthd
+from neuspeech1_tpu_torch.parallel.mesh import axis_ring
+from neuspeech1_tpu_torch.parallel.ring_attention import (
+    SHARD_QUANTUM, gather_seq, ring_attention_local, shard_seq)
 
 # --------------------------------------------------------------------------
 # modules (parameter holders; attribute names follow the JAX tree)
@@ -70,11 +77,17 @@ class EncoderLayer(nn.Module):
         self.fc1 = nn.Linear(d, ffn)
         self.fc2 = nn.Linear(ffn, d)
 
-    def forward(self, h, use_flash: bool = True, lora=None):
+    def forward(self, h, use_flash: bool = True, lora=None, ring=None,
+                kv_valid_len: Optional[int] = None):
+        """With ``ring``, ``h`` is this rank's sequence shard and the
+        self-attention is ring attention masking keys at or past
+        ``kv_valid_len`` (K4 with ``use_flash``, its plain versions
+        without)."""
         lora = lora or {}
         x = layer_norm(h, self.self_attn_ln)
         h = h + self_attention(x, self.self_attn, self.n_heads, use_flash,
-                               lora=lora.get("self_attn"))
+                               lora=lora.get("self_attn"), ring=ring,
+                               kv_valid_len=kv_valid_len)
         return h + mlp(layer_norm(h, self.final_ln), self, lora)
 
 
@@ -218,17 +231,18 @@ class Whisper(nn.Module):
 # Set by `fold_at_linear` (the training step's 'fc' fold regime): adapted
 # linears run one product against W_eff = W + s A (E) B with the low-rank-only
 # backward of `models/lora.py::folded_linear`, instead of a per-token delta.
-_FOLD_AT_LINEAR = [False]
+# A context variable, so that each thread has its own (the ranks of a
+# `parallel.ring_attention.LocalRing` are threads).
+_FOLD_AT_LINEAR = contextvars.ContextVar("fold_at_linear", default=False)
 
 
 @contextlib.contextmanager
 def fold_at_linear():
-    prev = _FOLD_AT_LINEAR[0]
-    _FOLD_AT_LINEAR[0] = True
+    token = _FOLD_AT_LINEAR.set(True)
     try:
         yield
     finally:
-        _FOLD_AT_LINEAR[0] = prev
+        _FOLD_AT_LINEAR.reset(token)
 
 
 def _cast(t, dtype):
@@ -240,7 +254,7 @@ def _cast(t, dtype):
 def linear(x, p: nn.Linear, lora=None):
     """x W^T + b, plus the low-rank delta of a LoRA ``lora`` entry: folded
     into the weight under `fold_at_linear`, per token otherwise."""
-    if lora is not None and _FOLD_AT_LINEAR[0]:
+    if lora is not None and _FOLD_AT_LINEAR.get():
         return folded_linear(x, p, lora)
     y = F.linear(x, _cast(p.weight, x.dtype), _cast(p.bias, x.dtype))
     if lora is not None:
@@ -301,14 +315,20 @@ def attention(q, k, v, mask=None):
 
 
 def self_attention(x, p: Attention, n_heads: int, use_flash: bool,
-                   mask=None, lora=None, causal: bool = False):
+                   mask=None, lora=None, causal: bool = False, ring=None,
+                   kv_valid_len: Optional[int] = None):
     """Self-attention; the flash path applies ``causal`` as its mask, the
-    plain path ``mask``."""
+    plain path ``mask``. With ``ring`` (non-causal, mask-free), ring
+    attention over this rank's shard, through K4 or, without ``use_flash``,
+    its plain versions."""
     lora = lora or {}
     q = _split_heads(linear(x, p.q, lora.get("q")), n_heads)
     k = _split_heads(linear(x, p.k, lora.get("k")), n_heads)
     v = _split_heads(linear(x, p.v, lora.get("v")), n_heads)
-    if use_flash:
+    if ring is not None:
+        out = ring_attention_local(q, k, v, ring, kv_valid_len,
+                                   kernels=use_flash)
+    elif use_flash:
         out = flash_attention_bthd(q, k, v, causal=causal)
     else:
         out = attention(q, k, v, mask)
@@ -420,8 +440,22 @@ def encoder_apply(model: Whisper, features, lora=None):
     ``lora`` is an adapter tree (``models/lora.py``).
 
     T' runs unpadded: the flash kernel masks the ragged last tile itself
-    (the JAX package pads to a 128-row multiple for its TPU tiling)."""
+    (the JAX package pads to a 128-row multiple for its TPU tiling).
+
+    Under ``config.seq_parallel_axis`` (the JAX routing): T' is padded to a
+    multiple of n x 128 for the ring of n ranks along that axis of the
+    ambient mesh (``parallel/mesh.py::set_mesh``), keys at or past T' are
+    masked, and the padded states are sharded along T once: each rank runs
+    the layer stack on its [B, T'/n, d] shard with ring attention, so
+    activations stay O(T'/n), then the shards are gathered, cut back to T'
+    and layer-normed on every rank. The gradients of the layer stack's
+    weights then cover only this rank's tokens; the training step sums them
+    over the ring. ``pipeline_axis`` (GPipe) is not ported and raises."""
     config = model.config
+    if config.pipeline_axis is not None:
+        raise NotImplementedError(
+            "pipeline parallelism (pipeline_axis) is not ported yet; "
+            "ROADMAP.md queue 1 item 8 lists it")
     h = apply_stem(model, _cast(features, model.dtype))
     t = h.shape[1]
     if t != config.max_source_positions:
@@ -430,9 +464,21 @@ def encoder_apply(model: Whisper, features, lora=None):
             " — input length must be 4x the source positions (stride 2 x 2)")
     h = h + _cast(model.encoder.pos_embed[:t], h.dtype)
     flash = resolve_flash(model)
+    ring, kv_valid_len = None, None
+    if config.seq_parallel_axis is not None:
+        ring = axis_ring(config.seq_parallel_axis)
+        quantum = ring.size * SHARD_QUANTUM
+        t_pad = -(-t // quantum) * quantum
+        if t_pad != t:
+            h = F.pad(h, (0, 0, 0, t_pad - t))
+            kv_valid_len = t
+        h = shard_seq(h, ring)
     layers_lora = _layer_lora(lora, "encoder")
     for i, layer in enumerate(model.encoder.layers):
-        h = layer(h, flash, None if layers_lora is None else layers_lora[i])
+        h = layer(h, flash, None if layers_lora is None else layers_lora[i],
+                  ring=ring, kv_valid_len=kv_valid_len)
+    if ring is not None:
+        h = gather_seq(h, ring)[:, :t]
     return layer_norm(h, model.encoder.ln_post)
 
 

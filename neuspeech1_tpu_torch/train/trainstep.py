@@ -10,6 +10,15 @@ W + s A B with autograd, and the fc adapters run through
 kernel. Attention runs through the flash kernels (encoder self-attention,
 decoder cross-attention) and their backward.
 
+Under a config's ``seq_parallel_axis`` each rank of that axis's ring runs
+the encoder's layer stack on its sequence shard (``models/whisper.py::
+encoder_apply``), so the gradients of the leaves that stack reads (its
+weights and their adapters, merged or folded) cover only its own tokens:
+the step sums them over the ring before the norm and the update, and every
+rank ends with the same gradients and parameters. Every other leaf is whole
+on every rank already. Data parallelism (a mesh ``data`` axis larger than
+1) is not ported and raises.
+
 Not ported yet, and raising with a pointer to ROADMAP.md: augmentation,
 dropout, int8 matmuls, the AdaLoRA orthogonality loss and importance
 tracking, the 'merge' and 'linear' fold regimes, and remat.
@@ -27,6 +36,7 @@ from neuspeech1_tpu_torch.config import StemConfig, WhisperConfig
 from neuspeech1_tpu_torch.models import whisper as tw
 from neuspeech1_tpu_torch.models.lora import (
     has_entries, merge_lora, split_lora_fc)
+from neuspeech1_tpu_torch.parallel import mesh as pmesh
 from neuspeech1_tpu_torch.train.optimizer import (
     AdamState, Optimizer, PathPred, default_trainable_pred, global_norm,
     named_leaves)
@@ -35,6 +45,10 @@ Params = Dict[str, Any]
 Batch = Dict[str, torch.Tensor]
 
 _ROADMAP = "is not ported yet; ROADMAP.md queue 1 lists it"
+
+# the leaves the encoder's layer stack reads: under sequence parallelism a
+# rank's gradients for them cover its own tokens only
+SEQ_SHARDED_PREFIXES = ("model/encoder/layers/", "lora/encoder/layers/")
 
 
 class Frozen(NamedTuple):
@@ -131,18 +145,53 @@ def make_train_step(config: WhisperConfig, stem: StemConfig, tx: Optimizer,
                            fold_lora=fold_lora, int8_matmul=int8_matmul)
 
     def step(state: TrainState, frozen: Frozen, batch: Batch):
+        ring = _seq_ring(config)
         for t in state.trainable.values():
             t.grad = None
         loss, aux = loss_fn(frozen, batch)
         loss.backward()
         grads = {k: t.grad for k, t in state.trainable.items()
                  if t.grad is not None}
+        if ring is not None:
+            grads = sum_seq_sharded_grads(grads, ring)
         norm = global_norm(grads.values())
         tx.update(state.trainable, grads, state.opt_state, norm)
         state.step += 1
         return {**aux, "grad_norm": norm}
 
     return step
+
+
+def _seq_ring(config: WhisperConfig):
+    """The ring of ``config.seq_parallel_axis`` in the ambient mesh, or None
+    without the axis; raises for a mesh ``data`` axis larger than 1."""
+    mesh = pmesh.get_mesh()
+    if mesh is not None and "data" in pmesh.axis_names(mesh) \
+            and pmesh.axis_size("data", mesh) > 1:
+        raise NotImplementedError(
+            "data-parallel gradient averaging (a mesh 'data' axis > 1) is not "
+            "ported yet; ROADMAP.md queue 1 item 8 lists it")
+    if config.seq_parallel_axis is None:
+        return None
+    return pmesh.axis_ring(config.seq_parallel_axis)
+
+
+def sum_seq_sharded_grads(grads: Dict[str, torch.Tensor], ring
+                          ) -> Dict[str, torch.Tensor]:
+    """``grads`` with every leaf under ``SEQ_SHARDED_PREFIXES`` summed over
+    ``ring``: one collective per dtype over the leaves packed flat, the
+    same sum on every rank."""
+    out = dict(grads)
+    by_dtype: Dict[torch.dtype, list] = {}
+    for k, g in grads.items():
+        if k.startswith(SEQ_SHARDED_PREFIXES):
+            by_dtype.setdefault(g.dtype, []).append(k)
+    for keys in by_dtype.values():
+        flat = ring.all_reduce_sum(
+            torch.cat([grads[k].reshape(-1) for k in keys]))
+        for k, part in zip(keys, flat.split([grads[k].numel() for k in keys])):
+            out[k] = part.view(grads[k].shape)
+    return out
 
 
 def make_eval_step(config: WhisperConfig, stem: StemConfig):

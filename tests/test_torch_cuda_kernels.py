@@ -183,3 +183,91 @@ def test_decode_step_multi_kernel_matches_plain_on_card(
     assert torch.equal(k_t, kp) and torch.equal(v_t, vp)
     # a flipped bf16 score rounding, and an ulp of ctx (chip_smoke.py K8_TOL)
     assert (ctx.float() - ctx_p.float()).abs().max().item() <= 2e-2
+
+
+def _bias_row(t, masked, device):
+    bias = torch.zeros(t, device=device)
+    bias[t - masked:] = tfa.NEG_INF
+    return bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,d,masked", [
+    (4, 1536, 8, 64, 36),    # (a) the SP step's encoder at n = 1, cut to B=4
+    (8, 384, 8, 64, 384),    # (b) a ring round's fully masked block
+    (8, 384, 8, 64, 152),    # (c) a partly masked block
+    (2, 256, 4, 32, 100), (2, 256, 2, 128, 0)])
+def test_bias_kernels_match_plain_on_card(cuda_device, b, t, h, d, masked):
+    """K4 forward (NaN / -inf rows where the plain version has them) and
+    backward against one block with the global o and lse of a two-block
+    merge, as ring attention takes them."""
+    from neuspeech1_tpu_torch.parallel.ring_attention import merge
+
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v, k2, v2, do = (
+        torch.randn((b, t, h * d), generator=gen, device=cuda_device)
+        .to(torch.bfloat16).view(b, t, h, d) for _ in range(6))
+    bias = _bias_row(t, masked, cuda_device)
+    before = (tfa.bias_launches, tfa.bias_bwd_launches)
+    o, lse = tfa.flash_bias_fwd(q, k, v, bias)
+    o_p, lse_p = tfa.flash_bias_fwd_plain(q, k, v, bias)
+    assert torch.equal(torch.isnan(o), torch.isnan(o_p))
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(lse_p))
+    if masked == t:
+        assert torch.isnan(o).all() and torch.isneginf(lse).all()
+    else:
+        # as K1: one or two bf16 ulps of o (|o| < 1); lse stays f32
+        assert (o.float() - o_p.float()).abs().max().item() <= 1e-2
+        assert (lse - lse_p).abs().max().item() <= 1e-4
+    o2, lse2 = tfa.flash_bias_fwd_plain(q, k2, v2, torch.zeros_like(bias))
+    o_g, lse_g = merge(o_p.float(), lse_p, o2.float(), lse2)
+    args = (q, k, v, o_g.to(q.dtype), do, lse_g.contiguous(), bias)
+    grads = tfa.flash_bias_bwd(*args)
+    assert (tfa.bias_launches, tfa.bias_bwd_launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    plain = tfa.flash_bias_bwd_plain(*args)
+    for g, p in zip(grads, plain):
+        if masked == t:  # every p is 0
+            assert not g.any() and not p.any()
+        else:  # as K2 (chip_smoke.py K2_REL_TOL)
+            assert _rel_err(g, p) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_valid_len", [1500, 1000])
+def test_local_ring_matches_whole_sequence_on_card(cuda_device,
+                                                   kv_valid_len):
+    """Ring attention over a LocalRing of 4 threads, each calling the ring's
+    forward and backward bodies (CUDA autograd would run the ranks'
+    backwards on one thread), against K1/K2 on the whole sequence; 16 K4
+    launches each way (chip_smoke.py RING_O_TOL, RING_GRAD_REL_TOL)."""
+    from neuspeech1_tpu_torch.parallel.ring_attention import (
+        LocalRing, ring_bwd, ring_fwd, shard_bias)
+
+    b, t, h, d, n = 2, 1536, 8, 64, 4
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v, do = (torch.randn((b, t, h * d), generator=gen,
+                               device=cuda_device).to(torch.bfloat16)
+                   .view(b, t, h, d) for _ in range(4))
+    t_loc = t // n
+
+    def rank(ring):
+        rows = slice(ring.rank * t_loc, (ring.rank + 1) * t_loc)
+        ql, kl, vl, dol = (x[:, rows] for x in (q, k, v, do))
+        bias = shard_bias(t_loc, ring.rank, kv_valid_len, q.device)
+        o, lse = ring_fwd(ql, kl, vl, bias, ring)
+        return (o, *ring_bwd(ql, kl, vl, bias, o, lse, dol, ring))
+
+    before = (tfa.bias_launches, tfa.bias_bwd_launches)
+    parts = LocalRing.run(rank, n)
+    assert (tfa.bias_launches - before[0],
+            tfa.bias_bwd_launches - before[1]) == (n * n, n * n)
+    o, dq, dk, dv = (torch.cat([p[i] for p in parts], 1) for i in range(4))
+    o_ref, lse_ref = tfa.flash_attention_bthd(q, k, v, kv_len=kv_valid_len,
+                                              return_lse=True)
+    refs = tfa._flash_bwd_cuda(q, k, v, o_ref, do, lse_ref, False,
+                               kv_valid_len)
+    assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
+    for g, r in zip((dq, dk, dv), refs):
+        assert _rel_err(g, r) <= 3e-2
+    assert not dk[:, kv_valid_len:].any() and not dv[:, kv_valid_len:].any()

@@ -95,6 +95,32 @@ SCRIPT = textwrap.dedent("""
         "decoder_input_ids": torch.ones((2, 5), dtype=torch.long)})
     assert float(metrics["grad_norm"]) > 0, metrics
     check_clean("training step")
+
+    # one sequence-parallel step, the encoder on a LocalRing of 2 threads
+    import dataclasses
+    from neuspeech1_tpu_torch.parallel import mesh as pmesh
+    from neuspeech1_tpu_torch.parallel.ring_attention import LocalRing
+    assert {"neuspeech1_tpu_torch.parallel.mesh",
+            "neuspeech1_tpu_torch.parallel.ring_attention"} <= set(names)
+    sp_config = dataclasses.replace(config, seq_parallel_axis="seq")
+
+    def sp_rank(ring):
+        model = module_from_params(init_params(config, stem, seed=0),
+                                   sp_config, stem, device="cpu",
+                                   dtype=torch.float32)
+        state, frozen = trainstep.init_train_state(
+            model, init_lora(config, rank=4, alpha=8, device="cpu"), tx)
+        step = trainstep.make_train_step(sp_config, stem, tx, fold_lora=True)
+        with pmesh.set_mesh({"seq": ring}):
+            return float(step(state, frozen, {
+                "input_features": torch.ones((2, 4, 400)),
+                "labels": torch.ones((2, 5), dtype=torch.long),
+                "decoder_input_ids": torch.ones((2, 5), dtype=torch.long),
+            })["grad_norm"])
+
+    norms = LocalRing.run(sp_rank, 2)
+    assert norms[0] == norms[1] > 0, norms
+    check_clean("sequence-parallel training step")
     print("modules", len(names))
 """)
 
