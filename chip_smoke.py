@@ -54,6 +54,25 @@ each printing JSON lines:
             ``parallel/mesh.py`` (whisper-base, batch 64): K4 launches per
             step, ms per step and samples/s beside the train phase's, and
             one step's loss and gradients against the non-SP kernel step.
+8. lora     greedy serving (batch 8, 32 new tokens) through ``generate(...,
+            lora=)`` with unmerged rank-32 adapters on encoder and decoder
+            (self-attention q/k/v/out, cross-attention q/out, fc1/fc2):
+            K1/K6/K7 launches against the model calls and the request
+            without adapters, the cached decoder's logits over 8 forced
+            steps against the plain versions, tokens equal to the plain
+            versions' up to near-ties, and that the adapters move the
+            logits.
+9. probes   the perf entry points (``neuspeech1_tpu_torch/perf``): every
+            variant of the TPU probes' sweeps (kernel_probe, mxu_probe,
+            btc_probe, bwd_probe) held against its plain version at full
+            TK and 8 heads, then at the probe's shape (B*H = 512, TK =
+            1536, D = 64; the dot at 256 x [512, K] @ [K, 1536]) held
+            against it again and timed beside its bound, the plain version
+            and a library call (SDPA, its backward, ``torch.bmm``), each a
+            line tagged as the JAX probe tags it; launches of probe_fwd,
+            probe_bwd and probe_dot over the full-shape sweep.
+10. bench   ``neuspeech1_tpu_torch.bench`` once in process: its JSON line
+            (samples/s, step ms, mfu, greedy decode tokens/s with adapters).
 
 Then it prints the kernel summary (with each kernel's bound: the least time
 the card could take for the same bytes or operations, from NVIDIA's H100 SXM
@@ -75,6 +94,7 @@ group).
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 import json
 import math
@@ -87,6 +107,8 @@ import time
 
 import numpy as np
 import torch
+
+from neuspeech1_tpu_torch.perf.common import cuda_ms
 
 # Kernel against plain version, bf16 inputs drawn from N(0, 1). |o| < 1 and o
 # is rounded to bf16 (spacing at most 2^-8 there), and p is rounded against a
@@ -157,6 +179,8 @@ F32_TIE_RTOL, F32_TIE_ATOL = 1e-4, 2e-4
 # over the first and its operations over the second.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+# f32 outside the tensor cores (data sheet): the f32-operand probe backward
+F32_FLOPS = 67e12
 
 KERNEL_CASES = (
     # the serving path: encoder self-attention at whisper-base width
@@ -181,21 +205,26 @@ LORA_CASES = (
 # (name, B, Tq, T, kv_len, layout): K6 at the serving paths' shapes,
 # whisper-base (H=8, D=64, T=1500): the greedy step at batch 8, the beam
 # step (16 utterances x 5 beams folded into the query) and the beam
-# prefill (5 beams x 4 prompt tokens), and the [B, T, H*D] entry with rows
+# prefill (5 beams x 4 prompt tokens), the bench's greedy decode at batch
+# 64 (its step and its 4-token prefill), and the [B, T, H*D] entry with rows
 # padded to a multiple of 8 past kv_len
 DECODE_CROSS_CASES = (
     ("greedy", 8, 1, 1500, None, "bhtd"),
     ("beam_step", 16, 5, 1500, None, "bhtd"),
     ("beam_prefill", 16, 20, 1500, None, "bhtd"),
+    ("bench_step", 64, 1, 1500, None, "bhtd"),
+    ("bench_prefill", 64, 4, 1500, None, "bhtd"),
     ("btc", 8, 1, 1504, 1500, "btc"),
 )
 # (name, rows, Tmax, idx): K7 at the beam step (16 x 5 rows, 4 prompt + 128
-# new tokens) early and at its last column, and at the greedy step (8 rows,
-# 4 + 32)
+# new tokens) early and at its last column, at the greedy step (8 rows,
+# 4 + 32), and at the bench's greedy decode (64 rows, 4 + 48) early and last
 DECODE_STEP_CASES = (
     ("beam_early", 80, 132, 3),
     ("beam_last", 80, 132, 131),
     ("greedy_last", 8, 36, 35),
+    ("bench_early", 64, 52, 4),
+    ("bench_last", 64, 52, 51),
 )
 # (name, rows, G, Tmax, idx, mask): K8 at the speculative serving path's
 # shapes, whisper-base, batch 16, gamma 4, 4 prompt + 128 new tokens (the
@@ -268,6 +297,27 @@ SPEC_REPEATS = 3
 # 4 - m rejected columns of each iteration stay as holes
 SPEC_FORCED_ACCEPTS = (1, 4, 2, 3, 1)
 SAMPLE_RATE = 200  # Hz: a 30 s clip is the stem's 6000 samples
+# The TPU probes' geometry (perf/*.py): B*H = 512 heads of D = 64 over
+# TK = 1536 keys, T = 1500 kept; the dot's [512, K] @ [K, 1536] over 256
+# grid steps. Checked against the plain versions at 8 heads (B = 1 in the
+# [B, T, H*D] layout) and 4 grid steps first, then checked and timed at the
+# full shape.
+PROBE_BH, PROBE_H, PROBE_D, PROBE_TK, PROBE_T = 512, 8, 64, 1536, 1500
+PROBE_DOT_M, PROBE_DOT_GRID = 512, 256
+PROBE_CHECK_BH, PROBE_DOT_CHECK_GRID = 8, 4
+# calls of each variant's kernel in its timing, after one checked call
+PROBE_WARMUP, PROBE_ITERS = 3, 20
+# Kernel against plain version on the same bf16 inputs: the forward's o
+# (two bf16 ulps of the largest |o|, as K6) and lse (f32, absolute); the
+# bf16-operand backward as K2 (a few ulps of the largest gradient, from p
+# and ds rounded at the same points and f32 sums in another order); the
+# f32-operand backward and the dot round only their outputs, so a flip
+# of that one rounding: 2^-7 of the largest value, 1e-2.
+PROBE_TOL = {"probe_fwd": 2.0 ** -6, "probe_bwd_bf16": 2e-2,
+             "probe_bwd_f32": 1e-2, "probe_dot": 1e-2}
+# Greedy serving with unmerged adapters (the `lora` phase)
+LORA_RANK = 32
+LORA_FORCED_STEPS = 8
 # K4, the flash forward and backward with a bias row (ring attention's
 # blocks): (name, B, T, H, D, masked key columns at the end). (a) the SP
 # training step's encoder at n = 1 (1500 frames padded to 1536, the last 36
@@ -297,27 +347,13 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds per call from CUDA events, after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound(n_bytes: float, flops: float) -> dict:
+def bound(n_bytes: float, flops: float, peak: float = BF16_FLOPS) -> dict:
     """The least time the card could take for a call that moves ``n_bytes``
     (each input read once, each output written once) and does ``flops``
-    bf16 operations, and which of the two sets it."""
+    operations at ``peak`` (bf16 tensor cores unless given), and which of
+    the two sets it."""
     by_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
-    by_ops = 1e3 * flops / BF16_FLOPS
+    by_ops = 1e3 * flops / peak
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
@@ -341,11 +377,15 @@ def phase_build() -> list:
     from neuspeech1_tpu_torch.ops import decode_step as ds
     from neuspeech1_tpu_torch.ops import flash_attention as fa
     from neuspeech1_tpu_torch.ops import lora_bwd as lb
+    from neuspeech1_tpu_torch.ops import probe_bwd, probe_dot, probe_fwd
 
     loaders = {"flash_fwd_btc": fa._library, "flash_bwd_btc": fa._bwd_library,
                "lora_bwd": lb._library, "decode_cross": dc._library,
                "decode_step": ds._library,
-               "decode_step_multi": ds._multi_library}
+               "decode_step_multi": ds._multi_library,
+               "probe_fwd": probe_fwd._library,
+               "probe_bwd": probe_bwd._library,
+               "probe_dot": probe_dot._library}
 
     def timed(name):
         t0 = time.perf_counter()
@@ -1087,20 +1127,22 @@ def phase_slice(model) -> dict:
     return out
 
 
-def _forced_logits(model, enc, tokens, prompt_len: int, steps: int):
+def _forced_logits(model, enc, tokens, prompt_len: int, steps: int,
+                   lora=None):
     """The cached decoder's logits for B*K rows of ``tokens`` [B*K, L]: the
-    prompt's prefill, then ``steps`` width-1 steps on the given tokens;
-    [B*K, prompt_len + steps, V]."""
+    prompt's prefill, then ``steps`` width-1 steps on the given tokens,
+    with the decoder adapters of ``lora``; [B*K, prompt_len + steps, V]."""
     from neuspeech1_tpu_torch.models import whisper as tw
 
     cache = tw.init_cache(model, enc, max_len=prompt_len + steps,
                           self_batch=tokens.shape[0])
     logits, cache = tw.decoder_apply(model, tokens[:, :prompt_len], enc,
-                                     cache=cache, cache_index=0)
+                                     cache=cache, cache_index=0, lora=lora)
     out = [logits]
     for i in range(prompt_len, prompt_len + steps):
         logits, cache = tw.decoder_apply(model, tokens[:, i:i + 1], enc,
-                                         cache=cache, cache_index=i)
+                                         cache=cache, cache_index=i,
+                                         lora=lora)
         out.append(logits)
     return torch.cat(out, dim=1)
 
@@ -1482,6 +1524,447 @@ def phase_spec(model) -> dict:
     return out
 
 
+def serving_adapters(config, seed: int = 5):
+    """An unmerged adapter tree on the serving model: rank 32, alpha 64, on
+    encoder and decoder self-attention q/k/v/out, decoder cross-attention
+    q/out, and fc1/fc2 of both stacks; A ~ N(0, 1/r), B ~ N(0,
+    TRAINED_B_STD^2) (a trained magnitude, so that the adapters move the
+    output), f32 on the card, from a seeded generator."""
+    from neuspeech1_tpu_torch.models.lora import _entry_shapes
+
+    gen = torch.Generator().manual_seed(seed)
+    r = LORA_RANK
+
+    def entry(d_in, d_out):
+        return {"A": torch.randn((d_in, r), generator=gen) / r ** 0.5,
+                "B": TRAINED_B_STD * torch.randn((r, d_out), generator=gen),
+                "alpha": torch.full((1, 1), 2.0 * r)}
+
+    tree = {}
+    for part, n, ffn in (("encoder", config.encoder_layers, config.encoder_ffn),
+                         ("decoder", config.decoder_layers, config.decoder_ffn)):
+        layers = []
+        for _ in range(n):
+            layer = {name: entry(*_entry_shapes(config.d_model, ffn, name))
+                     for name in ("fc1", "fc2")}
+            layer["self_attn"] = {m: entry(config.d_model, config.d_model)
+                                  for m in ("q", "k", "v", "out")}
+            if part == "decoder":
+                layer["cross_attn"] = {m: entry(config.d_model,
+                                                config.d_model)
+                                       for m in ("q", "out")}
+            layers.append(layer)
+        tree[part] = {"layers": layers}
+
+    def to_card(node):
+        if isinstance(node, dict):
+            return {k: to_card(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [to_card(v) for v in node]
+        return node.to("cuda")
+    return to_card(tree)
+
+
+def _bf16_ties(model, enc, tokens, tokens_p, prompt_len: int, gen,
+               lora) -> dict:
+    """The kernels' greedy tokens against the plain versions', in bf16 with
+    adapters. The cached decoder's logits along the plain tokens, kernels
+    against plain versions, must stay within LOGITS_REL_TOL of the largest
+    logit at every step. A row may part from the plain tokens only at a
+    near-tie: where the plain versions' processed score of their own
+    token exceeds that of the kernels' token by no more than LOGITS_REL_TOL
+    of that position's largest |logit|, the error the kernels are held
+    to. Returns the logits error and, per parting row, where it parts and
+    that gap."""
+    from neuspeech1_tpu_torch.decode.generate import _process_logits
+
+    p = prompt_len
+    steps = tokens_p.shape[1] - p - 1
+    logits_k = _forced_logits(model, enc, tokens_p, p, steps, lora).float()
+    with _plain_kernels():
+        logits_p = _forced_logits(model, enc, tokens_p, p, steps,
+                                  lora).float()
+    rel = ((logits_k - logits_p).abs().max().item()
+           / logits_p.abs().max().item())
+    check(rel <= LOGITS_REL_TOL, f"lora: cached decoder logits along the "
+          f"plain tokens with the kernels {rel} of the largest logit off "
+          f"the plain versions")
+    parts = []
+    for r in (tokens != tokens_p).any(dim=1).nonzero()[:, 0].tolist():
+        j = int((tokens[r] != tokens_p[r]).nonzero()[0])
+        scores = _process_logits(logits_p[r:r + 1, j - 1], tokens_p[r:r + 1],
+                                 j, gen, p, None)[0]
+        gap = (scores[tokens_p[r, j]] - scores[tokens[r, j]]).item()
+        tol = LOGITS_REL_TOL * logits_p[r, j - 1].abs().max().item()
+        parts.append({"row": r, "generated_position": j - p, "gap": gap,
+                      "tie_bound": tol})
+        check(gap <= tol, f"lora: row {r} parts from the plain versions at "
+              f"generated position {j - p}, where the gap {gap} between "
+              f"their token's score and the kernels' is no near-tie "
+              f"(bound {tol})")
+    return {"logits_rel_err": rel, "rows_parting": parts}
+
+
+def phase_lora(model) -> dict:
+    """Greedy serving with unmerged encoder and decoder adapters (the decode
+    path ``bench.py`` times with ``lora=``): batch 8, 32 new tokens through
+    ``generate(..., lora=)``; K1/K6/K7 launches against the model calls and
+    against the same request without adapters; the cached decoder's logits
+    over forced steps with the adapters, kernels against plain versions;
+    tokens equal to the plain versions' up to near-ties (`_bf16_ties`); and
+    that the adapters move the logits."""
+    from neuspeech1_tpu_torch.cli import common
+    from neuspeech1_tpu_torch.decode.generate import generate
+    from neuspeech1_tpu_torch.models import whisper as tw
+    from neuspeech1_tpu_torch.serve import Transcriber
+
+    config, model_dir, tokenizer = model
+    tr = Transcriber(model_dir, tokenizer=tokenizer, batch_size=SLICE_BATCH,
+                     max_new_tokens=SLICE_NEW_TOKENS, device="cuda")
+    signals = _signals(tr.stem.in_channels,
+                       4 * config.max_source_positions)[:SLICE_BATCH]
+    feats = common.upload_features(tr._prepare(signals), tr.model.dtype,
+                                   tr.device)
+    prompt = torch.as_tensor(np.repeat(tr.prompt, SLICE_BATCH, axis=0),
+                             device=tr.device)
+    p = prompt.shape[1]
+    lora = serving_adapters(config)
+
+    runs = {}
+    with torch.no_grad():
+        for name, tree in (("no_adapters", None), ("adapters", lora)):
+            generate(tr.model, feats, prompt, tr.gen, lora=tree)  # warm-up
+            torch.cuda.synchronize()
+            _reset_counts()
+            with count_model_calls() as calls:
+                t0 = time.perf_counter()
+                tokens = generate(tr.model, feats, prompt, tr.gen, lora=tree)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches = _kernel_counts()
+            _check_serving_launches(f"lora/{name}", config, calls, launches)
+            runs[name] = {"tokens": tokens, "launches": launches,
+                          "model_calls": dict(calls), "latency_s": wall}
+        if runs["adapters"]["model_calls"] == runs["no_adapters"]["model_calls"]:
+            check(runs["adapters"]["launches"] == runs["no_adapters"]["launches"],
+                  f"lora: adapters changed the kernel launches {runs}")
+        tokens = runs["adapters"]["tokens"]
+        with _plain_kernels():
+            tokens_p = generate(tr.model, feats, prompt, tr.gen, lora=lora)
+        enc = tw.encoder_apply(tr.model, feats, lora)
+        logits_k = _forced_logits(tr.model, enc, tokens, p, LORA_FORCED_STEPS,
+                                  lora)
+        with _plain_kernels():
+            logits_p = _forced_logits(tr.model, enc, tokens, p,
+                                      LORA_FORCED_STEPS, lora)
+        logits_bare = _forced_logits(tr.model, enc, tokens, p,
+                                     LORA_FORCED_STEPS)
+        ties = _bf16_ties(tr.model, enc, tokens, tokens_p, p, tr.gen, lora)
+    torch.cuda.synchronize()
+    ref_max = logits_p.float().abs().max().item()
+    rel = (logits_k.float() - logits_p.float()).abs().max().item() / ref_max
+    moved = (logits_bare.float() - logits_k.float()).abs().max().item() / ref_max
+    check(bool(torch.isfinite(logits_k.float()).all()), "lora: non-finite logits")
+    check(rel <= LOGITS_REL_TOL, f"lora: cached decoder logits with the "
+          f"kernels {rel} of the largest logit off the plain versions")
+    check(moved > LOGITS_REL_TOL, f"lora: the decoder adapters moved the "
+          f"logits by only {moved} of the largest")
+    check(tuple(tokens.shape) == (SLICE_BATCH, tr.gen.max_length),
+          f"lora: tokens shape {tuple(tokens.shape)}")
+    check(bool(((tokens >= 0) & (tokens < config.vocab_size)).all()),
+          "lora: token id outside the vocabulary")
+    check(_jax_free(), "jax or the JAX package was imported")
+    out = {
+        "phase": "lora", "model": "whisper-base", "stem": "base/208",
+        "dtype": config.dtype, "lora_rank": LORA_RANK,
+        "lora_b_std": TRAINED_B_STD, "batch_size": SLICE_BATCH,
+        "max_new_tokens": SLICE_NEW_TOKENS,
+        "launches": runs["adapters"]["launches"],
+        "launches_no_adapters": runs["no_adapters"]["launches"],
+        "model_calls": runs["adapters"]["model_calls"],
+        "latency_s": runs["adapters"]["latency_s"],
+        "latency_no_adapters_s": runs["no_adapters"]["latency_s"],
+        "forced_steps": LORA_FORCED_STEPS, "logits_rel_err": rel,
+        "logits_rel_tol": LOGITS_REL_TOL, "adapters_moved_logits_rel": moved,
+        "token_agreement_vs_plain": _agreement(tokens, tokens_p, p),
+        "plain_tokens_logits_rel_err": ties["logits_rel_err"],
+        "rows_parting_from_plain": ties["rows_parting"],
+        "token_agreement_vs_no_adapters": _agreement(
+            tokens, runs["no_adapters"]["tokens"], p),
+        "jax_imported": not _jax_free(), "card": card(),
+    }
+    emit(out)
+    return out
+
+
+def _probe_variants():
+    """Every variant of the TPU probes' sweeps, through the port's probe
+    entry points (``neuspeech1_tpu_torch/perf``): dicts of the JAX tag, the
+    kernel, the `pallas_call` it replaces, ``make(t_valid)`` -> run, and
+    what its plain version and library call take."""
+    from neuspeech1_tpu_torch.perf import btc_probe as bp
+    from neuspeech1_tpu_torch.perf import bwd_probe as wp
+    from neuspeech1_tpu_torch.perf import kernel_probe as kp
+    from neuspeech1_tpu_torch.perf import mxu_probe as mp
+
+    out = []
+
+    def fwd(tag, replaces, make, mode="base", n_kb=1, btc=False):
+        out.append(dict(tag=tag, kernel="probe_fwd", replaces=replaces,
+                        make=make, mode=mode, n_kb=n_kb, btc=btc,
+                        library="sdpa" if mode == "base" else None))
+
+    for bq in (256, 512):
+        for mode in kp.MODES:
+            fwd(f"{mode}_bq{bq}", "perf/kernel_probe.py:43",
+                functools.partial(kp.make_kernel, mode, bq), mode=mode)
+    for n_kb in (2, 4):
+        fwd(f"online_bq512_kb{n_kb}", "perf/kernel_probe.py:117",
+            functools.partial(kp.make_online, 512, n_kb), n_kb=n_kb)
+    for sem in (("parallel", "parallel"), ("parallel", "arbitrary")):
+        for bq in (512, 256):
+            fwd(f"sem_{'_'.join(sem)}_bq{bq}", "perf/kernel_probe.py:178",
+                functools.partial(kp.make_semantics, bq, sem))
+    for n_sub in (1, 2, 4):
+        fwd(f"fwd_bq512_sub{n_sub}", "perf/mxu_probe.py:126",
+            functools.partial(mp.make_fwd, 512, n_sub))
+    for bq in (512, 256):
+        fwd(f"fwd_btc_bq{bq}", "perf/btc_probe.py:53",
+            functools.partial(bp.make_fwd_btc, bq), btc=True)
+    for sem in bp.SEMS:
+        fwd(f"fwd_sem_{'_'.join(x[:3] for x in sem)}", "perf/btc_probe.py:245",
+            functools.partial(bp.make_fwd_btc_sem, 512, sem), btc=True)
+    for bq in (256, 512):
+        for bf16_ops in (False, True):
+            ops = "bf16" if bf16_ops else "f32"
+            out.append(dict(
+                tag=f"bwd_bq{bq}_{ops}ops", kernel="probe_bwd",
+                replaces="perf/bwd_probe.py:98", ops=ops, btc=False,
+                make=functools.partial(wp.make_bwd, bq, bf16_ops=bf16_ops),
+                library="sdpa_bwd" if bf16_ops else None))
+    for bq in (512, 256, 192):
+        out.append(dict(tag=f"bwd_btc_bq{bq}", kernel="probe_bwd",
+                        replaces="perf/btc_probe.py:132", ops="f32", btc=True,
+                        make=functools.partial(bp.make_bwd_btc, bq),
+                        library=None))
+    for kdim in (64, 128, 256, 512):
+        out.append(dict(tag=f"dot_k{kdim}", kernel="probe_dot",
+                        replaces="perf/mxu_probe.py:48", kdim=kdim,
+                        make=functools.partial(mp.make_dot, kdim),
+                        library="bmm"))
+    return out
+
+
+def _probe_arrays(v, gen, bh: int):
+    """Inputs of one variant at ``bh`` heads (B = bh / 8 in the [B, T, H*D]
+    layout), N(0, 1) bf16, lse ~ N(8, 0.1^2) for the backward, and
+    (n_grid = bh / 2) for the dot."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    if v["kernel"] == "probe_dot":
+        n = max(1, bh // 2)
+        return (rnd(n, PROBE_DOT_M, v["kdim"]), rnd(n, v["kdim"], PROBE_TK))
+    shape = ((max(1, bh // PROBE_H), PROBE_TK, PROBE_H * PROBE_D) if v["btc"]
+             else (bh, PROBE_TK, PROBE_D))
+    if v["kernel"] == "probe_fwd":
+        return tuple(rnd(*shape) for _ in range(3))
+    lse_shape = ((shape[0], PROBE_H, PROBE_TK) if v["btc"]
+                 else (bh, PROBE_TK))
+    lse = 8.0 + 0.1 * torch.randn(lse_shape, generator=gen, device="cuda")
+    return tuple(rnd(*shape) for _ in range(5)) + (lse,)
+
+
+def _probe_plain(v, args):
+    from neuspeech1_tpu_torch.ops import probe_bwd, probe_dot, probe_fwd
+
+    if v["kernel"] == "probe_dot":
+        return (probe_dot.probe_dot_plain(*args),)
+    if v["kernel"] == "probe_bwd":
+        return probe_bwd.probe_bwd_plain(*args, PROBE_T, v["ops"], v["btc"])
+    o, lse = probe_fwd.probe_fwd_plain(*args, PROBE_T, v["mode"], v["n_kb"],
+                                       v["btc"])
+    return (o, lse) if v["btc"] else (o,)
+
+
+def _probe_library(v, args):
+    """One PyTorch call of the same function, or None: SDPA with the key
+    mask (forward; its autograd backward for the bf16 backward, which
+    recomputes its own lse: timed only), ``torch.bmm`` for the dot."""
+    import torch.nn.functional as F
+
+    if v["library"] == "bmm":
+        return lambda: torch.bmm(*args)
+    if v["library"] is None:
+        return None
+    q, k, v_ = args[:3]
+    if v["btc"]:
+        b, t, c = q.shape
+        q, k, v_ = (x.view(b, t, c // PROBE_D, PROBE_D).transpose(1, 2)
+                    .contiguous() for x in (q, k, v_))
+    else:
+        q, k, v_ = (x.unsqueeze(1) for x in (q, k, v_))
+    mask = (torch.arange(PROBE_TK, device="cuda") < PROBE_T).view(1, 1, 1, -1)
+    if v["library"] == "sdpa":
+        return lambda: F.scaled_dot_product_attention(q, k, v_,
+                                                      attn_mask=mask)
+    q, k, v_ = (x.detach().requires_grad_() for x in (q, k, v_))
+    o = F.scaled_dot_product_attention(q, k, v_, attn_mask=mask)
+    do = torch.randn_like(o)
+    return lambda: torch.autograd.grad(o, (q, k, v_), do, retain_graph=True)
+
+
+def _probe_cost(v, args):
+    """(bytes, operations, peak) of one call: each input read once, each
+    output written once; the products over the kept key columns."""
+    if v["kernel"] == "probe_dot":
+        a, b = args
+        n, m, kd = a.shape
+        width = b.shape[2]
+        return 2 * n * (m * kd + kd * width + m * width), \
+            2 * n * m * kd * width, BF16_FLOPS
+    n_heads_rows = args[0].numel() // PROBE_D   # (B*H) * TK
+    kept = PROBE_TK if v.get("mode") == "nomask" else PROBE_T
+    if v["kernel"] == "probe_fwd":
+        n_bytes = 4 * args[0].numel() * 2 + (4 * n_heads_rows if v["btc"]
+                                             else 0)
+        return n_bytes, 4 * n_heads_rows * kept * PROBE_D, BF16_FLOPS
+    n_bytes = 8 * args[0].numel() * 2 + 4 * n_heads_rows
+    return n_bytes, 10 * n_heads_rows * kept * PROBE_D, (
+        BF16_FLOPS if v["ops"] == "bf16" else F32_FLOPS)
+
+
+def _probe_err(v, got, ref) -> float:
+    """The largest error over the outputs: of the largest |value| for the
+    bf16 outputs, absolute for lse (f32)."""
+    errs = []
+    for g, r in zip(got, ref):
+        if g.dtype == torch.float32:
+            errs.append((g - r).abs().max().item())
+        else:
+            errs.append(_rel_err(g, r))
+    return max(errs)
+
+
+def phase_probes() -> dict:
+    """The perf entry points: every variant of the TPU probes' sweeps (the
+    port's ``perf/*`` make_* functions) first held against its plain
+    version at full TK and a reduced B*H (a quick pre-check), then run at
+    the probe's own shape: one call held against the plain version on the
+    same inputs, then timed beside its bound, the plain version and the
+    library call. The launches of probe_fwd, probe_bwd and probe_dot are
+    counted over that full-shape sweep alone."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    variants = _probe_variants()
+
+    def make(v, n_grid):
+        return (v["make"](n_grid) if v["kernel"] == "probe_dot"
+                else v["make"](t_valid=PROBE_T))
+
+    def checked(v, run, args, where):
+        """The kernel's outputs against the plain version's on ``args``."""
+        got = run(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        ref = _probe_plain(v, args)
+        torch.cuda.synchronize()
+        tol = PROBE_TOL[v["kernel"] if v["kernel"] != "probe_bwd"
+                        else f"probe_bwd_{v['ops']}"]
+        err = _probe_err(v, got, ref)
+        check(all(bool(torch.isfinite(g.float()).all()) or v.get("mode") ==
+                  "noexp" for g in got),
+              f"probe {v['tag']} ({where}): non-finite output")
+        check(err <= tol, f"probe {v['tag']} ({where}): kernel {err} off its "
+              f"plain version (bound {tol})")
+        return err, tol
+
+    for v in variants:
+        checked(v, make(v, PROBE_DOT_CHECK_GRID),
+                _probe_arrays(v, gen, PROBE_CHECK_BH), "reduced")
+
+    lines = []
+    _reset_counts()
+    for v in variants:
+        args = _probe_arrays(v, gen, PROBE_BH)
+        run = make(v, PROBE_DOT_GRID)
+        err, tol = checked(v, run, args, "full shape")
+        torch.cuda.empty_cache()
+        lib = _probe_library(v, args)
+        n_bytes, flops, peak = _probe_cost(v, args)
+        res = {"phase": "probes", "k": v["tag"], "kernel": v["kernel"],
+               "replaces": v["replaces"], "max_abs_err": err, "tol": tol,
+               "ms": cuda_ms(lambda: run(*args), iters=PROBE_ITERS,
+                             warmup=PROBE_WARMUP),
+               "plain_ms": cuda_ms(lambda: _probe_plain(v, args), iters=3,
+                                   warmup=1),
+               "library_ms": None if lib is None else cuda_ms(lib),
+               **bound(n_bytes, flops, peak)}
+        emit(res)
+        lines.append(res)
+        del args, lib
+        torch.cuda.empty_cache()
+    launches = _probe_counts()
+    per_variant = 1 + PROBE_WARMUP + PROBE_ITERS
+    check(all(n > 0 for n in launches.values()),
+          f"probes: a kernel of the perf path never launched: {launches}")
+    check(launches == {k: per_variant * sum(v["kernel"] == k
+                                            for v in variants)
+                       for k in launches},
+          f"probes: launches {launches} against {len(variants)} variants "
+          f"x {per_variant} calls")
+
+    # the TPU probe's two library yardsticks: two batched products with a
+    # bf16 score tensor (xla_batched_2dots) and a library flash kernel
+    # (official_tuned), at the forward's shape
+    fwd = next(v for v in variants if v["tag"] == "base_bq512")
+    q, k, v_ = _probe_arrays(fwd, gen, PROBE_BH)
+    for tag, fn in (
+            ("xla_batched_2dots",
+             lambda: torch.bmm(torch.bmm(q, k.transpose(1, 2)), v_)),
+            ("official_tuned", _probe_library(fwd, (q, k, v_)))):
+        res = {"phase": "probes", "k": tag, "kernel": None,
+               "library_ms": cuda_ms(fn)}
+        emit(res)
+        lines.append(res)
+    del q, k, v_
+    torch.cuda.empty_cache()
+    check(_jax_free(), "jax or the JAX package was imported")
+    out = {"phase": "probes", "variants": len(variants), "launches": launches,
+           "card": card()}
+    emit(out)
+    return {**out, "lines": lines}
+
+
+def phase_bench() -> dict:
+    """``neuspeech1_tpu_torch.bench`` once, in process: its JSON line
+    (training samples/s and mfu, greedy decode tokens/s with the trained,
+    unmerged adapters, int8 and bf16 cross caches), with the kernels'
+    launches over the whole run. Its decode's K6 and K7 shapes (batch 64,
+    4 prompt + 48 new tokens) are held against the plain versions in the
+    kernels phase (the ``bench_*`` cases)."""
+    from neuspeech1_tpu_torch import bench
+    from neuspeech1_tpu_torch.cli import common
+
+    config, stem = common.preset_model("base", "base", in_channels=208)
+    _reset_counts()
+    res = bench.run(config, stem)
+    launches = _kernel_counts()
+    torch.cuda.synchronize()
+    for key in ("value", "train_step_ms", "mfu", "decode_tokens_per_sec",
+                "decode_fp_tokens_per_sec", "decode_e2e_tokens_per_sec"):
+        check(isinstance(res[key], float) and math.isfinite(res[key])
+              and res[key] > 0, f"bench: {key} = {res[key]}")
+    check(res["remat"] is False, f"bench: remat {res['remat']}")
+    check(all(launches[k] > 0 for k in ("K1", "K2", "K3", "K6", "K7")),
+          f"bench: a kernel of its path never launched: {launches}")
+    print(json.dumps(res), flush=True)
+    out = {"phase": "bench", "launches": launches,
+           "jax_imported": not _jax_free(), "card": card()}
+    emit(out)
+    check(_jax_free(), "jax or the JAX package was imported")
+    return {**out, "result": res}
+
+
 def _train_setup(batch_size: int, device: str = "cuda",
                  seq_parallel_axis=None):
     """The bench configuration on the card: whisper-base with the 'base'
@@ -1532,15 +2015,24 @@ def _kernel_counts():
             "K6": dc.launches, "K7": ds.launches, "K8": ds.multi_launches}
 
 
+def _probe_counts():
+    from neuspeech1_tpu_torch.ops import probe_bwd, probe_dot, probe_fwd
+
+    return {"probe_fwd": probe_fwd.launches, "probe_bwd": probe_bwd.launches,
+            "probe_dot": probe_dot.launches}
+
+
 def _reset_counts():
     from neuspeech1_tpu_torch.ops import decode_cross as dc
     from neuspeech1_tpu_torch.ops import decode_step as ds
     from neuspeech1_tpu_torch.ops import flash_attention as fa
     from neuspeech1_tpu_torch.ops import lora_bwd as lb
+    from neuspeech1_tpu_torch.ops import probe_bwd, probe_dot, probe_fwd
 
     fa.launches = fa.bwd_launches = lb.launches = 0
     fa.bias_launches = fa.bias_bwd_launches = 0
     dc.launches = ds.launches = ds.multi_launches = 0
+    probe_fwd.launches = probe_bwd.launches = probe_dot.launches = 0
 
 
 def _adapter_b_max(frozen) -> float:
@@ -1993,12 +2485,14 @@ def phase_ring(tr) -> dict:
     return out
 
 
-def summary(kernels, sl, bm, sp, tr, rg) -> dict:
+def summary(kernels, sl, bm, sp, tr, rg, pr) -> dict:
     """One entry per kernel: launches on its path (training for K1, K2, K3;
     the sequence-parallel training step for K4; beam serving for K6, K7;
-    speculative serving with the self-prefix drafter for K8; greedy serving
-    beside them), the error and the times of its case at that path's shape,
-    its bound and the library call's time."""
+    speculative serving with the self-prefix drafter for K8; the perf
+    probes' full-shape sweep for the probe kernels; greedy serving beside
+    them), the error and the times of its case at that path's shape, its
+    bound and the library call's time (for a probe kernel, of one variant
+    named in ``case``, with every variant's ms beside)."""
     def first(kernel, case):
         return next(r for r in kernels
                     if r["kernel"] == kernel and r["case"] == case)
@@ -2025,6 +2519,24 @@ def summary(kernels, sl, bm, sp, tr, rg) -> dict:
     k5_bwd = {"ms": k5["bwd_ms"], "plain_ms": k5["bwd_plain_ms"],
               "bound_ms": k5["bwd_bound_ms"], "bound_by": k5["bwd_bound_by"],
               "library_ms": k5["bwd_library_ms"]}
+    def probe(kernel, case, replaces):
+        rows = [r for r in pr["lines"] if r["kernel"] == kernel]
+        r = next(x for x in rows if x["k"] == case)
+        return {"name": kernel, "route": "cuda", "source": src + kernel + ".cu",
+                "replaces": replaces, "launches": pr["launches"][kernel],
+                "path": "perf probes (neuspeech1_tpu_torch/perf)",
+                "case": case, "max_abs_err": max(x["max_abs_err"]
+                                                 for x in rows),
+                **timing(r), "variant_ms": {x["k"]: x["ms"] for x in rows}}
+
+    probes = [
+        probe("probe_fwd", "base_bq512",
+              "perf/kernel_probe.py:43 (and :117, :178; perf/mxu_probe.py:126; "
+              "perf/btc_probe.py:53, :245)"),
+        probe("probe_bwd", "bwd_bq512_bf16ops",
+              "perf/bwd_probe.py:98 (and perf/btc_probe.py:132)"),
+        probe("probe_dot", "dot_k512", "perf/mxu_probe.py:48"),
+    ]
     return {"kernels": [
         {"name": "flash_fwd_btc (K1)", "route": "cuda",
          "source": src + "flash_fwd_btc.cu", "replaces": fa_py + ":494",
@@ -2085,7 +2597,7 @@ def summary(kernels, sl, bm, sp, tr, rg) -> dict:
          "table_drafter_launches": spec_launches["spec_table"],
          "int8_launches": spec_launches["spec_int8"],
          "max_abs_err": k8["max_abs_err"], **timing(k8)},
-    ]}
+    ] + probes}
 
 
 def main(argv) -> int:
@@ -2112,9 +2624,12 @@ def main(argv) -> int:
         sl = phase_slice(model)
         bm = phase_beam(model)
         sp = phase_spec(model)
+        phase_lora(model)
     tr = phase_train()
     rg = phase_ring(tr)
-    emit(summary(kernels, sl, bm, sp, tr, rg))
+    pr = phase_probes()
+    phase_bench()
+    emit(summary(kernels, sl, bm, sp, tr, rg, pr))
     print(card(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -89,10 +89,12 @@ def _process_logits(logits, tokens, cur_len: int, gen: GenerationConfig,
 
 @torch.no_grad()
 def greedy_decode(model: tw.Whisper, features, prompt_ids,
-                  gen: GenerationConfig):
+                  gen: GenerationConfig, lora=None):
     """features [B, ch, T], prompt_ids [B, P] -> tokens [B, max_length]
-    (prompt, generated tokens, then ``pad_id``)."""
-    enc = tw.encoder_apply(model, features)
+    (prompt, generated tokens, then ``pad_id``). ``lora``: an unmerged
+    adapter tree (``models/lora.py``) applied in the encoder and in every
+    decoder call."""
+    enc = tw.encoder_apply(model, features, lora)
     b, p = prompt_ids.shape
     length = gen.max_length
     cache = tw.init_cache(model, enc, max_len=length,
@@ -101,7 +103,7 @@ def greedy_decode(model: tw.Whisper, features, prompt_ids,
                         device=enc.device)
     tokens[:, :p] = prompt_ids
     logits, cache = tw.decoder_apply(model, tokens[:, :p], enc, cache=cache,
-                                     cache_index=0)
+                                     cache_index=0, lora=lora)
     last = logits[:, -1]
     seen = (lp.seen_from_tokens(tokens, p, last.shape[-1])
             if gen.repetition_penalty != 1.0 else None)
@@ -118,7 +120,8 @@ def greedy_decode(model: tw.Whisper, features, prompt_ids,
         if cur_len + 1 == length or bool(finished.all()):
             break
         logits, cache = tw.decoder_apply(model, nxt[:, None], enc,
-                                         cache=cache, cache_index=cur_len)
+                                         cache=cache, cache_index=cur_len,
+                                         lora=lora)
         last = logits[:, -1]
     return tokens
 
@@ -143,7 +146,7 @@ def _gather_beams(layers: List[dict], beam_idx, batch: int, k: int):
 
 @torch.no_grad()
 def beam_search(model: tw.Whisper, features, prompt_ids,
-                gen: GenerationConfig):
+                gen: GenerationConfig, lora=None):
     """HF-semantics beam search (transformers 4.57 ``_beam_search``), the
     port of the JAX package's ``beam_search`` without sampling. Returns
     (tokens [B, max_length], scores [B]) of the best hypothesis per
@@ -162,7 +165,8 @@ def beam_search(model: tw.Whisper, features, prompt_ids,
     the sticky per-utterance improvement bit is false everywhere, when
     every candidate hit, or (``early_stopping``) when every slot is
     finished. There is no post-loop alive fold: running beams finalize
-    through the max-length hit of the last step, as in HF."""
+    through the max-length hit of the last step, as in HF. ``lora``: as
+    in `greedy_decode`."""
     b, p = prompt_ids.shape
     k = gen.num_beams
     length = gen.max_length
@@ -171,7 +175,7 @@ def beam_search(model: tw.Whisper, features, prompt_ids,
         # the JAX package returns the (truncated) prompt
         return (prompt_ids[:, :length].clone(),
                 torch.zeros(b, dtype=torch.float32, device=prompt_ids.device))
-    enc = tw.encoder_apply(model, features)
+    enc = tw.encoder_apply(model, features, lora)
     dev = enc.device
     # one cross cache per utterance; the self cache holds B*K rows
     cache = tw.init_cache(model, enc, max_len=length,
@@ -180,7 +184,8 @@ def beam_search(model: tw.Whisper, features, prompt_ids,
                         device=dev)
     tokens[:, :, :p] = prompt_ids[:, None, :]
     logits, cache = tw.decoder_apply(model, tokens.view(b * k, length)[:, :p],
-                                     enc, cache=cache, cache_index=0)
+                                     enc, cache=cache, cache_index=0,
+                                     lora=lora)
     last = logits[:, -1]                                  # [B*K, V]
     vocab = last.shape[-1]
 
@@ -253,17 +258,19 @@ def beam_search(model: tw.Whisper, features, prompt_ids,
                                   new_tok.reshape(-1))
         cache["self"] = _gather_beams(cache["self"], new_beam, b, k)
         logits, cache = tw.decoder_apply(model, new_tok.reshape(b * k, 1), enc,
-                                         cache=cache, cache_index=cur_len)
+                                         cache=cache, cache_index=cur_len,
+                                         lora=lora)
         last = logits[:, -1]
     return fin_seq[:, 0], fin_scores[:, 0]
 
 
 def generate(model: tw.Whisper, features, prompt_ids, gen: GenerationConfig,
-             draft_table=None):
+             lora=None, draft_table=None):
     """Mode dispatch as in the JAX package; greedy, beam search (without
     sampling) and self-speculative greedy (``spec_gamma >= 2``, drafting
     from ``draft_table`` when given, see `decode.spec.spec_greedy_decode`)
-    are ported. Returns tokens [B, max_length]."""
+    are ported, each with the unmerged adapter tree ``lora``. Returns
+    tokens [B, max_length]."""
     if gen.spec_gamma >= 2 and (
             gen.do_sample or gen.num_beams > 1
             or (gen.penalty_alpha > 0 and gen.top_k > 1)):
@@ -277,12 +284,12 @@ def generate(model: tw.Whisper, features, prompt_ids, gen: GenerationConfig,
         raise NotImplementedError(
             "sampling and beam-sample are not ported yet (ROADMAP.md queue 1)")
     if gen.num_beams > 1:
-        return beam_search(model, features, prompt_ids, gen)[0]
+        return beam_search(model, features, prompt_ids, gen, lora)[0]
     if gen.spec_gamma >= 2:
         # imported here: decode.spec builds on this module
         from neuspeech1_tpu_torch.decode.spec import spec_greedy_decode
 
         return spec_greedy_decode(model, features, prompt_ids, gen,
-                                  gamma=gen.spec_gamma,
+                                  gamma=gen.spec_gamma, lora=lora,
                                   draft_table=draft_table)[0]
-    return greedy_decode(model, features, prompt_ids, gen)
+    return greedy_decode(model, features, prompt_ids, gen, lora)

@@ -191,17 +191,19 @@ def verify_mask(valid, phys: int, gamma: int):
 @torch.no_grad()
 def spec_greedy_decode(model: tw.Whisper, features, prompt_ids,
                        gen: GenerationConfig, gamma: int = 2,
-                       draft_table: Optional[dict] = None):
+                       lora=None, draft_table: Optional[dict] = None):
     """Greedy decoding with gamma-token draft-verify iterations: features
     [B, ch, T], prompt_ids [B, P] -> (tokens [B, max_length] as
     `greedy_decode` gives them, the number of iterations). With
     ``draft_table`` (`build_draft_table`'s arrays as tensors on the model's
     device) drafts come from the corpus table, else from each row's own
-    prefix."""
+    prefix (neither drafter runs the model). ``lora``: an unmerged adapter
+    tree applied in the encoder and in every decoder call, the prefill's
+    and the verify steps', as in the JAX package."""
     _check_supported(gen)
     if gamma < 2:
         raise ValueError("gamma must be >= 2 (1 is plain greedy_decode)")
-    enc = tw.encoder_apply(model, features)
+    enc = tw.encoder_apply(model, features, lora)
     dev = enc.device
     b, p = prompt_ids.shape
     length = gen.max_length
@@ -214,7 +216,7 @@ def spec_greedy_decode(model: tw.Whisper, features, prompt_ids,
 
     # the prefill: physical columns equal logical positions for the prompt
     logits, cache = tw.decoder_apply(model, out[:, :p], enc, cache=cache,
-                                     cache_index=0)
+                                     cache_index=0, lora=lora)
     g0 = _process_logits(logits[:, -1], out, p, gen, p, None).argmax(dim=-1)
     if p < length:
         out[:, p] = g0
@@ -238,7 +240,7 @@ def spec_greedy_decode(model: tw.Whisper, features, prompt_ids,
         pos_ids = ((out_len - 1)[:, None] + ar_g).clamp(0, n_pos - 1)
         logits, cache = tw.decoder_apply(
             model, toks, enc, cache=cache, cache_index=phys, pos_ids=pos_ids,
-            self_attn_mask=verify_mask(valid, phys, gamma))
+            self_attn_mask=verify_mask(valid, phys, gamma), lora=lora)
         g = lp.suppress_tokens(logits.float(), gen.suppress_ids).argmax(-1)
 
         # accepted run: the true next token plus the leading matching drafts,

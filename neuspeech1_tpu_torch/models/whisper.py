@@ -111,7 +111,10 @@ class DecoderLayer(nn.Module):
         flash with ``flash_self`` (else under ``self_mask``) and
         cross-attention through flash with ``flash_cross``; one incremental
         step with caches (updated in place), through the decode kernels
-        with ``kernels`` and their plain versions without."""
+        with ``kernels`` and their plain versions without. ``lora`` (this
+        layer's adapters) applies on both paths; with caches, as in the JAX
+        package, to self-attention's q, k, v and out, cross-attention's q
+        and out (its K/V come from the cache), and the MLP."""
         lora = lora or {}
         x = layer_norm(h, self.self_attn_ln)
         if self_cache is None:
@@ -121,7 +124,8 @@ class DecoderLayer(nn.Module):
                                lora=lora.get("self_attn"), causal=True)
         else:
             x = self_decode(x, self.self_attn, self.n_heads, self_cache,
-                            cache_index, self_mask, kernels)
+                            cache_index, self_mask, kernels,
+                            lora=lora.get("self_attn"))
         h = h + x
         x = layer_norm(h, self.cross_attn_ln)
         if cross_cache is None:
@@ -131,7 +135,7 @@ class DecoderLayer(nn.Module):
                                 lora=lora.get("cross_attn"))
         else:
             x = cross_decode(x, self.cross_attn, self.n_heads, cross_cache,
-                             kernels)
+                             kernels, lora=lora.get("cross_attn"))
         h = h + x
         return h + mlp(layer_norm(h, self.final_ln), self, lora)
 
@@ -352,7 +356,7 @@ def cross_attention(x, enc_out, p: Attention, n_heads: int,
 
 
 def self_decode(x, p: Attention, n_heads: int, cache: dict,
-                cache_index: int, mask, kernels: bool = True):
+                cache_index: int, mask, kernels: bool = True, lora=None):
     """Incremental self-attention on the [B, H, Dh, Tmax] cache, writing
     columns ``cache_index ..`` in place (the JAX package returns an updated
     copy).
@@ -364,10 +368,12 @@ def self_decode(x, p: Attention, n_heads: int, cache: dict,
     attends the contiguous columns 0..cache_index through `decode_step`
     (K7); a wider call (the prompt's prefill) writes its columns, then
     scores all Tmax columns under ``mask`` with plain tensor code, as in the
-    JAX package."""
-    q = _split_heads(linear(x, p.q), n_heads)
-    k = _split_heads(linear(x, p.k), n_heads)
-    v = _split_heads(linear(x, p.v), n_heads)
+    JAX package. ``lora`` adapts q, k, v and out; the kernels take q, k
+    and v after the projections."""
+    lora = lora or {}
+    q = _split_heads(linear(x, p.q, lora.get("q")), n_heads)
+    k = _split_heads(linear(x, p.k, lora.get("k")), n_heads)
+    v = _split_heads(linear(x, p.v, lora.get("v")), n_heads)
     t = q.shape[1]
     if "k_tu" in cache:
         step = decode_step_multi if kernels else decode_step_multi_plain
@@ -380,11 +386,11 @@ def self_decode(x, p: Attention, n_heads: int, cache: dict,
         k_t[..., cache_index:cache_index + t] = k.permute(0, 2, 3, 1)
         v_t[..., cache_index:cache_index + t] = v.permute(0, 2, 3, 1)
         out = _attend_t(q, k_t, v_t, mask)
-    return linear(_merge_heads(out), p.out)
+    return linear(_merge_heads(out), p.out, lora.get("out"))
 
 
 def cross_decode(x, p: Attention, n_heads: int, cache: dict,
-                 kernels: bool = True):
+                 kernels: bool = True, lora=None):
     """Cross-attention of the cached decoder over the encoder cache: the
     bf16 ``k``/``v`` [B, H, T_src, Dh] through `decode_cross` (K6), or the
     int8 ``k_qt``/``v_qt`` [B, H, Dh, T_src] with per-channel scales in
@@ -393,8 +399,11 @@ def cross_decode(x, p: Attention, n_heads: int, cache: dict,
     cast to the compute dtype. Beam search runs B*K decoder rows against
     one cache per utterance: the beam rows fold into the query,
     [B*K, t, H, Dh] -> [B, K*t, H, Dh], beam-major within an utterance
-    (cross K/V is beam-invariant)."""
-    q = _split_heads(linear(x, p.q), n_heads)
+    (cross K/V is beam-invariant). ``lora`` adapts q and out only: the
+    cache's K/V were projected without adapters (`init_cache`), as in the
+    JAX package."""
+    lora = lora or {}
+    q = _split_heads(linear(x, p.q, lora.get("q")), n_heads)
     b = next(iter(cache.values())).shape[0]
     qb = q.reshape(b, -1, *q.shape[2:])
     if "k_qt" in cache:
@@ -405,7 +414,7 @@ def cross_decode(x, p: Attention, n_heads: int, cache: dict,
     else:
         attend = decode_cross if kernels else decode_cross_plain
         out = attend(qb, cache["k"], cache["v"])
-    return linear(_merge_heads(out.reshape(q.shape)), p.out)
+    return linear(_merge_heads(out.reshape(q.shape)), p.out, lora.get("out"))
 
 
 def _attend_t(q, k_t, v_t, mask=None):
@@ -493,7 +502,8 @@ def decoder_apply(model: Whisper, tokens, enc_out, cache=None,
     and causal self-attention at T >= ``decoder_flash_self_min_q``.
     With ``cache`` (from `init_cache`): one incremental step writing
     positions ``cache_index .. cache_index + T - 1``; returns (logits,
-    cache) with the cache updated in place.
+    cache) with the cache updated in place. ``lora``'s decoder adapters
+    apply on both paths (`DecoderLayer.forward`).
 
     ``pos_ids`` / ``self_attn_mask`` (cached decode only): per-row logical
     position ids [B, T] for the learned position embedding, and a
@@ -533,9 +543,13 @@ def decoder_apply(model: Whisper, tokens, enc_out, cache=None,
             rows = cache_index + torch.arange(t, device=h.device)
             mask = (positions[None, :] <= rows[:, None])[None, None]
         kernels = resolve_flash(model)
-        for layer, sc, cc in zip(dec.layers, cache["self"], cache["cross"]):
+        layers_lora = _layer_lora(lora, "decoder")
+        for i, (layer, sc, cc) in enumerate(
+                zip(dec.layers, cache["self"], cache["cross"])):
             h = layer(h, None, mask, self_cache=sc, cross_cache=cc,
-                      cache_index=cache_index, kernels=kernels)
+                      cache_index=cache_index,
+                      lora=None if layers_lora is None else layers_lora[i],
+                      kernels=kernels)
     h = layer_norm(h, dec.ln)
     logits = F.linear(h, _cast(dec.token_embed.weight, h.dtype))
     return logits if cache is None else (logits, cache)

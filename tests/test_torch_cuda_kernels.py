@@ -14,6 +14,9 @@ from neuspeech1_tpu_torch.ops import decode_cross as tdc
 from neuspeech1_tpu_torch.ops import decode_step as tds
 from neuspeech1_tpu_torch.ops import flash_attention as tfa
 from neuspeech1_tpu_torch.ops import lora_bwd as tlb
+from neuspeech1_tpu_torch.ops import probe_bwd as tpb
+from neuspeech1_tpu_torch.ops import probe_dot as tpd
+from neuspeech1_tpu_torch.ops import probe_fwd as tpf
 
 
 @pytest.fixture
@@ -271,3 +274,72 @@ def test_local_ring_matches_whole_sequence_on_card(cuda_device,
     for g, r in zip((dq, dk, dv), refs):
         assert _rel_err(g, r) <= 3e-2
     assert not dk[:, kv_valid_len:].any() and not dv[:, kv_valid_len:].any()
+
+
+def _probe_inputs(device, seed, n, shape):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=device)
+            .to(torch.bfloat16) for _ in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,rows,n_sub,n_kb,order,btc", [
+    ("base", 32, 1, 1, "head", False), ("base", 16, 1, 1, "qblock", False),
+    ("nomask", 32, 1, 1, "head", False), ("noexp", 16, 1, 1, "head", False),
+    ("bf16exp", 32, 1, 1, "head", False), ("base", 32, 1, 2, "head", False),
+    ("base", 32, 1, 4, "head", False), ("base", 32, 2, 1, "head", False),
+    ("base", 32, 4, 1, "qblock", False), ("base", 32, 1, 1, "head", True)])
+def test_probe_fwd_kernel_matches_plain_on_card(cuda_device, mode, rows,
+                                                n_sub, n_kb, order, btc):
+    shape = (1, 1536, 4 * 64) if btc else (4, 1536, 64)
+    q, k, v = _probe_inputs(cuda_device, 8, 3, shape)
+    before = tpf.launches
+    o, lse = tpf.probe_fwd(q, k, v, 1500, mode=mode, rows=rows, n_sub=n_sub,
+                           n_kb=n_kb, order=order, btc=btc, want_lse=True)
+    assert tpf.launches == before + 1
+    o_p, lse_p = tpf.probe_fwd_plain(q, k, v, 1500, mode, n_kb, btc)
+    # two bf16 ulps of the largest |o|; lse stays f32 ('noexp' sums
+    # p = (s - m) * 0.001 + 1 < 0 over the masked columns: lse is NaN in both)
+    assert _rel_err(o, o_p) <= 2.0 ** -6
+    torch.testing.assert_close(lse, lse_p, rtol=0, atol=1e-4, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ops,rows,btc", [
+    ("bf16", 64, False), ("bf16", 32, False), ("f32", 64, False),
+    ("f32", 32, True)])
+def test_probe_bwd_kernel_matches_plain_on_card(cuda_device, ops, rows, btc):
+    shape = (1, 1536, 4 * 64) if btc else (4, 1536, 64)
+    q, k, v, o, do = _probe_inputs(cuda_device, 9, 5, shape)
+    lse = 8.0 + 0.1 * torch.randn((4, 1536), device=cuda_device)
+    lse = lse.view(1, 4, 1536) if btc else lse
+    before = tpb.launches
+    got = tpb.probe_bwd(q, k, v, o, do, lse, 1500, ops=ops, rows=rows,
+                        btc=btc)
+    assert tpb.launches == before + 1
+    ref = tpb.probe_bwd_plain(q, k, v, o, do, lse, 1500, ops, btc)
+    # bf16 operands: a few ulps of the largest gradient (K2's bound); f32
+    # operands: the one rounding of the output, flipped by sum order
+    for g, r in zip(got, ref):
+        assert _rel_err(g, r) <= (2e-2 if ops == "bf16" else 1e-2)
+    # masked keys get no gradient (rows are dim 1 in both layouts)
+    assert not got[1][:, 1500:].any() and not got[2][:, 1500:].any()
+    again = tpb.probe_bwd(q, k, v, o, do, lse, 1500, ops=ops, rows=rows,
+                          btc=btc)
+    for g, h in zip(got, again):  # no atomics: the same bits every run
+        assert torch.equal(g, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kdim", [64, 512])
+def test_probe_dot_kernel_matches_plain_on_card(cuda_device, kdim):
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    a = torch.randn((3, 512, kdim), generator=gen, device=cuda_device
+                    ).to(torch.bfloat16)
+    b = torch.randn((3, kdim, 1536), generator=gen, device=cuda_device
+                    ).to(torch.bfloat16)
+    before = tpd.launches
+    c = tpd.probe_dot(a, b)
+    assert tpd.launches == before + 1
+    # one bf16 rounding of the output, flipped by f32 sum order
+    assert _rel_err(c, tpd.probe_dot_plain(a, b)) <= 1e-2

@@ -14,15 +14,17 @@ SCRIPT = textwrap.dedent("""
 
     class NoJax:
         def find_spec(self, name, path=None, target=None):
-            if name in ("jax", "neuspeech1_tpu") or name.startswith(
-                    ("jax.", "jaxlib", "neuspeech1_tpu.")):
+            # the JAX package, and the root bench.py and perf/ probes
+            if name in ("jax", "neuspeech1_tpu", "bench", "perf") or \
+                    name.startswith(("jax.", "jaxlib", "neuspeech1_tpu.",
+                                     "perf.")):
                 raise ImportError(f"the port imported {name}")
             return None
 
     def check_clean(after):
         bad = [m for m in sys.modules
-               if m in ("jax", "neuspeech1_tpu")
-               or m.startswith(("jax.", "neuspeech1_tpu."))]
+               if m in ("jax", "neuspeech1_tpu", "bench", "perf")
+               or m.startswith(("jax.", "neuspeech1_tpu.", "perf."))]
         assert not bad, (after, bad)
 
     sys.meta_path.insert(0, NoJax())
@@ -36,6 +38,16 @@ SCRIPT = textwrap.dedent("""
         neuspeech1_tpu_torch.__path__, "neuspeech1_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
+
+    assert {"neuspeech1_tpu_torch.bench",
+            "neuspeech1_tpu_torch.perf.kernel_probe",
+            "neuspeech1_tpu_torch.perf.mxu_probe",
+            "neuspeech1_tpu_torch.perf.btc_probe",
+            "neuspeech1_tpu_torch.perf.bwd_probe",
+            "neuspeech1_tpu_torch.ops.probe_fwd",
+            "neuspeech1_tpu_torch.ops.probe_bwd",
+            "neuspeech1_tpu_torch.ops.probe_dot"} <= set(names), names
+    check_clean("importing every module")
 
     from neuspeech1_tpu_torch.cli import common
     from neuspeech1_tpu_torch.models.init import init_params
