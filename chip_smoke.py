@@ -17,7 +17,9 @@ each printing JSON lines:
             backward), K4 (flash forward and backward with a bias row, ring
             attention's blocks), K6 (decode cross-attention), K7 (decode
             self-attention step), K8 (multi-query decode step of
-            speculative decoding).
+            speculative decoding). K2 and K4's backward also run twice on
+            the same inputs (the same bits) and split their time over
+            their three kernels (delta, dk/dv, dq) under torch.profiler.
 3. slice    serves 16 synthetic [208, 6000] signals in two batches of 8
             greedily through ``neuspeech1_tpu_torch.serve.Transcriber`` with
             whisper-base weights made from a seed, counts the kernels'
@@ -496,6 +498,36 @@ def _sdpa_bwd_ms(q, k, v, do, causal, kv_len) -> float:
                                                retain_graph=True))
 
 
+def _bwd_split_ms(fn, calls: int = 5) -> dict:
+    """Device ms per call of each of the backward's three kernels (delta,
+    dk/dv, dq), from one torch.profiler pass over ``calls`` calls of ``fn``,
+    by the compiled kernels' names."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = dict.fromkeys(("delta", "dkdv", "dq"), 0.0)
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA":
+            continue
+        for part in split:
+            if f"flash_bwd_{part}_kernel" in e.key:
+                split[part] += e.self_device_time_total / 1e3 / calls
+    check(all(split.values()), f"backward split: a kernel not seen: {split}")
+    return split
+
+
+def _same_bits(a, b) -> bool:
+    """Whether two tuples of bf16 tensors are equal bit for bit."""
+    return all(torch.equal(x.view(torch.int16), y.view(torch.int16))
+               for x, y in zip(a, b))
+
+
 def _check_flash_bwd(case, q, k, v, o, lse, gen) -> dict:
     """K2 against its plain version on the forward kernel's o and lse."""
     from neuspeech1_tpu_torch.ops import flash_attention as fa
@@ -505,6 +537,7 @@ def _check_flash_bwd(case, q, k, v, o, lse, gen) -> dict:
     do = torch.randn(o.shape, generator=gen, device="cuda").to(torch.bfloat16)
     args = (q, k, v, o, do, lse, causal, kvl)
     grads = fa._flash_bwd_cuda(*args)
+    again = fa._flash_bwd_cuda(*args)
     plain = fa.flash_attention_bthd_bwd_plain(*args)
     torch.cuda.synchronize()
     errs = {f"{n}_rel_err": _rel_err(g, p)
@@ -526,6 +559,8 @@ def _check_flash_bwd(case, q, k, v, o, lse, gen) -> dict:
            "plain_ms": cuda_ms(lambda: fa.flash_attention_bthd_bwd_plain(
                *args)),
            "library_ms": _sdpa_bwd_ms(q, k, v, do, causal, kv_len),
+           "split_ms": _bwd_split_ms(lambda: fa._flash_bwd_cuda(*args)),
+           "same_bits": _same_bits(grads, again),
            **bound(n_bytes, 2.5 * fwd_flops)}
     if kv_len is not None:
         res["rows_past_kv_len_zero"] = bool(
@@ -538,6 +573,8 @@ def _check_flash_bwd(case, q, k, v, o, lse, gen) -> dict:
           f"K2 {case['name']}: non-finite gradients")
     check(max(errs.values()) <= K2_REL_TOL,
           f"K2 {case['name']}: kernel disagrees with plain version")
+    check(res["same_bits"],
+          f"K2 {case['name']}: a second run gave other bits")
     return res
 
 
@@ -714,6 +751,7 @@ def _check_flash_bias(gen) -> list:
         o_g, lse_g = merge(o_p.float(), lse_p, o2.float(), lse2)
         args = (q, k, v, o_g.to(q.dtype), do, lse_g.contiguous(), bias)
         grads = fa.flash_bias_bwd(*args)
+        again = fa.flash_bias_bwd(*args)
         plain = fa.flash_bias_bwd_plain(*args)
         torch.cuda.synchronize()
         abs_err = max((g.float() - p.float()).abs().max().item()
@@ -736,6 +774,8 @@ def _check_flash_bias(gen) -> list:
                # lse is the global one: at (a), a ring of one
                "library_ms": (_sdpa_bias_bwd_ms(q, k, v, mask, do)
                               if name == "sp_step_n1" else None),
+               "split_ms": _bwd_split_ms(lambda: fa.flash_bias_bwd(*args)),
+               "same_bits": _same_bits(grads, again),
                # q, k, v, o, do read and dq, dk, dv written (bf16), lse and
                # the bias read; five products over the kept columns
                **bound(2 * b * h * d * 8 * t + 4 * b * h * t + 4 * t,
@@ -744,6 +784,8 @@ def _check_flash_bias(gen) -> list:
         check(all(torch.isfinite(g.float()).all() for g in grads),
               f"K4 backward {name}: non-finite gradients")
         check(ok, f"K4 backward {name}: kernel disagrees with plain version")
+        check(bwd["same_bits"],
+              f"K4 backward {name}: a second run gave other bits")
         out.append(bwd)
     return out
 

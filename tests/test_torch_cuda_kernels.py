@@ -54,7 +54,17 @@ def _rel_err(got, ref):
 @pytest.mark.parametrize("shape,t_kv,causal,kv_len", [
     ((2, 300, 8, 64), 300, False, 257), ((2, 130, 4, 64), 130, True, None),
     ((2, 40, 8, 64), 300, False, None), ((1, 100, 2, 128), 100, True, None),
-    ((1, 100, 2, 32), 100, False, None)])
+    ((1, 100, 2, 32), 100, False, None),
+    # the edges of the backward's tiles (128 K/V rows and 64 q rows per
+    # dk/dv tile, 32 at D=128; 128 q rows and 64 K/V rows per dq tile)
+    ((2, 129, 4, 64), 129, False, None),    # one-row tails
+    ((2, 65, 4, 64), 200, False, None),     # Tk off both tiles
+    ((2, 200, 4, 64), 200, False, 150),     # kv_len inside a tile
+    ((2, 192, 4, 64), 256, False, 128),     # kv_len on a tile boundary
+    ((2, 300, 4, 64), 300, True, None),     # causal over 3+ tiles
+    ((4, 64, 8, 64), 1500, False, None),    # the decoder's cross shape
+    ((1, 129, 2, 128), 200, False, 150), ((1, 200, 4, 128), 200, True, None),
+    ((1, 129, 4, 32), 129, False, None), ((1, 200, 4, 32), 200, True, 190)])
 def test_backward_kernel_matches_plain_on_card(cuda_device, shape, t_kv,
                                                causal, kv_len):
     b, t, h, d = shape
@@ -199,7 +209,10 @@ def _bias_row(t, masked, device):
     (4, 1536, 8, 64, 36),    # (a) the SP step's encoder at n = 1, cut to B=4
     (8, 384, 8, 64, 384),    # (b) a ring round's fully masked block
     (8, 384, 8, 64, 152),    # (c) a partly masked block
-    (2, 256, 4, 32, 100), (2, 256, 2, 128, 0)])
+    (2, 256, 4, 32, 100), (2, 256, 2, 128, 0),
+    # the edges of the backward's tiles, as in the K2 test above
+    (2, 129, 4, 64, 0), (2, 200, 4, 64, 37), (2, 256, 4, 64, 128),
+    (2, 384, 4, 64, 36), (1, 129, 2, 128, 28), (2, 200, 4, 32, 64)])
 def test_bias_kernels_match_plain_on_card(cuda_device, b, t, h, d, masked):
     """K4 forward (NaN / -inf rows where the plain version has them) and
     backward against one block with the global o and lse of a two-block
@@ -234,6 +247,48 @@ def test_bias_kernels_match_plain_on_card(cuda_device, b, t, h, d, masked):
             assert not g.any() and not p.any()
         else:  # as K2 (chip_smoke.py K2_REL_TOL)
             assert _rel_err(g, p) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["K2", "K2_causal", "K4"])
+def test_backward_same_bits_twice_on_card(cuda_device, entry):
+    """The backward kernels use no atomics: a second call on the same inputs
+    gives the same bits (the training step's reproducibility)."""
+    b, t, h, d = 4, 1500, 8, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    q, k, v, do = (torch.randn((b, t, h * d), generator=gen,
+                               device=cuda_device).to(torch.bfloat16)
+                   .view(b, t, h, d) for _ in range(4))
+    if entry == "K4":
+        bias = _bias_row(t, 36, cuda_device)
+        o, lse = tfa.flash_bias_fwd(q, k, v, bias)
+        runs = [tfa.flash_bias_bwd(q, k, v, o, do, lse, bias)
+                for _ in range(2)]
+    else:
+        causal = entry == "K2_causal"
+        o, lse = tfa.flash_attention_bthd(q, k, v, causal, 1400, True)
+        runs = [tfa._flash_bwd_cuda(q, k, v, o, do, lse, causal, 1400)
+                for _ in range(2)]
+    for g1, g2 in zip(*runs):
+        assert torch.equal(g1.view(torch.int16), g2.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_scale_in_epilogue_is_exact_on_card(cuda_device):
+    """At D=64 the backward kernels scale dq and dk by 2^-3 in the epilogue
+    instead of multiplying by bf16(k * 2^-3) and bf16(q * 2^-3): the same
+    bits, because scaling by a power of two commutes with every rounding of
+    the f32 sum (the f32 product on the card, TF32 off, as the reference)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    ds = torch.randn((256, 1536), generator=gen, device=cuda_device)
+    ds = ds.to(torch.bfloat16).float()
+    k = torch.randn((1536, 64), generator=gen, device=cuda_device)
+    k = k.to(torch.bfloat16)
+    scale = 64 ** -0.5
+    k_s = (k.float() * scale).to(torch.bfloat16)
+    assert torch.equal(k_s.float(), k.float() * scale)
+    assert torch.equal(ds @ k_s.float(), (ds @ k.float()) * scale)
 
 
 @pytest.mark.cuda

@@ -25,7 +25,24 @@ CASES = {
     "kv_len": dict(t_q=128, t_kv=128, kv_len=100),
     "causal": dict(t_q=100, t_kv=100, causal=True),
     "cross": dict(t_q=20, t_kv=100),
+    # the edges of the CUDA backward's tiles (128 K/V rows and 64 q rows per
+    # dk/dv tile, 128 q rows and 64 K/V rows per dq tile): one-row tails,
+    # Tk off the tile, kv_len inside a tile and on its boundary, causal
+    # over several tiles, the decoder's cross shape, D = 32 and 128
+    "tail_1": dict(t_q=129, t_kv=129),
+    "kv_200": dict(t_q=65, t_kv=200),
+    "kv_len_in_tile": dict(t_q=200, t_kv=200, kv_len=150),
+    "kv_len_on_tile": dict(t_q=192, t_kv=256, kv_len=128),
+    "causal_tiles": dict(t_q=300, t_kv=300, causal=True),
+    "cross_1500": dict(t_q=64, t_kv=1500, b=1),
+    "d32": dict(t_q=100, t_kv=100, d=32),
+    "d128_causal": dict(t_q=130, t_kv=130, causal=True, d=128),
 }
+
+
+def _case_inputs(case, seed=0):
+    return _inputs(case["t_q"], case["t_kv"], seed, b=case.get("b", 2),
+                   d=case.get("d", 64))
 
 
 def _inputs(t_q, t_kv, seed=0, b=2, h=2, d=64):
@@ -52,7 +69,7 @@ def _np_lse(q, k, causal, kv_len):
 def test_plain_matches_jax_kernel(name):
     case = CASES[name]
     causal, kv_len = case.get("causal", False), case.get("kv_len")
-    q, k, v = _inputs(case["t_q"], case["t_kv"])
+    q, k, v = _case_inputs(case)
     ref = np.asarray(jfa.flash_attention_bthd(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
         kv_len=kv_len))
@@ -166,7 +183,7 @@ def test_grads_match_jax_kernel(name):
     backward kernels, f32, max-abs 1e-5 as for the forward."""
     case = CASES[name]
     causal, kv_len = case.get("causal", False), case.get("kv_len")
-    q, k, v = _inputs(case["t_q"], case["t_kv"], seed=5)
+    q, k, v = _case_inputs(case, seed=5)
     do = np.random.default_rng(6).standard_normal(q.shape).astype(np.float32)
     before = tfa.bwd_launches
     o_ref, g_ref = _jax_grads(q, k, v, do, causal, kv_len)
@@ -250,3 +267,21 @@ def test_cuda_backward_never_takes_plain_path(monkeypatch):
     with pytest.raises(RuntimeError, match="backward kernel library"):
         o.sum().backward()
     assert tfa.bwd_launches == before
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_scale_in_epilogue_is_exact_at_d64(seed):
+    """At D=64 the CUDA backward multiplies by k and q and scales dq and dk
+    by 2^-3 once, where the TPU kernel multiplies by bf16(k * scale) and
+    bf16(q * scale): scaling by a power of two commutes with the bf16
+    rounding of the operand and with every rounding of the f32 sum, so the
+    two give the same bits (the card test repeats this on cuBLAS)."""
+    rng = np.random.default_rng(seed)
+    ds = torch.from_numpy(rng.standard_normal((64, 300)).astype(np.float32))
+    ds = ds.to(torch.bfloat16).float()
+    k = torch.from_numpy(rng.standard_normal((300, 64)).astype(np.float32))
+    k = k.to(torch.bfloat16)
+    scale = 64 ** -0.5
+    k_s = (k.float() * scale).to(torch.bfloat16)
+    assert torch.equal(k_s.float(), k.float() * scale)
+    assert torch.equal(ds @ k_s.float(), (ds @ k.float()) * scale)

@@ -54,8 +54,30 @@ RING_TOL, RING_GRAD_TOL = 2e-5, 5e-4
 RTOL, ATOL_MODEL = 1e-4, 2e-4
 SP_GRAD_TOL = 2e-4
 
-# masked key columns at the end of a 256-column block: none, part, all
-BIAS_CASES = {"none": 0, "part": 100, "all": 256}
+# masked key columns at the end of a 256-column block: none, part, all; then
+# the edges of the CUDA backward's tiles (128 K/V rows and 64 q rows per
+# dk/dv tile, 128 q rows and 64 K/V rows per dq tile): a one-row K/V tail,
+# Tk off the tiles with the mask inside a tile, the mask on a tile boundary,
+# three q tiles, D = 32 and 128. Tq stays a multiple of 128, as the Pallas
+# backward's q blocks need.
+BIAS_CASES = {
+    "none": dict(masked=0), "part": dict(masked=100),
+    "all": dict(masked=256),
+    "tk_tail": dict(masked=0, t_k=129),
+    "tk_200_part": dict(masked=37, t_q=256, t_k=200),
+    "mask_on_tile": dict(masked=128),
+    "tq_384": dict(masked=36, t_q=384, t_k=384),
+    "d32": dict(masked=100, h=4, d=32),
+    "d128": dict(masked=100, d=128),
+}
+
+
+def _bias_case(case, seed):
+    """(q, k, v, k2, v2) and the bias row of a BIAS_CASES entry."""
+    shape = dict(BIAS_CASES[case])
+    masked = shape.pop("masked")
+    q, k, v, k2, v2 = _block_inputs(seed, **shape)
+    return (q, k, v, k2, v2), _bias(k.shape[1], masked)
 
 
 def _block_inputs(seed=0, b=2, t_q=128, t_k=256, h=2, d=64):
@@ -96,8 +118,7 @@ def _assert_same_nan_inf(got, ref):
 def test_bias_fwd_plain_matches_jax_kernel(case):
     """K4's forward: rows with none, part or all of their columns masked;
     NaN (o) and -inf (lse) in the same places as the Pallas kernel's."""
-    q, k, v, _, _ = _block_inputs()
-    bias = _bias(k.shape[1], BIAS_CASES[case])
+    (q, k, v, _, _), bias = _bias_case(case, 0)
     o_ref, lse_ref = _jax_bias_fwd(q, k, v, bias)
     o, lse = tfa.flash_bias_fwd(*(torch.from_numpy(x) for x in (q, k, v, bias)))
     o, lse = o.numpy(), lse.numpy()
@@ -116,8 +137,7 @@ def test_bias_bwd_plain_matches_jax_kernel(case):
     """K4's backward against one block with the GLOBAL o and lse of two
     merged blocks (the block and an unmasked one), as the ring takes them:
     a fully masked block gets exactly zero gradients."""
-    q, k, v, k2, v2 = _block_inputs(seed=1)
-    bias = _bias(k.shape[1], BIAS_CASES[case])
+    (q, k, v, k2, v2), bias = _bias_case(case, 1)
     tq, tk, tv, tk2, tv2 = (torch.from_numpy(x) for x in (q, k, v, k2, v2))
     tb = torch.from_numpy(bias)
     o_a, lse_a = tfa.flash_bias_fwd(tq, tk, tv, tb)
