@@ -452,29 +452,38 @@ def phase_kernels() -> list:
         k, v = _bthd(gen, b, t_kv, h, d), _bthd(gen, b, t_kv, h, d)
         o_k, lse_k = fa.flash_attention_bthd(q, k, v, causal, kv_len,
                                              return_lse=True)
+        again = fa.flash_attention_bthd(q, k, v, causal, kv_len,
+                                        return_lse=True)
         o_p, lse_p = fa.flash_attention_bthd_plain(q, k, v, causal, kv_len,
                                                    return_lse=True)
         torch.cuda.synchronize()
         o_err = (o_k.float() - o_p.float()).abs().max().item()
         lse_err = (lse_k - lse_p).abs().max().item()
         sq, sk, sv = _sdpa_inputs(q, k, v, kv_len)
+        n_bytes, flops = _flash_cost(b, t, t_kv, h, d, causal, kv_len)
+        ms = cuda_ms(lambda: fa.flash_attention_bthd(q, k, v, causal, kv_len))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            sq, sk, sv, is_causal=causal))
         res = {
             "phase": "kernels", "kernel": "K1", "case": case["name"],
             "shape": [b, t, t_kv, h, d], "causal": causal, "kv_len": kv_len,
             "o_max_abs_err": o_err, "lse_max_abs_err": lse_err,
             "o_tol": O_TOL, "lse_tol": LSE_TOL,
-            "ms": cuda_ms(lambda: fa.flash_attention_bthd(q, k, v, causal,
-                                                          kv_len)),
+            "ms": ms,
             "plain_ms": cuda_ms(lambda: fa.flash_attention_bthd_plain(
                 q, k, v, causal, kv_len)),
-            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                sq, sk, sv, is_causal=causal)),
-            **bound(*_flash_cost(b, t, t_kv, h, d, causal, kv_len)),
+            "library_ms": library_ms,
+            "tflops": _tflops(flops, ms),
+            "library_tflops": _tflops(flops, library_ms),
+            "same_bits": _same_bits((o_k, lse_k), again),
+            **bound(n_bytes, flops),
         }
         emit(res)
         check(bool(torch.isfinite(o_k.float()).all()), f"{case}: non-finite o")
         check(o_err <= O_TOL and lse_err <= LSE_TOL,
               f"K1 {case['name']}: kernel disagrees with plain version")
+        check(res["same_bits"],
+              f"K1 {case['name']}: a second run gave other bits")
         results.append(res)
         if case.get("bwd"):
             results.append(_check_flash_bwd(case, q, k, v, o_k, lse_k, gen))
@@ -523,9 +532,16 @@ def _bwd_split_ms(fn, calls: int = 5) -> dict:
 
 
 def _same_bits(a, b) -> bool:
-    """Whether two tuples of bf16 tensors are equal bit for bit."""
-    return all(torch.equal(x.view(torch.int16), y.view(torch.int16))
+    """Whether two tuples of bf16 or f32 tensors are equal bit for bit."""
+    ints = {2: torch.int16, 4: torch.int32}
+    return all(torch.equal(x.view(ints[x.element_size()]),
+                           y.view(ints[y.element_size()]))
                for x, y in zip(a, b))
+
+
+def _tflops(flops: float, ms: float) -> float:
+    """The rate of ``flops`` operations done in ``ms`` milliseconds."""
+    return flops / ms / 1e9
 
 
 def _check_flash_bwd(case, q, k, v, o, lse, gen) -> dict:
@@ -702,6 +718,7 @@ def _check_flash_bias(gen) -> list:
         q, k, v, k2, v2, do = (_bthd(gen, b, t, h, d) for _ in range(6))
         bias = _bias_row(t, masked)
         o_k, lse_k = fa.flash_bias_fwd(q, k, v, bias)
+        again = fa.flash_bias_fwd(q, k, v, bias)
         o_p, lse_p = fa.flash_bias_fwd_plain(q, k, v, bias)
         torch.cuda.synchronize()
         nan_k, nan_p = torch.isnan(o_k), torch.isnan(o_p)
@@ -715,6 +732,11 @@ def _check_flash_bias(gen) -> list:
         sq, sk, sv = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         mask = bias.to(q.dtype).view(1, 1, 1, t)
         library = kept > 0
+        # the products over the kept columns only
+        flops = 4 * b * h * t * kept * d
+        ms = cuda_ms(lambda: fa.flash_bias_fwd(q, k, v, bias))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            sq, sk, sv, attn_mask=mask)) if library else None
         res = {"phase": "kernels", "kernel": "K4", "case": name,
                "shape": [b, t, t, h, d], "masked_columns": masked,
                "o_max_abs_err": o_err,
@@ -722,17 +744,22 @@ def _check_flash_bias(gen) -> list:
                "nan_equal": bool(torch.equal(nan_k, nan_p)),
                "ninf_equal": bool(torch.equal(ninf_k, ninf_p)),
                "o_tol": O_TOL, "lse_tol": LSE_TOL,
-               "ms": cuda_ms(lambda: fa.flash_bias_fwd(q, k, v, bias)),
+               "ms": ms,
                "plain_ms": cuda_ms(lambda: fa.flash_bias_fwd_plain(
                    q, k, v, bias)),
-               "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                   sq, sk, sv, attn_mask=mask)) if library else None,
+               "library_ms": library_ms,
+               "tflops": _tflops(flops, ms),
+               "library_tflops": (_tflops(flops, library_ms) if library
+                                  else None),
+               "same_bits": _same_bits((o_k, lse_k), again),
                # q, k, v read, o written (bf16), lse written and the bias
-               # read (f32); the products over the kept columns only
+               # read (f32)
                **bound(2 * b * h * d * 4 * t + 4 * b * h * t + 4 * t,
-                       4 * b * h * t * kept * d)}
+                       flops)}
         check(res["nan_equal"] and res["ninf_equal"],
               f"K4 {name}: NaN / -inf rows differ from the plain version")
+        check(res["same_bits"],
+              f"K4 {name}: a second run gave other bits")
         if kept == 0:
             res["all_rows_nan_and_ninf"] = bool(nan_k.all() and ninf_k.all())
             check(res["all_rows_nan_and_ninf"],

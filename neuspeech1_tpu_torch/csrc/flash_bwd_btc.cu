@@ -93,6 +93,8 @@
 
 #include <type_traits>
 
+#include "flash_sm90.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // two warpgroups: the delta and dq kernels
@@ -103,21 +105,10 @@ constexpr int kDkdvThreads = 128 * kDkdvWarpgroups;
 constexpr int kBlockKV = 64 * kDkdvWarpgroups;  // K/V rows per dk/dv CTA
 constexpr int kBlockQdq = 128; // q rows per CTA of the dq kernel
 constexpr int kBlockKdq = 64;  // K/V rows per tile of the dq kernel
-constexpr float kLog2e = 1.4426950408889634f;
-// A bias at or below this masks its column (the bias rows carry -1e30).
-constexpr float kMaskedBias = -1e29f;
-
-// The shared-memory layout of a [ROWS, D] bf16 tile: D is cut into blocks of
-// kAtomCols columns (64, or 32 at D=32), each block [ROWS][kAtomCols] with
-// the 16-byte chunks of row r permuted by the 128-byte (64-byte) swizzle,
-// chunk c at c ^ (r % 8) (c ^ ((r / 2) % 4)). Tiles start 1024-byte aligned,
-// so this is the swizzle of the absolute address that wgmma applies.
+// The backward's tiles: the shared-memory layout (Swz, flash_sm90.cuh) and
+// the q rows and ring stages of each kernel.
 template <int D>
-struct Cfg {
-  static constexpr int kAtomCols = D == 32 ? 32 : 64;
-  static constexpr int kRowBytes = kAtomCols * 2;
-  static constexpr int kChunks = D / 8;  // 16-byte chunks of one row
-  static constexpr uint64_t kSwizzle = D == 32 ? 2 : 1;  // B64 : B128
+struct Cfg : Swz<D> {
   // q rows per tile of the dk/dv kernel
   static constexpr int kBlockQ = D == 128 ? 32 : 64;
   // Tiles in each ring, and how many are copied ahead of the one being
@@ -130,245 +121,6 @@ struct Cfg {
   static constexpr bool kScaleInEpilogue = D == 64;
 };
 
-template <int D, int ROWS>
-__device__ __forceinline__ uint32_t swz_offset(int r, int chunk) {
-  using C = Cfg<D>;
-  constexpr int kPerAtom = C::kAtomCols / 8;
-  const int blk = chunk / kPerAtom;
-  const int c = chunk % kPerAtom;
-  const int sw = D == 32 ? (r >> 1) & 3 : r & 7;
-  return blk * ROWS * C::kRowBytes + r * C::kRowBytes + ((c ^ sw) << 4);
-}
-
-struct Strides {
-  long long b, t, h;  // in elements; the head dimension is contiguous
-};
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(in ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Makes this thread's generic-proxy writes to shared memory (cp.async and
-// st.shared) visible to wgmma, which reads through the async proxy.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving accumulator reads or writes across a
-// wgmma.wait_group.
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// A wgmma shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (16-byte units) and the swizzle mode.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t mode) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (mode << 62);
-}
-
-// K-major operand: rows [row0, row0 + 64 or N) of a [ROWS, D] tile, the
-// k-th 16-column slice of D. SBO steps 8 rows; LBO is unused (one k slice
-// lies inside one swizzle row).
-template <int D, int ROWS>
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int row0, int kk) {
-  using C = Cfg<D>;
-  constexpr int kPerAtom = C::kAtomCols / 16;
-  const uint32_t addr = tile + (kk / kPerAtom) * ROWS * C::kRowBytes +
-                        row0 * C::kRowBytes + (kk % kPerAtom) * 32;
-  return make_desc(addr, 16, 8 * C::kRowBytes, C::kSwizzle);
-}
-
-// MN-major operand: the [ROWS, D] tile read as B[k, n] with k the row (the
-// reduction runs over the tile's rows) and n in D; rows [16 kk, 16 kk + 16).
-// SBO steps 8 rows, LBO steps one kAtomCols block of D.
-template <int D, int ROWS>
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
-  using C = Cfg<D>;
-  return make_desc(tile + kk * 16 * C::kRowBytes, ROWS * C::kRowBytes,
-                   8 * C::kRowBytes, C::kSwizzle);
-}
-
-// wgmma.m64nNk16 bf16 -> f32. _ss: A and B from shared memory, both
-// K-major; scale_d = 0 overwrites d. _rs: A from registers (the mma.sync
-// m16n8k16 A fragment of each warp's 16 rows), B MN-major, d += A B.
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
-                                         uint64_t db, int scale_d);
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      "%14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      "%14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-      "%26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-      "%26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
-      "%62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
-        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
-        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
-        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// 2^x (MUFU ex2, flushing subnormal results to 0; -inf gives 0).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_f32x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The A fragments of a register-sourced wgmma from an accumulator tile of N
-// columns: fragment kk holds columns [16 kk, 16 kk + 16), rounded to bf16.
-template <int N>
-__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4],
-                                       const float (&d)[N / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      a[kk][r] = pack_f32x2(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
-    }
-  }
-}
-
-template <int R>
-__device__ __forceinline__ void zero(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) d[i] = 0.f;
-}
-
 struct Params {
   const __nv_bfloat16 *q, *k, *v, *o, *dout;
   const float *lse, *bias;
@@ -378,24 +130,6 @@ struct Params {
   Strides qs, ks, vs, os, dos, dqs, dks, dvs;
   float scale;
 };
-
-// Copies rows [row0, row0 + ROWS) of one head into a swizzled [ROWS, D]
-// tile by cp.async, 16 bytes a thread; rows at or past n_valid are zeros.
-template <int D, int ROWS, int NT = kThreads>
-__device__ __forceinline__ void load_tile(uint32_t dst,
-                                          const __nv_bfloat16* src,
-                                          long long row_stride, int row0,
-                                          int n_valid) {
-  constexpr int kC = Cfg<D>::kChunks;
-#pragma unroll
-  for (int i = threadIdx.x; i < ROWS * kC; i += NT) {
-    const int r = i / kC;
-    const int c = i % kC;
-    const bool in = row0 + r < n_valid;
-    const long long off = in ? (row0 + r) * row_stride + c * 8 : 0;
-    cp_async16(dst + swz_offset<D, ROWS>(r, c), src + off, in);
-  }
-}
 
 // dst = bf16(src * scale) over the 16-byte chunks this thread copied into
 // src with load_tile<D, ROWS, NT> (the same index map), so no barrier is
@@ -417,17 +151,6 @@ __device__ __forceinline__ void scale_tile(uint8_t* dst, const uint8_t* src,
     *reinterpret_cast<uint4*>(dst + off) = val;
   }
 }
-
-// The 1024-byte aligned start of the dynamic shared memory, as a shared
-// address and a generic pointer.
-__device__ __forceinline__ uint32_t smem_base(uint8_t* raw, uint8_t** ptr) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(raw));
-  const uint32_t base = (a + 1023u) & ~1023u;
-  *ptr = raw + (base - a);
-  return base;
-}
-
-constexpr int round_up_1k(int x) { return (x + 1023) / 1024 * 1024; }
 
 // Dynamic shared memory of the dk/dv kernel: K and V [kBlockKV, D], then
 // kStages ring stages of q, do (and q_s) [BQ, D], lse and delta [BQ] f32.
@@ -758,8 +481,8 @@ flash_bwd_dq_kernel(const Params p) {
   auto load_stage = [&](int j, int s) {
     const uint32_t st = ring + s * L::kStage;
     const int kv0 = j * BK;
-    load_tile<D, BK>(st, k, p.ks.t, kv0, kv_len);
-    load_tile<D, BK>(st + L::kTileK, v, p.vs.t, kv0, kv_len);
+    load_tile<D, BK, kThreads>(st, k, p.ks.t, kv0, kv_len);
+    load_tile<D, BK, kThreads>(st + L::kTileK, v, p.vs.t, kv0, kv_len);
     if constexpr (HAS_BIAS) {
       for (int i = threadIdx.x; i < BK; i += kThreads) {
         const bool in = kv0 + i < kv_len;
@@ -768,10 +491,10 @@ flash_bwd_dq_kernel(const Params p) {
     }
   };
 
-  load_tile<D, kBlockQdq>(q_s, p.q + batch * p.qs.b + head * p.qs.h, p.qs.t,
-                          q0, t_q);
-  load_tile<D, kBlockQdq>(do_s, p.dout + batch * p.dos.b + head * p.dos.h,
-                          p.dos.t, q0, t_q);
+  load_tile<D, kBlockQdq, kThreads>(
+      q_s, p.q + batch * p.qs.b + head * p.qs.h, p.qs.t, q0, t_q);
+  load_tile<D, kBlockQdq, kThreads>(
+      do_s, p.dout + batch * p.dos.b + head * p.dos.h, p.dos.t, q0, t_q);
   int n = (kv_len + BK - 1) / BK;
   if (p.causal) {
     const int last_row = min(q0 + kBlockQdq, t_q) - 1;

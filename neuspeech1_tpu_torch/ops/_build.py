@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into ``neuspeech1_tpu_torch/_build/lib<name>-<hash>.so``, then loaded with
-``ctypes``. The hash covers the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. This takes seconds per
-file, where ``torch.utils.cpp_extension.load`` (which compiles PyTorch's
+``ctypes``. The hash covers the source, the headers it includes from
+``csrc/`` (``#include "..."``, followed through headers) and the flags, so
+an edited source or header is rebuilt and an unchanged one is loaded as it
+is. This takes seconds per file, where ``torch.utils.cpp_extension.load`` (which compiles PyTorch's
 headers) takes minutes. ``nvcc``'s resource report (``-Xptxas -v``:
 registers, shared memory, spills) is kept beside the library as ``.log``.
 
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -40,10 +42,27 @@ def _nvcc() -> str:
         "kernels of neuspeech1_tpu_torch are built from source on first use")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and the headers of ``csrc/`` that it includes,
+    directly or through another header, in the order first met."""
+    found, todo = [], [SRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path not in found:
+            found.append(path)
+            todo.extend(SRC_DIR / inc
+                        for inc in _INCLUDE.findall(path.read_text()))
+    return found
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` is built, named by its content hash."""
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` is built, named by the hash of its sources
+    and the flags."""
+    data = b"".join(path.read_bytes() for path in sources(name))
+    digest = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

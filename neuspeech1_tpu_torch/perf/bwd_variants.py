@@ -24,8 +24,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from neuspeech1_tpu_torch.ops import _build
 from neuspeech1_tpu_torch.ops import flash_attention as fa
+from neuspeech1_tpu_torch.perf import common
 from neuspeech1_tpu_torch.perf.common import cuda_ms
 
 _NO_DV = ("wgmma_rs<D>(dv_acc, pa[kk]", "if (0) wgmma_rs<D>(dv_acc, pa[kk]")
@@ -85,35 +85,22 @@ VARIANTS = {
 
 def variant_source(name: str) -> str:
     """The backward's source with ``VARIANTS[name]`` applied."""
-    src = (_build.SRC_DIR / "flash_bwd_btc.cu").read_text()
-    for old, new in VARIANTS[name]:
-        if src.count(old) != 1:
-            raise ValueError(f"variant {name}: {old!r} matches "
-                             f"{src.count(old)} times")
-        src = src.replace(old, new)
-    return src
+    return common.variant_source("flash_bwd_btc", name, VARIANTS[name])
 
 
 def _build_variant(name: str):
     """(the variant's library, ptxas's performance notes by kernel)."""
-    out_dir = _build.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    src = out_dir / f"flash_bwd_btc_{name}.cu"
-    src.write_text(variant_source(name))
-    lib = out_dir / f"libflash_bwd_btc_{name}.so"
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-                           str(lib), str(src)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
+    lib, log = common.build_variant("flash_bwd_btc", name,
+                                    variant_source(name))
     notes = []
-    for line in (proc.stdout + proc.stderr).splitlines():
+    for line in log.splitlines():
         if "Performance Loss" in line:
             fn = re.search(r"(flash_bwd_(?:dkdv|dq)_kernel)ILi(\d+)ELb(\d)",
                            line)
             why = line.split("Performance Loss:")[-1].split(" in the ")[0]
             notes.append(f"{fn and '<'.join(fn.groups())}>:"
                          f"{why.strip()[:110]}")
-    return ctypes.CDLL(str(lib)), notes
+    return lib, notes
 
 
 def _split_ms(fn, calls: int = 5) -> dict:

@@ -1,6 +1,7 @@
 """What the probe modules share: the map from a TPU probe's ``block_q`` and
 ``dimension_semantics`` to the card's schedule, seeded inputs, and the
-sweep's timer.
+sweep's timer; and what the flash kernels' variant scripts share: a
+source with its substitutions applied, built on its own.
 
 - Forward: a TPU block of ``block_q`` rows held its whole score row in
   VMEM; a Hopper CTA keeps R rows of f32 scores in shared memory, 192 KB
@@ -18,10 +19,14 @@ sweep's timer.
 
 from __future__ import annotations
 
+import ctypes
 import json
+import subprocess
 
 import numpy as np
 import torch
+
+from neuspeech1_tpu_torch.ops import _build
 
 
 def fwd_rows(block_q: int) -> int:
@@ -65,3 +70,34 @@ def timeit(tag: str, fn) -> float:
     ms = cuda_ms(fn)
     print(json.dumps({"k": tag, "ms": ms}), flush=True)
     return ms
+
+
+def variant_source(source: str, name: str, substitutions) -> str:
+    """``csrc/<source>.cu`` with the headers it includes from ``csrc/``
+    written in (so that a variant may change them too and builds from the
+    build directory), and each (old, new) of ``substitutions`` applied; an
+    ``old`` must match exactly once."""
+    src = (_build.SRC_DIR / f"{source}.cu").read_text()
+    for header in _build.sources(source)[1:]:
+        src = src.replace(f'#include "{header.name}"', header.read_text())
+    for old, new in substitutions:
+        if src.count(old) != 1:
+            raise ValueError(f"variant {name}: {old!r} matches "
+                             f"{src.count(old)} times")
+        src = src.replace(old, new)
+    return src
+
+
+def build_variant(source: str, name: str, text: str):
+    """Builds ``text`` as ``<source>_<name>`` in the build directory with
+    the flags of ``_build``; returns (the library, nvcc's output)."""
+    out_dir = _build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = out_dir / f"{source}_{name}.cu"
+    src.write_text(text)
+    lib = out_dir / f"lib{source}_{name}.so"
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                           str(lib), str(src)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
+    return ctypes.CDLL(str(lib)), proc.stdout + proc.stderr

@@ -26,20 +26,66 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (shape [B, Tq, H, D], Tk, causal, kv_len, layout). The forward runs wide
+# CTAs (three warpgroups, 192 q rows) where Tq > 64 and ceil(Tq / 192) * H * B
+# fills the card's 132 SMs twice over, else narrow ones (one warpgroup, 64
+# rows); K/V tiles are 128 rows (64 at D=128). B * H = 288 puts every case
+# with Tq > 64 on the wide path.
+FWD_CASES = [
+    ((2, 300, 8, 64), 300, False, None, "bthd"),
+    ((2, 300, 8, 64), 300, False, 257, "bthd"),
+    ((2, 130, 4, 64), 130, True, None, "bthd"),
+    ((1, 100, 2, 32), 100, False, None, "bthd"),
+    ((1, 100, 2, 128), 100, True, None, "bthd"),
+    # the edges of the narrow CTAs
+    ((2, 129, 4, 64), 129, False, None, "bthd"),   # one-row q and K/V tails
+    ((4, 20, 8, 64), 1500, False, None, "bthd"),   # short queries
+    ((4, 64, 8, 64), 1500, False, 1400, "bthd"),   # the decoder's cross shape
+    ((2, 300, 4, 64), 300, True, 280, "bthd"),     # causal over three tiles
+    ((2, 300, 8, 64), 300, False, 257, "bhtd"),    # K5's transposed views
+    # the edges of the wide CTAs
+    ((18, 129, 16, 64), 129, False, None, "bthd"),  # a one-row K/V tail
+    ((18, 200, 16, 64), 200, False, None, "bthd"),  # 8 rows in the last q tile
+    ((18, 200, 16, 64), 200, False, 150, "bthd"),   # kv_len inside the tail tile
+    ((18, 192, 16, 64), 300, False, 256, "bthd"),   # kv_len on a tile boundary
+    ((18, 448, 16, 64), 448, True, None, "bthd"),   # causal over four tiles
+    ((18, 300, 16, 32), 300, False, 200, "bthd"),
+    ((18, 300, 16, 128), 300, True, None, "bthd"),
+    ((18, 300, 16, 128), 300, False, 200, "bthd"),
+    ((18, 300, 16, 64), 300, False, 257, "bhtd"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,causal,kv_len", [
-    ((2, 300, 8, 64), False, None), ((2, 300, 8, 64), False, 257),
-    ((2, 130, 4, 64), True, None), ((1, 100, 2, 32), False, None),
-    ((1, 100, 2, 128), True, None)])
-def test_kernel_matches_plain_on_card(cuda_device, shape, causal, kv_len):
+@pytest.mark.parametrize("shape,t_kv,causal,kv_len,layout", FWD_CASES)
+def test_kernel_matches_plain_on_card(cuda_device, shape, t_kv, causal,
+                                      kv_len, layout):
+    """K1 against its plain version. K/V rows at or past kv_len hold NaN in
+    the kernel's inputs (the encoder passes padded rows as they lie): the
+    kernel must never read them, so o stays finite; the plain version gets
+    the same rows as zeros, which its masks also ignore."""
     b, t, h, d = shape
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    q, k, v = (torch.randn((b, t, h * d), generator=gen, device=cuda_device)
-               .to(torch.bfloat16).view(b, t, h, d) for _ in range(3))
+
+    def rand(t_):
+        if layout == "bhtd":  # [B, H, T, D] storage seen as [B, T, H, D]
+            return (torch.randn((b, h, t_, d), generator=gen,
+                                device=cuda_device)
+                    .to(torch.bfloat16).transpose(1, 2))
+        return (torch.randn((b, t_, h * d), generator=gen, device=cuda_device)
+                .to(torch.bfloat16).view(b, t_, h, d))
+
+    q, k, v = rand(t), rand(t_kv), rand(t_kv)
+    if kv_len is not None:
+        k[:, kv_len:] = float("nan")
+        v[:, kv_len:] = float("nan")
     before = tfa.launches
     o, lse = tfa.flash_attention_bthd(q, k, v, causal, kv_len, True)
     assert tfa.launches == before + 1
-    o_p, lse_p = tfa.flash_attention_bthd_plain(q, k, v, causal, kv_len, True)
+    k0, v0 = torch.nan_to_num(k, nan=0.0), torch.nan_to_num(v, nan=0.0)
+    o_p, lse_p = tfa.flash_attention_bthd_plain(q, k0, v0, causal, kv_len,
+                                                True)
+    assert torch.isfinite(o.float()).all()
     # one or two bf16 ulps of o (|o| < 1); lse stays f32
     assert (o.float() - o_p.float()).abs().max().item() <= 1e-2
     assert (lse - lse_p).abs().max().item() <= 1e-4
@@ -212,7 +258,12 @@ def _bias_row(t, masked, device):
     (2, 256, 4, 32, 100), (2, 256, 2, 128, 0),
     # the edges of the backward's tiles, as in the K2 test above
     (2, 129, 4, 64, 0), (2, 200, 4, 64, 37), (2, 256, 4, 64, 128),
-    (2, 384, 4, 64, 36), (1, 129, 2, 128, 28), (2, 200, 4, 32, 64)])
+    (2, 384, 4, 64, 36), (1, 129, 2, 128, 28), (2, 200, 4, 32, 64),
+    # the edges of the forward's tiles, as in FWD_CASES (B * H = 288: wide
+    # CTAs where Tq > 64)
+    (18, 129, 16, 64, 0), (18, 200, 16, 64, 37), (18, 256, 16, 64, 128),
+    (18, 300, 16, 32, 100), (18, 300, 16, 128, 28), (4, 64, 8, 64, 10),
+    (4, 20, 8, 64, 3)])
 def test_bias_kernels_match_plain_on_card(cuda_device, b, t, h, d, masked):
     """K4 forward (NaN / -inf rows where the plain version has them) and
     backward against one block with the global o and lse of a two-block
@@ -271,6 +322,31 @@ def test_backward_same_bits_twice_on_card(cuda_device, entry):
                 for _ in range(2)]
     for g1, g2 in zip(*runs):
         assert torch.equal(g1.view(torch.int16), g2.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["K1", "K1_causal", "K1_cross",
+                                   "K1_narrow", "K4"])
+def test_forward_same_bits_twice_on_card(cuda_device, entry):
+    """The forward kernels use no atomics: a second call on the same inputs
+    gives the same o and lse, bit for bit (B=8: wide CTAs; B=2: narrow)."""
+    b, t, h, d = (2 if entry == "K1_narrow" else 8), 1500, 8, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    q, k, v = (torch.randn((b, t, h * d), generator=gen,
+                           device=cuda_device).to(torch.bfloat16)
+               .view(b, t, h, d) for _ in range(3))
+    if entry == "K4":
+        bias = _bias_row(t, 36, cuda_device)
+        runs = [tfa.flash_bias_fwd(q, k, v, bias) for _ in range(2)]
+    else:
+        if entry == "K1_cross":
+            q = q[:, :64]
+        causal = entry == "K1_causal"
+        runs = [tfa.flash_attention_bthd(q, k, v, causal, 1400, True)
+                for _ in range(2)]
+    (o1, lse1), (o2, lse2) = runs
+    assert torch.equal(o1.view(torch.int16), o2.view(torch.int16))
+    assert torch.equal(lse1.view(torch.int32), lse2.view(torch.int32))
 
 
 @pytest.mark.cuda

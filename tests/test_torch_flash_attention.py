@@ -37,6 +37,11 @@ CASES = {
     "cross_1500": dict(t_q=64, t_kv=1500, b=1),
     "d32": dict(t_q=100, t_kv=100, d=32),
     "d128_causal": dict(t_q=130, t_kv=130, causal=True, d=128),
+    # the edges of the CUDA forward's tiles (64 q rows per CTA, 128 K/V rows
+    # per tile): short queries over the encoder's length with kv_len, and a
+    # single query over a one-row K/V tail
+    "cross_1500_kv_len": dict(t_q=64, t_kv=1500, kv_len=1400),
+    "kv_129_q1": dict(t_q=1, t_kv=129),
 }
 
 
