@@ -20,6 +20,9 @@ each printing JSON lines:
             speculative decoding). K2 and K4's backward also run twice on
             the same inputs (the same bits) and split their time over
             their three kernels (delta, dk/dv, dq) under torch.profiler.
+            K6 and K8 run twice too (the same bits), and add their device
+            time under torch.profiler (K6's beside SDPA's) and the
+            wrapper's host time per call.
 3. slice    serves 16 synthetic [208, 6000] signals in two batches of 8
             greedily through ``neuspeech1_tpu_torch.serve.Transcriber`` with
             whisper-base weights made from a seed, counts the kernels'
@@ -511,24 +514,41 @@ def _bwd_split_ms(fn, calls: int = 5) -> dict:
     """Device ms per call of each of the backward's three kernels (delta,
     dk/dv, dq), from one torch.profiler pass over ``calls`` calls of ``fn``,
     by the compiled kernels' names."""
+    def read(events):
+        split = dict.fromkeys(("delta", "dkdv", "dq"), 0.0)
+        for e in events:
+            if e.device_type.name != "CUDA":
+                continue
+            for part in split:
+                if f"flash_bwd_{part}_kernel" in e.key:
+                    split[part] += e.self_device_time_total / 1e3 / calls
+        return split
+
+    split = _profiled(fn, calls, read, lambda sp: all(sp.values()))
+    check(all(split.values()), f"backward split: a kernel not seen: {split}")
+    return split
+
+
+def _profiled(fn, calls: int, read, seen, windows: int = 3):
+    """``read`` of torch.profiler's key averages over ``calls`` calls of
+    ``fn``, after one call outside the window. The profiler on the card now
+    and then hands back a window without its device events; a window whose
+    reading ``seen`` rejects is taken again, up to ``windows`` times, and
+    the last reading is returned either way."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    split = dict.fromkeys(("delta", "dkdv", "dq"), 0.0)
-    for e in prof.key_averages():
-        if e.device_type.name != "CUDA":
-            continue
-        for part in split:
-            if f"flash_bwd_{part}_kernel" in e.key:
-                split[part] += e.self_device_time_total / 1e3 / calls
-    check(all(split.values()), f"backward split: a kernel not seen: {split}")
-    return split
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        value = read(prof.key_averages())
+        if seen(value):
+            break
+    return value
 
 
 def _same_bits(a, b) -> bool:
@@ -537,6 +557,36 @@ def _same_bits(a, b) -> bool:
     return all(torch.equal(x.view(ints[x.element_size()]),
                            y.view(ints[y.element_size()]))
                for x, y in zip(a, b))
+
+
+def _device_ms(fn, calls: int = 10) -> float:
+    """Device ms per call of ``fn``: the time of every kernel it launches,
+    summed under torch.profiler over ``calls`` calls (``cuda_ms`` times the
+    host's loop, which a small call's launch can set)."""
+    total = _profiled(
+        fn, calls, lambda events: sum(e.self_device_time_total
+                                      for e in events
+                                      if e.device_type.name == "CUDA"),
+        lambda t: t > 0)
+    check(total > 0, "the profiler saw no device time")
+    return total / 1e3 / calls
+
+
+def _host_us(fn, calls: int = 100, repeats: int = 20) -> float:
+    """Host microseconds per call of ``fn``: the wrapper's own time, from
+    the host clock over ``calls`` calls queued without a synchronize; the
+    least of ``repeats`` such runs (the host's cores are shared, so a run
+    can only be slowed by others)."""
+    fn()
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return 1e6 * best / calls
 
 
 def _tflops(flops: float, ms: float) -> float:
@@ -832,7 +882,9 @@ def _sdpa_bias_bwd_ms(q, k, v, mask, do) -> float:
 def _check_decode_cross(gen) -> list:
     """K6 against its plain version at the greedy and beam decoder's shapes,
     through both cache layouts; timed over CACHE_COPIES caches in turn,
-    beside SDPA on the same [B, H, Tq, D] x [B, H, T, D] inputs."""
+    beside SDPA on the same [B, H, Tq, D] x [B, H, T, D] inputs: CUDA
+    events, device time under torch.profiler and the wrapper's host time;
+    and a second call on the same inputs gives the same bits."""
     import torch.nn.functional as F
 
     from neuspeech1_tpu_torch.ops import decode_cross as dc
@@ -866,8 +918,14 @@ def _check_decode_cross(gen) -> list:
         torch.cuda.synchronize()
         err = (o_k.float() - o_p.float()).abs().max().item()
         rel = _rel_err(o_k, o_p)
+        same = _same_bits((o_k,), (kernel(caches[0]),))
         cycle = itertools.cycle(caches)
         qs = q.transpose(1, 2)
+
+        def sdpa(qs=qs, bhtd=bhtd, kvl=kvl):
+            return F.scaled_dot_product_attention(
+                qs, *(x[:, :, :kvl] for x in bhtd(next(cycle))))
+
         res = {"phase": "kernels", "kernel": "K6", "case": name,
                "layout": layout, "shape": [b, t_q, t, h, d], "kv_len": kvl,
                "launches": launches, "max_abs_err": err,
@@ -876,8 +934,11 @@ def _check_decode_cross(gen) -> list:
                "ms": cuda_ms(lambda: kernel(next(cycle))),
                "plain_ms": cuda_ms(lambda: dc.decode_cross_plain(
                    q, *bhtd(next(cycle)), kv_len)),
-               "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                   qs, *(x[:, :, :kvl] for x in bhtd(next(cycle))))),
+               "library_ms": cuda_ms(sdpa),
+               "device_ms": _device_ms(lambda: kernel(next(cycle))),
+               "library_device_ms": _device_ms(sdpa),
+               "host_us": _host_us(lambda: kernel(next(cycle))),
+               "same_bits": same,
                # K and V rows up to kv_len read, q read and o written
                **bound(2 * b * h * d * (2 * kvl + 2 * t_q),
                        4 * b * h * t_q * kvl * d)}
@@ -886,6 +947,7 @@ def _check_decode_cross(gen) -> list:
         check(bool(torch.isfinite(o_k.float()).all()), f"K6 {name}: non-finite")
         check(rel <= K6_REL_TOL,
               f"K6 {name}: kernel disagrees with plain version")
+        check(same, f"K6 {name}: a second call gave other bits")
         out.append(res)
     return out
 
@@ -937,7 +999,9 @@ def _check_decode_step(gen) -> list:
 def _check_decode_step_multi(gen) -> list:
     """K8 against its plain version at the speculative serving path's
     shapes: the context within K8_TOL and the caches after the in-place
-    writes equal; timed over CACHE_COPIES caches in turn. No single PyTorch
+    writes equal, the same bits from a second call; timed over CACHE_COPIES
+    caches in turn (CUDA events, device time under torch.profiler and the
+    wrapper's host time). No single PyTorch
     call computes this function (G cache writes and a masked attention
     per query)."""
     from neuspeech1_tpu_torch.decode.spec import verify_mask
@@ -969,6 +1033,8 @@ def _check_decode_step_multi(gen) -> list:
         err = (ctx_k.float() - ctx_p.float()).abs().max().item()
         caches_equal = bool(torch.equal(caches[0][0], kp)
                             and torch.equal(caches[0][1], vp))
+        same = _same_bits((ctx_k,), (ds.decode_step_multi(
+            q, kn, vn, mask, *caches[0], idx),))
         # what this run's data needs: the K and V columns some query's mask
         # allows before the block (the kernel skips the holes), per row;
         # the block's G columns written; q, k_new, v_new and the mask read;
@@ -990,6 +1056,11 @@ def _check_decode_step_multi(gen) -> list:
                "plain_ms": cuda_ms(lambda: ds.decode_step_multi_plain(
                    q, kn, vn, mask, *next(cycle), idx)),
                "library_ms": None,
+               "device_ms": _device_ms(lambda: ds.decode_step_multi(
+                   q, kn, vn, mask, *next(cycle), idx)),
+               "host_us": _host_us(lambda: ds.decode_step_multi(
+                   q, kn, vn, mask, *next(cycle), idx)),
+               "same_bits": same,
                **bound(n_bytes, 4 * h * d * pairs)}
         emit(res)
         check(launches == 1, f"K8 {name}: {launches} launches for one call")
@@ -997,6 +1068,7 @@ def _check_decode_step_multi(gen) -> list:
         check(bool(torch.isfinite(ctx_k.float()).all()),
               f"K8 {name}: non-finite")
         check(err <= K8_TOL, f"K8 {name}: kernel disagrees with plain version")
+        check(same, f"K8 {name}: a second call gave other bits")
         out.append(res)
     return out
 
@@ -2572,6 +2644,11 @@ def summary(kernels, sl, bm, sp, tr, rg, pr) -> dict:
                 "bound_by": r[prefix + "bound_by"],
                 "library_ms": r[prefix + "library_ms"]}
 
+    def device(r):
+        """The decode kernels' device and host times and bits."""
+        return {key: r[key] for key in ("device_ms", "library_device_ms",
+                                        "host_us", "same_bits") if key in r}
+
     k1, k2 = first("K1", "train_encoder"), first("K2", "train_encoder")
     k5, k3 = first("K5", "bhtd_fwd_bwd"), first("K3", "fc1")
     k6, k6_btc = first("K6", "beam_step"), first("K6", "btc")
@@ -2646,13 +2723,15 @@ def summary(kernels, sl, bm, sp, tr, rg, pr) -> dict:
          "source": src + "decode_cross.cu", "replaces": fa_py + ":869",
          "launches": bm["launches"]["K6"],
          "greedy_launches": sl["launches"]["K6"],
-         "max_abs_err": k6["max_abs_err"], **timing(k6)},
+         "max_abs_err": k6["max_abs_err"], **timing(k6),
+         **device(k6)},
         # the [B, T, H*D] cache entry: no serving path holds that layout,
         # so its launches are those of its own run (counted from 0)
         {"name": "decode_cross_btc (K6, [B,T,H*D] cache)", "route": "cuda",
          "source": src + "decode_cross.cu", "replaces": fa_py + ":940",
          "launches": k6_btc["launches"], "path": "decode_cross_btc entry",
-         "max_abs_err": k6_btc["max_abs_err"], **timing(k6_btc)},
+         "max_abs_err": k6_btc["max_abs_err"], **timing(k6_btc),
+         **device(k6_btc)},
         {"name": "decode_step (K7)", "route": "cuda",
          "source": src + "decode_step.cu",
          "replaces": "neuspeech1_tpu/ops/decode_step.py:106",
@@ -2665,7 +2744,7 @@ def summary(kernels, sl, bm, sp, tr, rg, pr) -> dict:
          "launches": spec_launches["spec_self"],
          "table_drafter_launches": spec_launches["spec_table"],
          "int8_launches": spec_launches["spec_int8"],
-         "max_abs_err": k8["max_abs_err"], **timing(k8)},
+         "max_abs_err": k8["max_abs_err"], **timing(k8), **device(k8)},
     ] + probes}
 
 

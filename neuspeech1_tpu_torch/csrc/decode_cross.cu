@@ -15,305 +15,454 @@
 // What bounds it: the bytes of the cache. At the beam-search step (16
 // utterances, H=8, T=1500, D=64) one call reads 49.2 MB of K and V against
 // about 2 * 2 * 80 * 8 * 1500 * 64 = 0.25 GFLOP, some 5 FLOP per byte: the
-// memory system is the limit by two orders of magnitude.
+// memory system is the limit by two orders of magnitude. So the design keeps
+// enough loads in flight on every SM and keeps the issue slots free for
+// them:
 //
-// Design, simple first: the cache rows [0, kv_len) are cut into splits of
-// rows_per_split rows, one CTA of four warps per (split, head, batch), so
-// that B*H*splits CTAs keep the card's 132 SMs streaming (B*H alone is 64 for
-// greedy at B=8). A CTA stages its query rows once, then walks its rows in
-// 32-row K/V tiles through shared memory: scores on the CUDA cores (a warp
-// per query row, a lane per cache row), an online softmax in f32 per query
-// row, and the PV product with a thread per (query row group, head channel)
-// holding its sums in registers. Rows at or past kv_len are never read. With
-// one split the CTA writes o; with more it writes its f32 partial sums, row
-// max and row sum, and a second kernel combines the splits in a fixed order.
+// - A (batch, head, group of up to 32 query rows) is one thread-block
+//   cluster of `cluster` CTAs (1-8, the wrapper's plan: ops/decode_cross.py
+//   ::plan); CTA r streams the cache rows [r * rows_per_split,
+//   (r + 1) * rows_per_split) clipped at kv_len.
+// - A CTA streams its rows through R rings of 16-row K/V chunks, two deep,
+//   filled by cp.async, 16 bytes a lane (ring g takes chunks g, g + R,
+//   ...); rows at or past the range's end are zero-filled by the copy and
+//   never read. With up to 16 query rows one warp runs each of 4 rings;
+//   with more, two warps, one m16 tile of query rows each, share each of 8
+//   rings (a named barrier per ring): the cache is read once and a warp's
+//   chain of work stays one tile long. No CTA barrier runs in the loop.
+// - The products run on the tensor cores (mma.sync m16n8k16): s = q k^T
+//   from ldmatrix'd K rows, then p v with p taken from s's accumulators as
+//   bf16 and V by ldmatrix.trans. Each warp keeps an online softmax
+//   (running max and f32 row sum) over its ring's chunks.
+// - The merge: the rings' (max, sum, o) combine in shared memory; after
+//   one barrier over the cluster, CTA r reads every CTA's (max, sum, o)
+//   through distributed shared memory, one round of loads, and writes its
+//   share of o, in a fixed order (rings, then ranks): one launch, no global
+//   scratch, the same bits on every run.
 // The running max makes the rounding of exp(s - m) to bf16 relative to a
-// tile's running max instead of the row's final max (the bound is stated in
-// chip_smoke.py). wgmma, TMA and asynchronous copies are later work.
+// ring's running max instead of the row's final max (the bound is stated in
+// chip_smoke.py, K6_REL_TOL).
 //
-// C entry point: nsp_decode_cross_bf16 (below). It returns cudaGetLastError()
-// after the launches; 0 means the kernels were queued.
+// C entry point: nsp_decode_cross_bf16 (below). It returns the launch's
+// cudaError_t; 0 means the kernel was queued.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "decode_sm90.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kMaxQ = 64;    // query rows per call
-constexpr int kTile = 32;    // cache rows per shared tile: one per lane
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+constexpr int kMaxQ = 64;       // query rows per call
+constexpr int kGroupRows = 32;  // query rows per CTA: up to two m16 tiles
+constexpr int kChunk = 16;      // cache rows a ring takes a step
+constexpr int kStages = 2;      // chunks in each ring
 
 struct Strides {
   long long b, t, h;  // in elements; the head dimension is contiguous
 };
 
-__device__ __forceinline__ float lo_f(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float hi_f(uint32_t w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  }
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  }
-  return x;
+// Rings per CTA of MT m16 tiles (each run by MT warps: 16 warps, a whole
+// SM's registers, for two tiles), and CTAs per SM at 128 registers a
+// thread.
+constexpr int rings(int mt) { return mt == 1 ? 4 : 8; }
+template <int MT>
+constexpr int min_blocks() {
+  return 16 / (rings(MT) * MT);
 }
 
-// Shared memory rows are D/2 + 1 words (an odd count), so the 32 lanes of a
-// warp reading the same word of 32 different rows hit 32 different banks.
-template <int D>
-struct Smem {
-  static constexpr int kPitch = D / 2 + 1;
-  uint32_t q[kMaxQ * kPitch];
-  uint32_t k[kTile * kPitch];
-  uint32_t v[kTile * kPitch];
-  float p[kMaxQ][kTile + 1];
-  float m[kMaxQ], l[kMaxQ], alpha[kMaxQ];
+// A CTA of MT m16 tiles of query rows runs rings(MT) MT warps: warp w takes
+// tile w / rings and shares ring w % rings with the other tile's warp, so
+// the cache is read once for all the CTA's query rows while each warp holds
+// one tile's sums. The dynamic shared memory, in bytes: the rings (K and V chunks),
+// then the query tile, then the merge's row values (per ring: max, sum,
+// weight; per CTA: max, sum). After the stream the rings hold the partial
+// o, [ring][kRows][D] f32.
+template <int D, int MT>
+struct Layout {
+  static constexpr int kRings = rings(MT);
+  static constexpr int kThreads = 32 * kRings * MT;
+  static constexpr int kRowBytes = 2 * D;
+  static constexpr int kChunkBytes = kChunk * kRowBytes;  // K or V
+  static constexpr int kStageBytes = 2 * kChunkBytes;
+  static constexpr int kRingBytes = kStages * kStageBytes;
+  static constexpr int kRows = 16 * MT;
+  static constexpr int kQ = kRings * kRingBytes;
+  static constexpr int kRowVals = kQ + kRows * kRowBytes;
+  static constexpr int kBytes = kRowVals + (3 * kRings + 2) * kGroupRows * 4;
+  static_assert(kRings * kRows * D * 4 <= kQ, "partial o fits the rings");
 };
 
-// Rows [row0, row0 + n) of one head into shared memory, 16 bytes a load;
-// tile rows at or past n become zeros.
-template <int D>
-__device__ __forceinline__ void load_tile(uint32_t* dst,
-                                          const __nv_bfloat16* src,
-                                          long long row_stride, int row0,
-                                          int n) {
-  constexpr int kChunks = D / 8;
-  constexpr int kPitch = Smem<D>::kPitch;
-  for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n) {
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * row_stride +
-                                            c * 8);
+// The merge of a CTA's rings and of the cluster's CTAs: each ring's warps
+// have left their (max, sum, o) of query rows [0, nq) in shared memory (o:
+// [kRings][ROWS][D] f32 at `smem`, the row values m_w [kRings][32], l_w
+// [kRings][32], then room for sc_w [kRings][32], m_cta [32], l_cta [32]).
+// The four rings' values combine in shared memory; after one barrier over
+// the cluster, CTA `split` reads every CTA's (max, sum, o) through
+// distributed shared memory, one round of loads, and writes its share of o
+// (rows t of `o` at o + t * o_st), in a fixed order (rings, then ranks):
+// the same bits on every run. NT: the CTA's threads.
+template <int D, int ROWS, int NT, int R>
+__device__ __forceinline__ void merge_store(cg::cluster_group& cluster,
+                                            uint8_t* smem, float* m_w,
+                                            int nq, int split, int n_split,
+                                            __nv_bfloat16* o, long long o_st) {
+  constexpr int kRows = ROWS;
+  constexpr int kThreads = NT;
+  constexpr int kRings = R;
+  float* l_w = m_w + kRings * kGroupRows;
+  float* sc_w = l_w + kRings * kGroupRows;
+  float* m_cta = sc_w + kRings * kGroupRows;
+  float* l_cta = m_cta + kGroupRows;
+  __syncthreads();
+  // the CTA's rows: max and sum over its warps, each warp's weight
+  for (int r = threadIdx.x; r < nq; r += kThreads) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kRings; ++w) mx = fmaxf(mx, m_w[w * kGroupRows + r]);
+    float l = 0.f;
+#pragma unroll
+    for (int w = 0; w < kRings; ++w) {
+      const float f =
+          mx == -INFINITY ? 0.f : expf(m_w[w * kGroupRows + r] - mx);
+      sc_w[w * kGroupRows + r] = f;
+      l = fmaf(f, l_w[w * kGroupRows + r], l);
     }
-    uint32_t* row = dst + r * kPitch + c * 4;
-    row[0] = val.x;
-    row[1] = val.y;
-    row[2] = val.z;
-    row[3] = val.w;
+    m_cta[r] = mx;
+    l_cta[r] = l;
+  }
+  __syncthreads();
+  float* o_cta = reinterpret_cast<float*>(smem);  // over warp 0's rows
+  for (int e = threadIdx.x; e < nq * D; e += kThreads) {
+    const int r = e / D;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kRings; ++w) {
+      sum = fmaf(sc_w[w * kGroupRows + r], o_cta[w * kRows * D + e], sum);
+    }
+    o_cta[e] = sum;
+  }
+  // every CTA's (max, sum, o) is ready: a barrier over the cluster, or over
+  // this CTA alone
+  if (n_split > 1) {
+    cluster.sync();
+  } else {
+    __syncthreads();
+  }
+
+  // o over the cluster's CTAs in rank order; CTA `split` writes elements
+  // split * 128 + ..., two a thread at a time, all of their peers' values
+  // loaded before the sums (one round of distributed shared memory loads)
+  auto peer = [&](float* p, int c) {
+    return n_split == 1 ? p : cluster.map_shared_rank(p, c);
+  };
+  constexpr int kPerThread = 2;
+  for (int e0 = split * kThreads + threadIdx.x; e0 < nq * D;
+       e0 += kPerThread * n_split * kThreads) {
+    float m_c[kPerThread][kMaxCluster], l_c[kPerThread][kMaxCluster];
+    float o_c[kPerThread][kMaxCluster];
+#pragma unroll
+    for (int u = 0; u < kPerThread; ++u) {
+      const int e = e0 + u * n_split * kThreads;
+#pragma unroll
+      for (int c = 0; c < kMaxCluster; ++c) {
+        if (c < n_split && e < nq * D) {
+          m_c[u][c] = peer(m_cta, c)[e / D];
+          l_c[u][c] = peer(l_cta, c)[e / D];
+          o_c[u][c] = peer(o_cta, c)[e];
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kPerThread; ++u) {
+      const int e = e0 + u * n_split * kThreads;
+      if (e >= nq * D) continue;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < kMaxCluster; ++c) {
+        if (c < n_split) mx = fmaxf(mx, m_c[u][c]);
+      }
+      float num = 0.f, den = 0.f;
+#pragma unroll
+      for (int c = 0; c < kMaxCluster; ++c) {
+        if (c < n_split) {
+          const float f =
+              m_c[u][c] == -INFINITY ? 0.f : expf(m_c[u][c] - mx);
+          num = fmaf(f, o_c[u][c], num);
+          den = fmaf(f, l_c[u][c], den);
+        }
+      }
+      o[(e / D) * o_st + e % D] = __float2bfloat16_rn(num / den);
+    }
+  }
+  if (n_split > 1) {
+    cluster.sync();  // no CTA leaves while a peer reads its shared memory
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+template <int D, int MT>
+__global__ void __launch_bounds__(Layout<D, MT>::kThreads, min_blocks<MT>())
 decode_cross_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
-                    __nv_bfloat16* __restrict__ o,
-                    float* __restrict__ part_o, float* __restrict__ part_ml,
-                    int n_heads, int t_q, int kv_len, int rows_per_split,
-                    Strides qs, Strides ks, Strides vs, Strides os,
-                    float scale) {
-  __shared__ __align__(16) Smem<D> sm;
-  constexpr int kPitch = Smem<D>::kPitch;
-  // PV: thread (group, d) owns head channel d of query rows group,
-  // group + kGroups, ...
-  constexpr int kGroups = kThreads / D;
-  constexpr int kRows = kMaxQ / kGroups;
+                    __nv_bfloat16* __restrict__ o, int n_heads, int t_q,
+                    int kv_len, int rows_per_split, Strides qs, Strides ks,
+                    Strides vs, Strides os, float scale) {
+  using L = Layout<D, MT>;
+  constexpr int kRings = L::kRings;
+  constexpr int kThreads = L::kThreads;
+  constexpr int kRows = L::kRows;
+  constexpr int kRowBytes = L::kRowBytes;
+  constexpr int kDC = D / 8;  // 16-byte chunks of a row
+  extern __shared__ __align__(128) uint8_t smem[];
+  cg::cluster_group cluster = cg::this_cluster();
 
-  const int split = blockIdx.x;
-  const int n_split = gridDim.x;
-  const int head = blockIdx.y;
+  const int split = static_cast<int>(cluster.block_rank());
+  const int n_split = static_cast<int>(cluster.num_blocks());
+  const int head = blockIdx.y % n_heads;
+  const int q0 = (blockIdx.y / n_heads) * kGroupRows;
   const int batch = blockIdx.z;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int d = threadIdx.x % D;
-  const int group = threadIdx.x / D;
+  const int rg = warp % kRings;  // this warp's ring
+  const int mt = warp / kRings;  // and its m16 tile of query rows
+  const int tr = mt * 32 + lane;  // this thread among the ring's
+  const int nq = min(kRows, t_q - q0);  // >= 1 query rows of this CTA
 
-  q += batch * qs.b + head * qs.h;
+  const uint32_t smem_s = smem_addr(smem);
+  const uint32_t q_s = smem_s + L::kQ;
+  float* m_w = reinterpret_cast<float*>(smem + L::kRowVals);  // [rings][32]
+  float* l_w = m_w + kRings * kGroupRows;                     // [rings][32]
+
+  q += batch * qs.b + head * qs.h + q0 * qs.t;
   k += batch * ks.b + head * ks.h;
   v += batch * vs.b + head * vs.h;
 
-  for (int i = threadIdx.x; i < t_q * (D / 2); i += kThreads) {
-    const int r = i / (D / 2);
-    const int w = i % (D / 2);
-    sm.q[r * kPitch + w] =
-        *reinterpret_cast<const uint32_t*>(q + r * qs.t + 2 * w);
-  }
-  for (int i = threadIdx.x; i < t_q; i += kThreads) {
-    sm.m[i] = -INFINITY;
-    sm.l[i] = 0.f;
-  }
-
-  float acc[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-
   const int row_begin = split * rows_per_split;
   const int row_end = min(kv_len, row_begin + rows_per_split);
-  for (int t0 = row_begin; t0 < row_end; t0 += kTile) {
-    const int n = min(kTile, row_end - t0);  // >= 1 valid row
-    load_tile<D>(sm.k, k, ks.t, t0, n);
-    load_tile<D>(sm.v, v, vs.t, t0, n);
-    __syncthreads();
+  const int n_chunks =
+      row_end > row_begin ? (row_end - row_begin + kChunk - 1) / kChunk : 0;
+  const int my_n = n_chunks > rg ? (n_chunks - rg + kRings - 1) / kRings : 0;
+  const uint32_t ring = smem_s + rg * L::kRingBytes;
 
-    // scores: warp w takes query rows w, w + 4, ...; lane j cache row j
-    for (int i = warp; i < t_q; i += kWarps) {
-      float s = -INFINITY;
-      if (lane < n) {
-        const uint32_t* qr = sm.q + i * kPitch;
-        const uint32_t* kr = sm.k + lane * kPitch;
-        float dot = 0.f;
-#pragma unroll 8
-        for (int w = 0; w < D / 2; ++w) {
-          const uint32_t a = qr[w], b = kr[w];
-          dot = fmaf(lo_f(a), lo_f(b), dot);
-          dot = fmaf(hi_f(a), hi_f(b), dot);
-        }
-        s = dot * scale;
+  // chunk i of this ring (cache rows from row_begin + (rg + 4 i) * 16) into
+  // slot i % kStages, copied by the ring's threads; a group is committed
+  // even when empty so that the wait below counts chunks
+  auto issue = [&](int i) {
+    if (i < my_n) {
+      const int r0 = row_begin + (rg + kRings * i) * kChunk;
+      const uint32_t kd = ring + (i % kStages) * L::kStageBytes;
+      const uint32_t vd = kd + L::kChunkBytes;
+#pragma unroll
+      for (int e = tr; e < kChunk * kDC; e += 32 * MT) {
+        const int r = e / kDC;
+        const int c = e % kDC;
+        const bool in = r0 + r < row_end;
+        const long long t = in ? r0 + r : row_begin;
+        const int off = swz<kRowBytes>(r, c);
+        cp_async<16>(kd + off, k + t * ks.t + c * 8, in ? 16 : 0);
+        cp_async<16>(vd + off, v + t * vs.t + c * 8, in ? 16 : 0);
       }
-      const float m_old = sm.m[i];
-      const float m_new = fmaxf(m_old, warp_max(s));  // finite: lane 0 < n
-      const float p = expf(s - m_new);                // masked lanes: 0
-      const float sum = warp_sum(p);
-      sm.p[i][lane] = bf16_round(p);
+    }
+    cp_async_commit();
+  };
+  // the ring's warps agree that a slot has landed, or is free again
+  auto ring_sync = [&] {
+    if constexpr (MT == 1) {
       __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);  // 0 on the first tile
-        sm.alpha[i] = alpha;
-        sm.l[i] = sm.l[i] * alpha + sum;
-        sm.m[i] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + bf16(p) v over the tile's rows
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int i = group + r * kGroups;
-      if (i < t_q) {
-        float sum = acc[r] * sm.alpha[i];
-        for (int j = 0; j < n; ++j) {
-          const uint32_t w = sm.v[j * kPitch + d / 2];
-          sum = fmaf(sm.p[i][j], (d & 1) ? hi_f(w) : lo_f(w), sum);
-        }
-        acc[r] = sum;
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int i = group + r * kGroups;
-    if (i >= t_q) continue;
-    if (n_split == 1) {
-      o[batch * os.b + i * os.t + head * os.h + d] =
-          __float2bfloat16_rn(acc[r] / sm.l[i]);
     } else {
-      const long long row =
-          ((static_cast<long long>(batch) * n_heads + head) * n_split + split) *
-              t_q + i;
-      part_o[row * D + d] = acc[r];
-      if (d == 0) {
-        part_ml[2 * row] = sm.m[i];
-        part_ml[2 * row + 1] = sm.l[i];
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + rg), "r"(32 * MT)
+                   : "memory");
+    }
+  };
+
+  // the query rows by 4-byte copies (q rows are 4-byte aligned), zeros past
+  // nq, in a group of their own ahead of the first chunks, so that their
+  // latency runs under the chunks'
+  for (int i = threadIdx.x; i < kRows * (D / 2); i += kThreads) {
+    const int r = i / (D / 2);
+    const int w = i % (D / 2);
+    cp_async<4>(q_s + swz<kRowBytes>(r, w >> 2) + (w & 3) * 4,
+                q + (r < nq ? r : 0) * qs.t + 2 * w, r < nq ? 4 : 0);
+  }
+  cp_async_commit();
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) issue(i);
+  cp_async_wait<kStages - 1>();  // the query group
+  __syncthreads();
+
+  float acc[D / 8][4] = {};
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+  for (int i = 0; i < my_n; ++i) {
+    issue(i + kStages - 1);
+    cp_async_wait<kStages - 1>();
+    ring_sync();
+    const uint32_t kt = ring + (i % kStages) * L::kStageBytes;
+    const uint32_t vt = kt + L::kChunkBytes;
+    const int r0 = row_begin + (rg + kRings * i) * kChunk;
+
+    // s = q k^T: [this warp's 16 query rows] x [16 cache rows], two n8
+    // blocks
+    float s[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t b[4], a[4];
+      ldsm_x4(b, kt + swz<kRowBytes>((lane & 7) + ((lane >> 4) << 3),
+                                     2 * kk + ((lane >> 3) & 1)));
+      ldsm_x4(a, q_s + swz<kRowBytes>(mt * 16 + (lane & 15),
+                                      2 * kk + (lane >> 4)));
+      mma16816(s[0], a, b[0], b[1]);
+      mma16816(s[1], a, b[2], b[3]);
+    }
+
+    // online softmax per query row (h: rows lane/4 and lane/4 + 8 of the
+    // m16 tile); this thread's cache rows are c0 + {0, 1, 8, 9}
+    const int c0 = r0 + (lane & 3) * 2;
+    uint32_t pa[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float x[4];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = c0 + (e >> 1) * 8 + (e & 1);
+        x[e] = col < row_end ? s[e >> 1][2 * h + (e & 1)] * scale : -INFINITY;
+        mx = fmaxf(mx, x[e]);
       }
+      const float m_old = m_run[h];
+      const float m_new = fmaxf(m_old, quad_max(mx));
+      // a chunk wholly past the range, before any valid row: nothing
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = expf(m_old - m_use);  // 0 on the first rows
+      float sum = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        x[e] = expf(x[e] - m_use);  // masked rows: 0
+        sum += x[e];
+      }
+      m_run[h] = m_new;
+      l_run[h] = l_run[h] * alpha + sum;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[n][2 * h] *= alpha;
+        acc[n][2 * h + 1] *= alpha;
+      }
+      // the A operand of p v: rows h, cache rows (e >> 1) * 8
+      pa[h] = pack_bf16(x[0], x[1]);
+      pa[2 + h] = pack_bf16(x[2], x[3]);
+    }
+
+    // o += bf16(p) v: V rows by ldmatrix.trans, two n8 blocks of D a load
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) {
+      uint32_t b[4];
+      ldsm_x4_t(b, vt + swz<kRowBytes>((lane & 7) + (((lane >> 3) & 1) << 3),
+                                       2 * j + (lane >> 4)));
+      mma16816(acc[2 * j], pa, b[0], b[1]);
+      mma16816(acc[2 * j + 1], pa, b[2], b[3]);
+    }
+    ring_sync();  // the slot is refilled by the next issue
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with its ring
+
+  // each warp's (max, sum, o) of its tile's rows into its ring's slot of
+  // the merge's values, o over the rings
+  float* o_w = reinterpret_cast<float*>(smem) + rg * kRows * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = mt * 16 + (lane >> 2) + 8 * h;
+    const float l = quad_sum(l_run[h]);
+    if (r >= nq) continue;  // a padding row
+    if ((lane & 3) == 0) {
+      m_w[rg * kGroupRows + r] = m_run[h];
+      l_w[rg * kGroupRows + r] = l;
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int d = n * 8 + (lane & 3) * 2;
+      *reinterpret_cast<float2*>(o_w + r * D + d) =
+          make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
     }
   }
+  merge_store<D, kRows, kThreads, kRings>(
+      cluster, smem, m_w, nq, split, n_split,
+      o + batch * os.b + q0 * os.t + head * os.h, os.t);
 }
 
-// o = sum_s exp(m_s - M) acc_s / sum_s exp(m_s - M) l_s over the splits s,
-// M = max_s m_s, in the splits' order.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-decode_cross_combine(const float* __restrict__ part_o,
-                     const float* __restrict__ part_ml,
-                     __nv_bfloat16* __restrict__ o, int n_heads, int t_q,
-                     int n_split, Strides os) {
-  const int head = blockIdx.x;
-  const int batch = blockIdx.y;
-  const long long base =
-      (static_cast<long long>(batch) * n_heads + head) * n_split;
-  for (int e = threadIdx.x; e < t_q * D; e += kThreads) {
-    const int i = e / D;
-    const int d = e % D;
-    float mx = -INFINITY;
-    for (int s = 0; s < n_split; ++s) {
-      mx = fmaxf(mx, part_ml[2 * ((base + s) * t_q + i)]);
-    }
-    float num = 0.f, den = 0.f;
-    for (int s = 0; s < n_split; ++s) {
-      const long long row = (base + s) * t_q + i;
-      const float w = expf(part_ml[2 * row] - mx);
-      num = fmaf(w, part_o[row * D + d], num);
-      den = fmaf(w, part_ml[2 * row + 1], den);
-    }
-    o[batch * os.b + i * os.t + head * os.h + d] = __float2bfloat16_rn(num / den);
-  }
-}
-
-template <int D>
-void launch(const void* q, const void* k, const void* v, void* o, void* part_o,
-            void* part_ml, int batch, int n_heads, int t_q, int kv_len,
-            int n_split, int rows_per_split, Strides qs, Strides ks,
-            Strides vs, Strides os, float scale, cudaStream_t stream) {
-  const dim3 grid(n_split, n_heads, batch);
-  decode_cross_kernel<D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+template <int D, int MT>
+int launch(const void* q, const void* k, const void* v, void* o, int batch,
+           int n_heads, int t_q, int kv_len, int cluster, int rows_per_split,
+           Strides qs, Strides ks, Strides vs, Strides os, float scale,
+           cudaStream_t stream) {
+  static int raised[kMaxDevices] = {};
+  const int q_groups = (t_q + kGroupRows - 1) / kGroupRows;
+  return launch_clusters(
+      decode_cross_kernel<D, MT>, raised,
+      dim3(cluster, n_heads * q_groups, batch), Layout<D, MT>::kThreads,
+      cluster, Layout<D, MT>::kBytes, stream, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(part_o), static_cast<float*>(part_ml), n_heads, t_q,
-      kv_len, rows_per_split, qs, ks, vs, os, scale);
-  if (n_split > 1) {
-    decode_cross_combine<D><<<dim3(n_heads, batch), kThreads, 0, stream>>>(
-        static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
-        static_cast<__nv_bfloat16*>(o), n_heads, t_q, n_split, os);
+      n_heads, t_q, kv_len, rows_per_split, qs, ks, vs, os, scale);
+}
+
+template <int D>
+int launch_d(const void* q, const void* k, const void* v, void* o, int batch,
+             int n_heads, int t_q, int kv_len, int cluster,
+             int rows_per_split, Strides qs, Strides ks, Strides vs,
+             Strides os, float scale, cudaStream_t stream) {
+  if (t_q <= 16) {
+    return launch<D, 1>(q, k, v, o, batch, n_heads, t_q, kv_len, cluster,
+                        rows_per_split, qs, ks, vs, os, scale, stream);
   }
+  return launch<D, 2>(q, k, v, o, batch, n_heads, t_q, kv_len, cluster,
+                      rows_per_split, qs, ks, vs, os, scale, stream);
 }
 
 }  // namespace
 
 // q: [B, Tq, H, D]; k, v: rows t of head h of batch b at b*sb + t*st + h*sh
 // ([B, H, T, D] or [B, T, H*D]); o: [B, Tq, H, D]; all bf16 with the head
-// dimension contiguous and every row 16-byte aligned (q's 4-byte). part_o:
-// [B, H, n_split, Tq, D] f32 and part_ml: [B, H, n_split, Tq, 2] f32 scratch,
-// read only when n_split > 1. Strides are in elements. The caller checks
-// shapes, 1 <= Tq <= 64, 1 <= kv_len <= T and
-// n_split = ceil(kv_len / rows_per_split) with rows_per_split > 0.
+// dimension contiguous and every row 16-byte aligned (q's 4-byte). Strides
+// are in elements. `cluster` CTAs (1-8) split each (batch, head, group of
+// 32 query rows), CTA r taking rows [r * rows_per_split,
+// (r + 1) * rows_per_split) below kv_len (ops/decode_cross.py::plan). The
+// caller checks shapes; this entry refuses Tq outside [1, 64], a head dim
+// other than 32, 64 or 128, kv_len < 1, a cluster that is not a power of two
+// up to 8 and a plan that leaves rows out.
 extern "C" int nsp_decode_cross_bf16(
-    const void* q, const void* k, const void* v, void* o, void* part_o,
-    void* part_ml, int batch, int n_heads, int t_q, int kv_len, int head_dim,
-    int n_split, int rows_per_split, long long q_sb, long long q_st,
-    long long q_sh, long long k_sb, long long k_st, long long k_sh,
-    long long v_sb, long long v_st, long long v_sh, long long o_sb,
-    long long o_st, long long o_sh, float scale, void* stream) {
-  if (t_q < 1 || t_q > kMaxQ) return static_cast<int>(cudaErrorInvalidValue);
+    const void* q, const void* k, const void* v, void* o, int batch,
+    int n_heads, int t_q, int kv_len, int head_dim, int cluster,
+    int rows_per_split, long long q_sb, long long q_st, long long q_sh,
+    long long k_sb, long long k_st, long long k_sh, long long v_sb,
+    long long v_st, long long v_sh, long long o_sb, long long o_st,
+    long long o_sh, float scale, void* stream) {
+  if (t_q < 1 || t_q > kMaxQ || kv_len < 1 || cluster < 1 ||
+      cluster > kMaxCluster || (cluster & (cluster - 1)) != 0 ||
+      rows_per_split < 1 ||
+      static_cast<long long>(cluster) * rows_per_split < kv_len) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Strides qs{q_sb, q_st, q_sh}, ks{k_sb, k_st, k_sh};
   const Strides vs{v_sb, v_st, v_sh}, os{o_sb, o_st, o_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 32:
-      launch<32>(q, k, v, o, part_o, part_ml, batch, n_heads, t_q, kv_len,
-                 n_split, rows_per_split, qs, ks, vs, os, scale, st);
-      break;
+      return launch_d<32>(q, k, v, o, batch, n_heads, t_q, kv_len, cluster,
+                          rows_per_split, qs, ks, vs, os, scale, st);
     case 64:
-      launch<64>(q, k, v, o, part_o, part_ml, batch, n_heads, t_q, kv_len,
-                 n_split, rows_per_split, qs, ks, vs, os, scale, st);
-      break;
+      return launch_d<64>(q, k, v, o, batch, n_heads, t_q, kv_len, cluster,
+                          rows_per_split, qs, ks, vs, os, scale, st);
     case 128:
-      launch<128>(q, k, v, o, part_o, part_ml, batch, n_heads, t_q, kv_len,
-                  n_split, rows_per_split, qs, ks, vs, os, scale, st);
-      break;
+      return launch_d<128>(q, k, v, o, batch, n_heads, t_q, kv_len, cluster,
+                           rows_per_split, qs, ks, vs, os, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

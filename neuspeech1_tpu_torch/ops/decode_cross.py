@@ -20,6 +20,7 @@ port does not.)
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -28,9 +29,18 @@ from neuspeech1_tpu_torch.ops import _build
 
 HEAD_DIMS = (32, 64, 128)
 MAX_TQ = 64
-# Cache rows per CTA: at T=1500 six splits, so B*H*6 CTAs (384 for greedy at
-# B=8, 768 for beam at B=16) stream the cache across the card's 132 SMs.
-ROWS_PER_SPLIT = 256
+# The kernel's plan (csrc/decode_cross.cu): a CTA takes up to GROUP_ROWS
+# query rows and a range of cache rows, a multiple of CHUNK_ROWS; the CTAs
+# of one (batch, head, query group) form a cluster of at most MAX_CLUSTER,
+# enough of them that a call runs at least MIN_CTAS CTAs (one per SM of the
+# H100's 132), counting a CTA of two m16 tiles of query rows (16 warps, all
+# of an SM's registers) as two, where the cache is long enough. (Two per SM
+# measured slower at every small case: longer ranges per CTA and smaller
+# clusters cost less than the merge of more splits.)
+GROUP_ROWS = 32
+CHUNK_ROWS = 16
+MAX_CLUSTER = 8
+MIN_CTAS = 132
 
 # Kernel launches since the count was last set to 0 (read by chip_smoke.py
 # to show that a path went through the kernel): one per chunk of at most
@@ -48,11 +58,30 @@ def _library() -> ctypes.CDLL:
         lib = _build.load(_NAME[0])
         fn = getattr(lib, _NAME[1])
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([ptr] * 6 + [i32] * 7 + [i64] * 12
+        fn.argtypes = ([ptr] * 4 + [i32] * 7 + [i64] * 12
                        + [ctypes.c_float, ptr])
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=256)
+def plan(batch: int, heads: int, t_q: int, kv_len: int):
+    """(cluster, rows_per_split, query groups) of one launch: each
+    (batch, head, group of GROUP_ROWS query rows) is a cluster of
+    ``cluster`` CTAs, CTA r taking the cache rows [r * rows_per_split,
+    (r + 1) * rows_per_split) below kv_len. The cluster doubles, up to
+    MAX_CLUSTER, until the call has MIN_CTAS CTAs (a CTA of more than 16
+    query rows counting twice) or a CTA's range would fall to one chunk of
+    CHUNK_ROWS rows."""
+    groups = -(-t_q // GROUP_ROWS)
+    weight = 1 if t_q <= 16 else 2  # SMs a CTA fills
+    cluster = 1
+    while (cluster < MAX_CLUSTER and batch * heads * groups * cluster
+           * weight < MIN_CTAS and 2 * cluster * CHUNK_ROWS < kv_len):
+        cluster *= 2
+    rows = CHUNK_ROWS * -(-kv_len // (cluster * CHUNK_ROWS))
+    return cluster, rows, groups
 
 
 def _check(q, k, v, kv_len: Optional[int]) -> int:
@@ -109,17 +138,12 @@ def _decode_cross_cuda(q, k, v, kv_len: int):
     for name, x in (("k", k), ("v", v)):
         _check_cuda_operand(name, x, q.device, 16)
     fn = getattr(_library(), _NAME[1])
-    n_split = -(-kv_len // ROWS_PER_SPLIT)
+    cluster, rows, _ = plan(b, h, t_q, kv_len)
     o = torch.empty((b, t_q, h, d), dtype=q.dtype, device=q.device)
-    part_o = torch.empty((b, h, n_split, t_q, d) if n_split > 1 else (1,),
-                         dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b, h, n_split, t_q, 2) if n_split > 1 else (1,),
-                          dtype=torch.float32, device=q.device)
     # the C entry launches on the current device: make it q's
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 part_o.data_ptr(), part_ml.data_ptr(), b, h, t_q, kv_len, d,
-                 n_split, ROWS_PER_SPLIT, *q.stride()[:3],
+                 b, h, t_q, kv_len, d, cluster, rows, *q.stride()[:3],
                  k.stride(0), k.stride(2), k.stride(1),
                  v.stride(0), v.stride(2), v.stride(1),
                  *o.stride()[:3], d ** -0.5,

@@ -28,6 +28,7 @@ updated copies through aliased outputs).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -36,10 +37,21 @@ from neuspeech1_tpu_torch.ops import _build
 
 MAX_HEAD_DIM = 128
 MAX_T = 448  # max_target_positions
-# K8: queries per launch, and the dynamic shared memory a block may use
-# (the H100's 227 KB); the speculative cache's Tmax is not bounded by 448
+# K8: queries per launch, its head dims, and the dynamic shared memory a
+# block may use (the H100's 227 KB). Each (row, head) is a cluster of at
+# most MAX_CLUSTER CTAs, each holding the scores of its range of columns (a
+# multiple of MULTI_TILE), so the speculative cache's Tmax is bounded by
+# MAX_CLUSTER ranges in shared memory, not by 448. The plan takes enough
+# CTAs that a call runs at least MIN_CTAS, one per SM of the H100's 132
+# (two per SM measured slower: each CTA's fixed chain of latencies, not
+# the bytes, sets a verify step's time).
 MAX_G = 16
+MULTI_HEAD_DIMS = (32, 64, 128)
 MAX_SMEM_BYTES = 232448
+MULTI_TILE = 32
+MULTI_STAGES = 4
+MAX_CLUSTER = 8
+MIN_CTAS = 132
 NEG_INF = -1e30  # a masked lane's score, as in the TPU kernel
 
 # Kernel launches since the count was last set to 0 (read by chip_smoke.py
@@ -158,7 +170,7 @@ def _multi_library() -> ctypes.CDLL:
         lib = _build.load(_MULTI_NAME[0])
         fn = getattr(lib, _MULTI_NAME[1])
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([ptr] * 7 + [i32] * 6 + [i64] * 14
+        fn.argtypes = ([ptr] * 7 + [i32] * 8 + [i64] * 14
                        + [ctypes.c_float, ptr])
         fn.restype = ctypes.c_int
         _multi_lib = lib
@@ -208,10 +220,39 @@ def decode_step_multi_plain(q, k_new, v_new, mask, k_t, v_t,
     return ctx.to(q.dtype)
 
 
-def multi_smem_bytes(g: int, head_dim: int, t_max: int) -> int:
-    """K8's dynamic shared memory per block (``csrc/decode_step_multi.cu``):
-    q and the new K/V columns, a G x Tmax score row, the reduction slots."""
-    return 4 * (g * (3 * head_dim + t_max) + 4 * MAX_G)
+def multi_smem_bytes(g: int, head_dim: int, cols: int) -> int:
+    """K8's dynamic shared memory per CTA (``csrc/decode_step_multi.cu::
+    smem_bytes``, in its layout's order): the ring of [Dh, 32] tiles, q
+    padded to 16 rows, the new K/V columns, the G x cols f32 scores, p
+    [16, cols + 8] bf16, the mask's bit words and tile list, the row
+    values."""
+    return (MULTI_STAGES * head_dim * 64 + 32 * head_dim + 4 * g * head_dim
+            + 4 * g * cols + 32 * cols + 256
+            + 4 * (g + 2) * (cols // MULTI_TILE) + 528)
+
+
+@functools.lru_cache(maxsize=256)
+def multi_plan(rows: int, heads: int, g: int, head_dim: int, t_max: int):
+    """(cluster, cols) of one K8 launch: each (row, head) is a cluster of
+    ``cluster`` CTAs, CTA r taking the columns [r * cols, (r + 1) * cols)
+    below Tmax, cols a multiple of MULTI_TILE. The cluster doubles, up to
+    MAX_CLUSTER, while the call has fewer than MIN_CTAS CTAs or a range's
+    scores overflow shared memory, and a range would keep more than one
+    tile. Raises ValueError where MAX_CLUSTER ranges still overflow it."""
+    cluster = 1
+    while True:
+        cols = MULTI_TILE * -(-t_max // (cluster * MULTI_TILE))
+        fits = multi_smem_bytes(g, head_dim, cols) <= MAX_SMEM_BYTES
+        if (fits and rows * heads * cluster >= MIN_CTAS) \
+                or cluster == MAX_CLUSTER or cols <= MULTI_TILE:
+            break
+        cluster *= 2
+    if not fits:
+        raise ValueError(
+            f"decode_step_multi kernel: G {g} x Tmax {t_max} scores over "
+            f"{cluster} CTAs need {multi_smem_bytes(g, head_dim, cols)} "
+            f"bytes of shared memory each, more than {MAX_SMEM_BYTES}")
+    return cluster, cols
 
 
 def _decode_step_multi_cuda(q, k_new, v_new, mask, k_t, v_t,
@@ -219,14 +260,11 @@ def _decode_step_multi_cuda(q, k_new, v_new, mask, k_t, v_t,
     global multi_launches
     b, g, h, dh = q.shape
     t_max = k_t.shape[3]
-    if g > MAX_G or dh > MAX_HEAD_DIM:
+    if g > MAX_G or dh not in MULTI_HEAD_DIMS:
         raise ValueError(f"decode_step_multi kernel takes G <= {MAX_G} "
-                         f"queries and Dh <= {MAX_HEAD_DIM}; got G {g}, "
-                         f"Dh {dh}")
-    if multi_smem_bytes(g, dh, t_max) > MAX_SMEM_BYTES:
-        raise ValueError(f"decode_step_multi kernel: G {g} x Tmax {t_max} "
-                         f"scores need {multi_smem_bytes(g, dh, t_max)} bytes "
-                         f"of shared memory, more than {MAX_SMEM_BYTES}")
+                         f"queries and Dh <= {MAX_HEAD_DIM} in "
+                         f"{MULTI_HEAD_DIMS}; got G {g}, Dh {dh}")
+    cluster, cols = multi_plan(b, h, g, dh, t_max)
     for name, x in (("q", q), ("k_new", k_new), ("v_new", v_new),
                     ("k_t", k_t), ("v_t", v_t)):
         if x.dtype != torch.bfloat16:
@@ -242,6 +280,8 @@ def _decode_step_multi_cuda(q, k_new, v_new, mask, k_t, v_t,
     if not (k_t.is_contiguous() and v_t.is_contiguous()):
         raise ValueError("the caches must be contiguous: they are updated "
                          "in place")
+    if k_t.data_ptr() % 16 or v_t.data_ptr() % 16:
+        raise ValueError("the caches must start 16-byte aligned")
     m = mask[:, 0]  # [B or 1, G, Tmax]; a broadcast row has stride 0
     if m.stride(2) != 1:
         raise ValueError("mask must be contiguous along Tmax")
@@ -251,7 +291,7 @@ def _decode_step_multi_cuda(q, k_new, v_new, mask, k_t, v_t,
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
                  m.data_ptr(), k_t.data_ptr(), v_t.data_ptr(), ctx.data_ptr(),
-                 b, g, h, dh, t_max, cache_index,
+                 b, g, h, dh, t_max, cache_index, cluster, cols,
                  *q.stride()[:3], *k_new.stride()[:3], *v_new.stride()[:3],
                  *ctx.stride()[:3], m_sb, m.stride(1), dh ** -0.5,
                  torch.cuda.current_stream(q.device).cuda_stream)
@@ -269,8 +309,10 @@ def decode_step_multi(q, k_new, v_new, mask, k_t, v_t, cache_index: int):
     holes); k_t, v_t [B, H, Dh, Tmax], updated in place at columns
     ``cache_index .. cache_index + G - 1``; returns the context
     [B, G, H, Dh]. CPU tensors run the plain version; CUDA tensors launch
-    the kernel (bfloat16, G <= 16, Dh <= 128, G x Tmax scores within the
-    block's shared memory) or raise."""
+    the kernel (bfloat16, G <= 16, Dh 32, 64 or 128, the G x Tmax scores
+    within the shared memory of MAX_CLUSTER CTAs; ``multi_plan``) or raise.
+    A query whose mask allows no column gets a context of 0 from the
+    kernel (the plain version averages every column)."""
     _check_multi(q, k_new, v_new, mask, k_t, v_t, cache_index)
     if q.device.type == "cpu":
         return decode_step_multi_plain(q, k_new, v_new, mask, k_t, v_t,

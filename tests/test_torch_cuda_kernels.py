@@ -160,29 +160,60 @@ def test_lora_bwd_kernel_matches_plain_on_card(cuda_device, n, din, dout, r):
         assert g.shape == p.shape and _rel_err(g, p) <= 5e-3
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,t_q,t,kv_len,d", [
+# (B, Tq, T, kv_len, D) at H = 8. The kernel splits each (batch, head) over
+# a cluster of CTAs (ops/decode_cross.py::plan), each streaming 16-row
+# chunks: at B=2, kv_len 191 / 192 / 193 give splits of 32 rows with the
+# last rows one below, at and one past a split's end (and empty CTAs), and
+# 1535 / 1536 / 1537 ranges of 192 and 208 rows ending one below, at and
+# one past a chunk's end; Tq > 16 takes two m16 tiles, Tq > 32 two query
+# groups, Tq > 64 two launches; B=64 runs one CTA per (batch, head).
+DECODE_CROSS_CASES = [
     (8, 1, 1500, None, 64), (16, 5, 1500, None, 64), (16, 20, 1500, 1400, 64),
-    (2, 64, 300, 257, 32), (3, 3, 100, None, 128), (2, 85, 300, 257, 64)])
+    (2, 64, 300, 257, 32), (3, 3, 100, None, 128), (2, 85, 300, 257, 64),
+    (2, 1, 300, 191, 64), (2, 4, 300, 192, 64), (2, 5, 300, 193, 64),
+    (2, 16, 1600, 1535, 64), (2, 20, 1600, 1536, 32),
+    (2, 63, 1600, 1537, 128), (2, 64, 300, 193, 128), (2, 65, 300, 191, 32),
+    (4, 17, 1500, None, 64), (2, 33, 1500, 1400, 64),
+    (64, 4, 1500, 1499, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t_q,t,kv_len,d", DECODE_CROSS_CASES)
 def test_decode_cross_kernel_matches_plain_on_card(cuda_device, b, t_q, t,
                                                    kv_len, d):
+    """K6 against its plain version. The K/V rows at or past kv_len hold
+    NaN in the kernel's inputs (the copy zero-fills them, never reads them),
+    zeros in the plain version's."""
     h = 8
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     q = (torch.randn((b, t_q, h * d), generator=gen, device=cuda_device)
          .to(torch.bfloat16).view(b, t_q, h, d))
     k, v = (torch.randn((b, h, t, d), generator=gen, device=cuda_device)
             .to(torch.bfloat16) for _ in range(2))
+    if kv_len is not None:
+        kz, vz = (x.clone() for x in (k, v))
+        for x in (kz, vz):
+            x[:, :, kv_len:] = 0
+        for x in (k, v):
+            x[:, :, kv_len:] = float("nan")
+    else:
+        kz, vz = k, v
     before = tdc.launches
     o = tdc.decode_cross(q, k, v, kv_len)
     # one launch per chunk of at most MAX_TQ query rows
     assert tdc.launches == before + -(-t_q // tdc.MAX_TQ)
-    o_p = tdc.decode_cross_plain(q, k, v, kv_len)
+    assert bool(torch.isfinite(o.float()).all())
+    o_p = tdc.decode_cross_plain(q, kz, vz, kv_len)
     # two bf16 ulps of the largest |o| (chip_smoke.py K6_REL_TOL)
     assert _rel_err(o, o_p) <= 2.0 ** -6
-    # the [B, T, H*D] entry reads the same cache through other strides
+    # the [B, T, H*D] entry reads the same cache through other strides: the
+    # same bits as the [B, H, T, D] entry on the same one query row (a wider
+    # call spreads its rows over other warps and CTAs, so its row 0 sums in
+    # another order)
     kb, vb = (x.transpose(1, 2).reshape(b, t, h * d) for x in (k, v))
     o_btc = tdc.decode_cross_btc(q[:, :1], kb, vb, kv_len)
-    torch.testing.assert_close(o_btc, o[:, :1], rtol=0, atol=0)
+    torch.testing.assert_close(o_btc, tdc.decode_cross(q[:, :1], k, v, kv_len),
+                               rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -209,39 +240,99 @@ def test_decode_step_kernel_matches_plain_on_card(cuda_device, rows, t_max,
     assert (ctx.float() - ctx_p.float()).abs().max().item() <= 2e-2
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows,g,t_max,idx,dh,broadcast", [
+# (rows, G, Tmax, idx, Dh, broadcast) at H = 8. At 16 rows the kernel splits
+# each (row, head) over 4 CTAs of 160 columns (ops/decode_step.py::
+# multi_plan): idx 158, 312 and 478 put the G new columns across a range's
+# end, 159 just before it. Tmax 3247 was the cap of the one-CTA design;
+# 3248 and 8000 lie past it. Tmax % 8 picks the copy width: 16 bytes at
+# 512 and 3248, 8 at 516, 4 at 518 and 50, 2-byte loads at 517.
+DECODE_STEP_MULTI_CASES = [
     (16, 4, 516, 8, 64, False), (16, 4, 516, 508, 64, False),
     (16, 4, 516, 0, 64, True), (3, 8, 3556, 1000, 64, False),
     (2, 16, 300, 40, 128, False), (5, 2, 20, 7, 32, True),
-    (4, 1, 50, 49, 64, False)])
-def test_decode_step_multi_kernel_matches_plain_on_card(
-        cuda_device, rows, g, t_max, idx, dh, broadcast):
+    (4, 1, 50, 49, 64, False),
+    (16, 4, 516, 158, 64, False), (16, 1, 516, 159, 64, False),
+    (16, 5, 516, 478, 64, False), (16, 16, 516, 312, 64, False),
+    (16, 4, 512, 200, 64, False), (3, 4, 517, 300, 64, False),
+    (3, 4, 518, 300, 32, True), (2, 16, 3247, 3000, 64, False),
+    (2, 16, 3248, 3231, 64, False), (1, 16, 8000, 7000, 128, False)]
+
+
+def _multi_inputs(gen, device, rows, g, t_max, idx, dh, broadcast):
+    """q, k_new, v_new, the mask (accepted columns before idx with holes, or
+    the prefill's contiguous rule broadcast over rows, and the block's own
+    columns up to query i), and the caches with NaN in every column that no
+    query's mask allows."""
     h = 8
-    gen = torch.Generator(device=cuda_device).manual_seed(5)
-    q, kn, vn = (torch.randn((rows, g, h * dh), generator=gen,
-                             device=cuda_device).to(torch.bfloat16)
-                 .view(rows, g, h, dh) for _ in range(3))
+    q, kn, vn = (torch.randn((rows, g, h * dh), generator=gen, device=device)
+                 .to(torch.bfloat16).view(rows, g, h, dh) for _ in range(3))
     k_t, v_t = (torch.randn((rows, h, dh, t_max), generator=gen,
-                            device=cuda_device).to(torch.bfloat16)
+                            device=device).to(torch.bfloat16)
                 for _ in range(2))
-    # accepted columns before idx with holes (or the prefill's contiguous
-    # rule, broadcast over rows), and the block's own columns up to query i
     n = 1 if broadcast else rows
-    valid = torch.rand((n, t_max), generator=gen, device=cuda_device) < (
+    valid = torch.rand((n, t_max), generator=gen, device=device) < (
         1.0 if broadcast else 0.7)
     valid[:, idx:] = False
-    off = torch.arange(t_max, device=cuda_device) - idx
-    inblock = (off >= 0) & (off <= torch.arange(g, device=cuda_device)[:, None])
+    off = torch.arange(t_max, device=device) - idx
+    inblock = (off >= 0) & (off <= torch.arange(g, device=device)[:, None])
     mask = valid[:, None, None, :] | inblock[None, None]
+    unused = ~mask[:, 0].any(dim=1).expand(rows, t_max)  # [rows, Tmax]
+    for x in (k_t, v_t):
+        x.masked_fill_(unused[:, None, None, :], float("nan"))
+    return q, kn, vn, mask, k_t, v_t, unused
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,g,t_max,idx,dh,broadcast",
+                         DECODE_STEP_MULTI_CASES)
+def test_decode_step_multi_kernel_matches_plain_on_card(
+        cuda_device, rows, g, t_max, idx, dh, broadcast):
+    """K8 against its plain version. The columns no query allows (holes,
+    and every column past idx + G) hold NaN in the kernel's caches: the
+    context must stay finite, and the caches after the in-place write equal
+    the plain write on the same caches bit for bit. The plain context comes
+    from the caches with those columns zeroed."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q, kn, vn, mask, k_t, v_t, unused = _multi_inputs(
+        gen, cuda_device, rows, g, t_max, idx, dh, broadcast)
     kp, vp = k_t.clone(), v_t.clone()
+    kz, vz = (x.masked_fill(unused[:, None, None, :], 0) for x in (k_t, v_t))
     before = tds.multi_launches
     ctx = tds.decode_step_multi(q, kn, vn, mask, k_t, v_t, idx)
     assert tds.multi_launches == before + 1
-    ctx_p = tds.decode_step_multi_plain(q, kn, vn, mask, kp, vp, idx)
-    assert torch.equal(k_t, kp) and torch.equal(v_t, vp)
+    tds.decode_step_multi_plain(q, kn, vn, mask, kp, vp, idx)
+    ctx_p = tds.decode_step_multi_plain(q, kn, vn, mask, kz, vz, idx)
+    assert torch.equal(k_t.view(torch.int16), kp.view(torch.int16))
+    assert torch.equal(v_t.view(torch.int16), vp.view(torch.int16))
+    assert bool(torch.isfinite(ctx.float()).all())
     # a flipped bf16 score rounding, and an ulp of ctx (chip_smoke.py K8_TOL)
     assert (ctx.float() - ctx_p.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["K6_greedy", "K6_beam_prefill",
+                                   "K6_bench_step", "K8_verify",
+                                   "K8_straddle"])
+def test_decode_same_bits_twice_on_card(cuda_device, entry):
+    """K6 and K8 merge their CTAs' partial results in a fixed order, with no
+    atomics: a second call on the same inputs gives the same bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    if entry.startswith("K6"):
+        b, t_q = {"K6_greedy": (8, 1), "K6_beam_prefill": (16, 20),
+                  "K6_bench_step": (64, 1)}[entry]
+        q = (torch.randn((b, t_q, 8 * 64), generator=gen, device=cuda_device)
+             .to(torch.bfloat16).view(b, t_q, 8, 64))
+        k, v = (torch.randn((b, 8, 1500, 64), generator=gen,
+                            device=cuda_device).to(torch.bfloat16)
+                for _ in range(2))
+        runs = [tdc.decode_cross(q, k, v) for _ in range(2)]
+    else:
+        idx = 508 if entry == "K8_verify" else 158
+        q, kn, vn, mask, k_t, v_t, _ = _multi_inputs(
+            gen, cuda_device, 16, 4, 516, idx, 64, False)
+        runs = [tds.decode_step_multi(q, kn, vn, mask, k_t, v_t, idx)
+                for _ in range(2)]
+    assert torch.equal(runs[0].view(torch.int16), runs[1].view(torch.int16))
 
 
 def _bias_row(t, masked, device):

@@ -328,11 +328,12 @@ def test_decode_step_multi_cuda_rejects_what_kernel_does_not_take(
     rng = np.random.default_rng(13)
     dh = 256 if bad == "head_dim" else 64
     g = tds.MAX_G + 1 if bad == "queries" else 4
-    # G x Tmax f32 scores past the block's shared memory
-    t = 16000 if bad == "smem" else 20
+    # G x Tmax f32 scores past the shared memory of a cluster of 8 CTAs
+    # (ops/decode_step.py::multi_plan: 8 x 5024 columns at G = 4, Dh = 64)
+    t = 40000 if bad == "smem" else 20
     dtype = torch.float32 if bad == "dtype" else torch.bfloat16
     q = _on_cuda(rng.standard_normal((2, g, 4, dh)), dtype)
-    cache = _on_cuda(np.zeros((2, 4, dh, t)), dtype)
+    cache = torch.zeros((2, 4, dh, t), dtype=dtype).as_subclass(_OnCuda)
     if bad == "strided_cache":
         cache = cache.transpose(0, 1).contiguous().transpose(0, 1)
     mask = torch.ones((1, 1, g, t), dtype=torch.bool).as_subclass(_OnCuda)
