@@ -705,7 +705,9 @@ def _check_bhtd_layout(gen) -> dict:
 
 def _check_lora_bwd(gen) -> list:
     """K3 against its plain version at the fc1 / fc2 shapes of the training
-    step (N = 64 x 1500 tokens) and at a ragged N with rank 12."""
+    step (N = 64 x 1500 tokens) and at a ragged N with rank 12: CUDA
+    events, device time under torch.profiler (both of the call's launches)
+    and the wrapper's host time; a second call gives the same bits."""
     from neuspeech1_tpu_torch.ops import lora_bwd as lb
 
     out = []
@@ -717,7 +719,9 @@ def _check_lora_bwd(gen) -> list:
         a, bm = a.to(torch.bfloat16), bm.to(torch.bfloat16)
         got = lb.lora_adapter_bwd(x, dy, a, bm)
         ref = lb.lora_adapter_bwd_plain(x, dy, a, bm)
+        same = _same_bits(got, lb.lora_adapter_bwd(x, dy, a, bm))
         torch.cuda.synchronize()
+        plan = lb.plan(n, din, dout, r, lb._sm_count(0))
         errs = {f"{k}_rel_err": _rel_err(g, p)
                 for k, g, p in zip(("dA", "dB", "dE"), got, ref)}
         # reads x, dy, A, B (bf16), writes dA, dB, dE (f32); four rank-r
@@ -732,12 +736,19 @@ def _check_lora_bwd(gen) -> list:
                "plain_ms": cuda_ms(lambda: lb.lora_adapter_bwd_plain(
                    x, dy, a, bm)),
                "library_ms": None,
+               "device_ms": _device_ms(lambda: lb.lora_adapter_bwd(
+                   x, dy, a, bm)),
+               "host_us": _host_us(lambda: lb.lora_adapter_bwd(x, dy, a, bm)),
+               "same_bits": same,
+               "plan": plan._asdict(),
+               "resident_clusters": lb.resident_clusters(plan),
                **bound(n_bytes, 4 * n * r * (din + dout))}
         emit(res)
         check(all(torch.isfinite(g).all() for g in got),
               f"K3 {name}: non-finite gradients")
         check(max(errs.values()) <= K3_REL_TOL,
               f"K3 {name}: kernel disagrees with plain version")
+        check(same, f"K3 {name}: a second call gave other bits")
         out.append(res)
     return out
 
@@ -954,9 +965,11 @@ def _check_decode_cross(gen) -> list:
 
 def _check_decode_step(gen) -> list:
     """K7 against its plain version at the beam and greedy steps' shapes:
-    the context within K7_TOL and the caches after the in-place write equal;
-    timed over CACHE_COPIES caches in turn. No single PyTorch call computes
-    this function (a cache write and a masked attention)."""
+    the context within K7_TOL and the caches after the in-place write equal,
+    the same bits from a second call; timed over CACHE_COPIES caches in turn
+    (CUDA events, device time under torch.profiler and the wrapper's host
+    time). No single PyTorch call computes this function (a cache write and
+    a masked attention)."""
     from neuspeech1_tpu_torch.ops import decode_step as ds
 
     h, d = DECODE_HEADS, DECODE_HEAD_DIM
@@ -975,6 +988,8 @@ def _check_decode_step(gen) -> list:
         err = (ctx_k.float() - ctx_p.float()).abs().max().item()
         caches_equal = bool(torch.equal(caches[0][0], kp)
                             and torch.equal(caches[0][1], vp))
+        same = _same_bits((ctx_k,), (ds.decode_step(q, kn, vn, *caches[0],
+                                                    idx),))
         cycle = itertools.cycle(caches)
         res = {"phase": "kernels", "kernel": "K7", "case": name,
                "shape": [rows, h, d, t_max], "idx": idx, "max_abs_err": err,
@@ -984,6 +999,11 @@ def _check_decode_step(gen) -> list:
                "plain_ms": cuda_ms(lambda: ds.decode_step_plain(
                    q, kn, vn, *next(cycle), idx)),
                "library_ms": None,
+               "device_ms": _device_ms(lambda: ds.decode_step(
+                   q, kn, vn, *next(cycle), idx)),
+               "host_us": _host_us(lambda: ds.decode_step(
+                   q, kn, vn, *next(cycle), idx)),
+               "same_bits": same,
                # K and V columns 0..idx-1 read, column idx written, q, k_new,
                # v_new read and the context written
                **bound(2 * rows * h * d * (2 * idx + 2 + 4),
@@ -992,6 +1012,7 @@ def _check_decode_step(gen) -> list:
         check(caches_equal, f"K7 {name}: caches differ from the plain write")
         check(bool(torch.isfinite(ctx_k.float()).all()), f"K7 {name}: non-finite")
         check(err <= K7_TOL, f"K7 {name}: kernel disagrees with plain version")
+        check(same, f"K7 {name}: a second call gave other bits")
         out.append(res)
     return out
 
@@ -1335,6 +1356,11 @@ def _profile_request(fn) -> dict:
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1 - busy_ms / wall_ms,
             "kernel_launches": sum(e.count for e in kernels),
+        # K3's launches (the one-pass kernel and its reduce, or the wide
+        # path's) per step
+        "k3_device_ms_per_step": sum(
+            e.self_device_time_total for e in kernels
+            if "lora_" in e.key) / 1e3 / PROFILE_TRACED_STEPS,
             "top_kernels_ms": [[e.key[:90], e.self_device_time_total / 1e3,
                                 e.count] for e in top]}
 
@@ -2473,6 +2499,11 @@ def _train_profile(trace_dir, seq_parallel_axis) -> dict:
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1 - busy_us / 1e3 / wall_ms,
         "kernel_launches": sum(e.count for e in kernels),
+        # K3's launches (the one-pass kernel and its reduce, or the wide
+        # path's) per step
+        "k3_device_ms_per_step": sum(
+            e.self_device_time_total for e in kernels
+            if "lora_" in e.key) / 1e3 / PROFILE_TRACED_STEPS,
         "top_kernels_ms": [[e.key[:90], e.self_device_time_total / 1e3,
                             e.count] for e in top],
         "card": card(),
@@ -2645,7 +2676,8 @@ def summary(kernels, sl, bm, sp, tr, rg, pr) -> dict:
                 "library_ms": r[prefix + "library_ms"]}
 
     def device(r):
-        """The decode kernels' device and host times and bits."""
+        """The device and host times and bits of K3 and the decode
+        kernels."""
         return {key: r[key] for key in ("device_ms", "library_device_ms",
                                         "host_us", "same_bits") if key in r}
 
@@ -2708,7 +2740,7 @@ def summary(kernels, sl, bm, sp, tr, rg, pr) -> dict:
          "source": src + "lora_bwd.cu",
          "replaces": "neuspeech1_tpu/ops/lora_bwd.py:47",
          "launches": launches["K3"], "max_abs_err": k3["max_abs_err"],
-         **timing(k3)},
+         **timing(k3), **device(k3)},
         {"name": "flash_fwd_btc_bias (K4 forward)", "route": "cuda",
          "source": src + "flash_fwd_btc.cu", "replaces": fa_py + ":742",
          "launches": sp_launches["K4"],
@@ -2737,7 +2769,7 @@ def summary(kernels, sl, bm, sp, tr, rg, pr) -> dict:
          "replaces": "neuspeech1_tpu/ops/decode_step.py:106",
          "launches": bm["launches"]["K7"],
          "greedy_launches": sl["launches"]["K7"],
-         "max_abs_err": k7["max_abs_err"], **timing(k7)},
+         "max_abs_err": k7["max_abs_err"], **timing(k7), **device(k7)},
         {"name": "decode_step_multi (K8)", "route": "cuda",
          "source": src + "decode_step_multi.cu",
          "replaces": "neuspeech1_tpu/ops/decode_step.py:189",

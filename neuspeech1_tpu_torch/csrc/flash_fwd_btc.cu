@@ -77,7 +77,6 @@
 // (K4), below. Each returns cudaGetLastError() after the launch; 0 means the
 // kernel was queued.
 
-#include <cuda.h>  // CUtensorMap and its enums (the encoder: see encoder())
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -156,39 +155,6 @@ struct Params {
   long long o_sb, o_st, o_sh;
   float scale;
 };
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Arrives and adds `bytes` to the transactions the phase waits for.
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Waits until the phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
 
 // TMA: the box at (column c0, row c1, head c2, batch c3) of a [B, T, H, D]
 // map into shared memory, counted on `bar`.
@@ -531,28 +497,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       if (row_hi < t_q) lse[row_hi] = m_hi * p.scale + logf(l_hi);
     }
   }
-}
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (this library
-// links nothing but the runtime).
-using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                              void*, const cuuint64_t*, const cuuint64_t*,
-                              const cuuint32_t*, const cuuint32_t*,
-                              CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeFn encoder() {
-  static EncodeFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeFn>(ptr);
-    }
-  }
-  return fn;
 }
 
 // The TMA map of a [B, T, H, D] bf16 tensor whose rows end at n_rows, in

@@ -1,15 +1,20 @@
-// What the flash-attention kernels for Hopper (sm_90a) share: the swizzled
+// What the wgmma kernels for Hopper (sm_90a) share: the swizzled
 // shared-memory layout of a [ROWS, D] bf16 tile, its cp.async copy with
 // zero-fill, the wgmma descriptors that name it, and the wgmma.m64nNk16
-// products (A from shared memory or from registers) with their fences.
-// Included by flash_fwd_btc.cu and flash_bwd_btc.cu; everything is in an
-// anonymous namespace, so each source gets its own copy.
+// products (A from shared memory or from registers) with their fences;
+// mbarriers, and TMA loads with the driver's tensor-map encoder. Included by
+// flash_fwd_btc.cu, flash_bwd_btc.cu and lora_bwd.cu, with decode_sm90.cuh
+// (ldmatrix, mma.sync, cp.async groups, cluster launches); everything is in
+// an anonymous namespace, so each source gets its own copy.
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums (the encoder: see encoder())
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "decode_sm90.cuh"
 
 namespace {
 
@@ -56,15 +61,6 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(in ? 4 : 0)
                : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Makes this thread's generic-proxy writes to shared memory (cp.async and
@@ -327,5 +323,71 @@ __device__ __forceinline__ uint32_t smem_base(uint8_t* raw, uint8_t** ptr) {
 }
 
 constexpr int round_up_1k(int x) { return (x + 1023) / 1024 * 1024; }
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Arrives and adds `bytes` to the transactions the phase waits for.
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// TMA: the box at (column c0, row c1) of a 2-D map into shared memory,
+// counted on `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (this library
+// links nothing but the runtime).
+using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeFn encoder() {
+  static EncodeFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeFn>(ptr);
+    }
+  }
+  return fn;
+}
 
 }  // namespace

@@ -73,7 +73,7 @@ def _library() -> ctypes.CDLL:
         lib = _build.load(_NAME[0])
         fn = getattr(lib, _NAME[1])
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([ptr] * 6 + [i32] * 5 + [i64] * 8
+        fn.argtypes = ([ptr] * 6 + [i32] * 7 + [i64] * 8
                        + [ctypes.c_float, ptr])
         fn.restype = ctypes.c_int
         _lib = lib
@@ -94,6 +94,27 @@ def _check(q, k_new, v_new, k_t, v_t, cache_index: int) -> None:
     if not 0 <= cache_index < k_t.shape[3]:
         raise ValueError(f"cache_index {cache_index} outside "
                          f"[0, {k_t.shape[3]})")
+
+
+def step_smem_bytes(head_dim: int, cols: int, panes: int) -> int:
+    """K7's dynamic shared memory (``smem_bytes`` in csrc/decode_step.cu,
+    in its layout's order): ``panes`` [dk, cols] bf16 buffers (dk: Dh
+    rounded up to 32), then q [dk] bf16, the scores [cols] f32, p [cols]
+    bf16 and the 4 warps' partial max or sum."""
+    dk = -(-head_dim // 32) * 32
+    return panes * dk * cols * 2 + 2 * dk + 6 * cols + 4 * 4
+
+
+def step_plan(head_dim: int, cache_index: int):
+    """K7's (cols, panes): the products cover the columns 0..cache_index
+    rounded up to 16, and each pane row in shared memory is 8 columns
+    longer (rows an odd number of 16-byte chunks apart, so ldmatrix's eight
+    rows fall in distinct banks); K and V get a buffer each (``panes`` 2,
+    V's copy lands while the scores run) where both fit the block, else V
+    follows K into one buffer (Dh 128 and a long cache)."""
+    cols = -(-(cache_index + 1) // 16) * 16 + 8
+    panes = 2 if step_smem_bytes(head_dim, cols, 2) <= MAX_SMEM_BYTES else 1
+    return cols, panes
 
 
 def decode_step_plain(q, k_new, v_new, k_t, v_t, cache_index: int):
@@ -135,11 +156,12 @@ def _decode_step_cuda(q, k_new, v_new, k_t, v_t, cache_index: int):
         raise ValueError("the caches must be contiguous: they are updated "
                          "in place")
     fn = getattr(_library(), _NAME[1])
+    cols, panes = step_plan(dh, cache_index)
     ctx = torch.empty_like(q, memory_format=torch.contiguous_format)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
                  k_t.data_ptr(), v_t.data_ptr(), ctx.data_ptr(), b, h, dh,
-                 t_max, cache_index, q.stride(0), q.stride(2),
+                 t_max, cache_index, cols, panes, q.stride(0), q.stride(2),
                  k_new.stride(0), k_new.stride(2), v_new.stride(0),
                  v_new.stride(2), ctx.stride(0), ctx.stride(2), dh ** -0.5,
                  torch.cuda.current_stream(q.device).cuda_stream)

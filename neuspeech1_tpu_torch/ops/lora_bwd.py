@@ -14,39 +14,132 @@ in ``csrc/lora_bwd.cu`` or raises; it takes any token count N (the JAX
 package's shape gate ``pick_block_n``, which sends N not divisible by the
 block to an einsum path, has no counterpart on the card). On a CPU tensor it
 runs ``lora_adapter_bwd_plain``, also the kernel's gold on the card.
+
+The kernel reads x and dy once: clusters of CTAs split the 64-column panels
+of x and dy (``plan``), sum their partial t1 and u through distributed
+shared memory before the bf16 rounding, and keep their slices of dA and dB
+in registers over a range of 64-token tiles; a second launch sums the
+clusters' partials in a fixed order. Shapes past the plan (more panels than
+eight CTAs hold) run the wide path, three stages that read x and dy twice.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from neuspeech1_tpu_torch.ops import _build
 
 MAX_RANK = 64
-_TOK_TILE = 64    # tokens per dE partial (csrc/lora_bwd.cu kTokTile)
-_CHUNK = 2048     # tokens per dA / dB partial (kChunk)
+# The one-pass kernel's layout (csrc/lora_bwd.cu): tokens per tile, columns
+# per panel, tiles in flight, floats past each row of the partial sums, the
+# shared memory a block may use (the H100's 227 KB) and the cluster sizes.
+TOK_TILE = 64
+PANEL_COLS = 64
+STAGES = 2
+X_PAD = 4
+MAX_SMEM_BYTES = 232448
+CLUSTERS = (1, 2, 4, 8)
+_WIDE_TOK_TILE = 64  # tokens per dE partial of the wide path (kTokTile)
+_WIDE_CHUNK = 2048   # tokens per dA / dB partial of the wide path (kChunk)
 
 # Kernel launches since the count was last set to 0, one per wrapper call.
 launches = 0
 
-_SOURCE, _FN = "lora_bwd", "nsp_lora_bwd_bf16"
+_SOURCE = "lora_bwd"
+_FN, _WIDE_FN = "nsp_lora_bwd_bf16", "nsp_lora_bwd_wide_bf16"
 _lib: Optional[ctypes.CDLL] = None
 
 
 def _library() -> ctypes.CDLL:
-    """Build and load the kernel library and declare its C signature."""
+    """Build and load the kernel library and declare its C signatures."""
     global _lib
     if _lib is None:
         lib = _build.load(_SOURCE)
-        fn = getattr(lib, _FN)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 4 + [i32] * 5 + [ptr] * 9
+        fn = getattr(lib, _FN)
+        fn.argtypes = [ptr] * 4 + [i32] * 8 + [ptr] * 5
         fn.restype = ctypes.c_int
+        wide = getattr(lib, _WIDE_FN)
+        wide.argtypes = [ptr] * 4 + [i32] * 5 + [ptr] * 9
+        wide.restype = ctypes.c_int
+        lib.nsp_lora_bwd_resident.argtypes = [i32] * 3
+        lib.nsp_lora_bwd_resident.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def padded_rank(r: int) -> int:
+    """The one-pass kernel's rank: r padded with zeros to the wgmma width."""
+    return 32 if r <= 32 else 64
+
+
+def per_warpgroup(rp: int) -> int:
+    """Panels whose dA or dB slice one warpgroup keeps in registers
+    (``per_warpgroup`` in the C source); a CTA has two warpgroups."""
+    return 5 if rp == 32 else 3
+
+
+def smem_bytes(pc: int, rp: int) -> int:
+    """Dynamic shared memory of a CTA of ``pc`` panels at width ``rp``, as
+    the C source's ``smem_bytes``, in its layout's order: the ring of
+    tiles, the weight slices, bf16(t1) and bf16(u), the f32 partials, the
+    mbarriers and the base's alignment."""
+    return (STAGES * pc * TOK_TILE * PANEL_COLS * 2 + pc * rp * PANEL_COLS * 2
+            + 2 * TOK_TILE * rp * 2 + TOK_TILE * (2 * rp + X_PAD) * 4
+            + 64 + 1024)
+
+
+class Plan(NamedTuple):
+    """How the one-pass kernel splits a call: ``rp`` the padded rank;
+    clusters of ``cluster`` CTAs, CTA c holding panels [c pc, (c + 1) pc)
+    of the ``panels`` (x's, then dy's); ``tiles`` of 64 tokens walked in
+    contiguous ranges by at most ``clusters`` clusters."""
+    rp: int
+    cluster: int
+    pc: int
+    panels: int
+    tiles: int
+    clusters: int
+
+    def part_floats(self) -> int:
+        """f32 of one cluster's partial sums: every panel's 64 rows of rp,
+        then each CTA's dE."""
+        return self.panels * PANEL_COLS * self.rp + self.cluster * self.rp
+
+
+def plan(n: int, din: int, dout: int, r: int,
+         sms: int = 132) -> Optional[Plan]:
+    """The one-pass kernel's plan for x [n, din], dy [n, dout] at rank r on
+    a card of ``sms`` SMs: the smallest cluster whose CTAs hold their share
+    of the panels in registers and shared memory, and one cluster per
+    ``cluster`` SMs (the kernel takes fewer where the card holds fewer at
+    once). None past the largest cluster: the wide path."""
+    rp = padded_rank(r)
+    panels = -(-din // PANEL_COLS) + -(-dout // PANEL_COLS)
+    tiles = -(-n // TOK_TILE)
+    for cluster in CLUSTERS:
+        pc = -(-panels // cluster)
+        if (pc <= 2 * per_warpgroup(rp)
+                and smem_bytes(pc, rp) <= MAX_SMEM_BYTES):
+            return Plan(rp, cluster, pc, panels, tiles,
+                        max(1, min(tiles, sms // cluster)))
+    return None
+
+
+def resident_clusters(pl: Plan) -> int:
+    """The clusters of ``pl`` that the current card holds at once, as its
+    driver reports them: the kernel's grid is at most this many (and at
+    most ``pl.clusters``)."""
+    return _library().nsp_lora_bwd_resident(pl.rp, pl.cluster, pl.pc)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(x2, dy2, a, b):
@@ -90,28 +183,41 @@ def _lora_bwd_cuda(x2, dy2, a, b):
     if din % 16 or dout % 16:
         raise ValueError(f"lora_bwd kernel needs din and dout multiples of "
                          f"16, got {din} and {dout}")
-    fn = getattr(_library(), _FN)
-    rp = 16 if r <= 16 else 32 if r <= 32 else 64
-    # the kernel reads rows of x, dy, A^T and B as they lie in memory
-    x2, dy2, b = x2.contiguous(), dy2.contiguous(), b.contiguous()
-    at = a.t().contiguous()
+    lib = _library()
     dev = x2.device
+    # the kernel reads rows of x, dy, A and B as they lie in memory, x and dy
+    # through TMA maps, whose base must be 16-byte aligned
+    x2, dy2, a, b = (t.contiguous() for t in (x2, dy2, a, b))
+    x2, dy2 = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x2, dy2))
 
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    t1b = torch.empty((n, rp), dtype=torch.bfloat16, device=dev)
-    ub = torch.empty_like(t1b)
-    chunks = -(-n // _CHUNK)
-    de_part = f32(-(-n // _TOK_TILE), rp)
-    da_part, db_part = f32(chunks, din, rp), f32(chunks, rp, dout)
+    pl = plan(n, din, dout, r, _sm_count(dev.index or 0))
     da, db, de = f32(din, r), f32(r, dout), f32(r)
-    with torch.cuda.device(dev):
-        err = fn(x2.data_ptr(), dy2.data_ptr(), at.data_ptr(), b.data_ptr(),
-                 n, din, dout, r, rp, t1b.data_ptr(), ub.data_ptr(),
-                 de_part.data_ptr(), da_part.data_ptr(), db_part.data_ptr(),
-                 da.data_ptr(), db.data_ptr(), de.data_ptr(),
-                 torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if pl is not None:
+        part = f32(pl.clusters, pl.part_floats())
+        with torch.cuda.device(dev):
+            err = getattr(lib, _FN)(
+                x2.data_ptr(), dy2.data_ptr(), a.data_ptr(), b.data_ptr(), n,
+                din, dout, r, pl.rp, pl.cluster, pl.pc, pl.clusters,
+                part.data_ptr(), da.data_ptr(), db.data_ptr(), de.data_ptr(),
+                stream)
+    else:
+        rp = 16 if r <= 16 else padded_rank(r)
+        at = a.t().contiguous()
+        t1b = torch.empty((n, rp), dtype=torch.bfloat16, device=dev)
+        ub = torch.empty_like(t1b)
+        chunks = -(-n // _WIDE_CHUNK)
+        de_part = f32(-(-n // _WIDE_TOK_TILE), rp)
+        da_part, db_part = f32(chunks, din, rp), f32(chunks, rp, dout)
+        with torch.cuda.device(dev):
+            err = getattr(lib, _WIDE_FN)(
+                x2.data_ptr(), dy2.data_ptr(), at.data_ptr(), b.data_ptr(), n,
+                din, dout, r, rp, t1b.data_ptr(), ub.data_ptr(),
+                de_part.data_ptr(), da_part.data_ptr(), db_part.data_ptr(),
+                da.data_ptr(), db.data_ptr(), de.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"lora_bwd launch failed: CUDA error {err}")
     launches += 1

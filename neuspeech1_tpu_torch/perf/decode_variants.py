@@ -2,12 +2,12 @@
 
     python -m neuspeech1_tpu_torch.perf.decode_variants [VARIANT ...]
 
-Writes each variant of ``csrc/decode_cross.cu`` (K6) or
-``csrc/decode_step_multi.cu`` (K8) (the ring's depth, the copies' L2
-prefetch, the registers per thread changed, or the wrapper's plan given
-another CTA target) into the build directory, builds them all with nvcc
-at once, and times its kernel at chip_smoke.py's cases (K6 at
-``DECODE_CROSS_CASES``, K8 at ``DECODE_STEP_MULTI_CASES``) with each, in
+Writes each variant of ``csrc/decode_cross.cu`` (K6),
+``csrc/decode_step.cu`` (K7) or ``csrc/decode_step_multi.cu`` (K8) (the
+ring's depth, the copies' L2 prefetch, the registers or the warps per
+CTA changed, or the wrapper's plan given another CTA target) into the build directory, builds them all with nvcc at once, and
+times its kernel at chip_smoke.py's cases (K6 at ``DECODE_CROSS_CASES``,
+K7 at ``DECODE_STEP_CASES``, K8 at ``DECODE_STEP_MULTI_CASES``) with each, in
 two rounds, by the profiler's device time, each call on the next of four
 caches (more than the L2 holds). Each line says how far the variant is
 from the plain version. One JSON line per variant, case and round, then
@@ -32,9 +32,10 @@ from neuspeech1_tpu_torch.perf.flash_trees import (ACCEPTED_SHARE,
                                                    DECODE_CROSS_CASES,
                                                    DECODE_HEAD_DIM,
                                                    DECODE_HEADS,
+                                                   DECODE_STEP_CASES,
                                                    DECODE_STEP_MULTI_CASES)
 
-_K6, _K8 = "decode_cross", "decode_step_multi"
+_K6, _K7, _K8 = "decode_cross", "decode_step", "decode_step_multi"
 _K6_STAGES3 = ("constexpr int kStages = 2;", "constexpr int kStages = 3;")
 _K6_RINGS4 = ("constexpr int rings(int mt) { return mt == 1 ? 4 : 8; }",
               "constexpr int rings(int) { return 4; }")
@@ -68,6 +69,16 @@ VARIANTS = {
     "k8_ctas_264": (_K8, (), {"MIN_CTAS": 264}),
     "k8_ctas_66": (_K8, (), {"MIN_CTAS": 66}),
     "k8_plain_c1": (_K8, (_PLAIN_C1,), {}),
+    "k7_base": (_K7, (), {}),
+    # eight or two warps a CTA instead of four
+    "k7_warps8": (_K7, (("constexpr int kWarps = 4;",
+                         "constexpr int kWarps = 8;"),), {}),
+    "k7_warps2": (_K7, (("constexpr int kWarps = 4;",
+                         "constexpr int kWarps = 2;"),), {}),
+    # an ablation: the new column is not written to the cache
+    "k7_no_store": (_K7, (("    k_t[tid * static_cast<long long>(t_max) + "
+                           "idx] = kn;\n    v_t[tid * static_cast<long "
+                           "long>(t_max) + idx] = vn;\n", ""),), {}),
 }
 
 
@@ -126,6 +137,24 @@ def _cases(gen):
 
         out.append((_K6, name, lambda q=q, kv_len=kv_len, cycle=cycle:
                     dc.decode_cross(q, *next(cycle), kv_len), err))
+    for name, rows, t_max, idx in DECODE_STEP_CASES:
+        q, kn, vn = (torch.randn((rows, 1, h * d), generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+                     .view(rows, 1, h, d) for _ in range(3))
+        caches = [tuple(torch.randn((rows, h, d, t_max), generator=gen,
+                                    device="cuda").to(torch.bfloat16)
+                        for _ in range(2)) for _ in range(CACHE_COPIES)]
+        cycle = itertools.cycle(caches)
+
+        def err(q=q, kn=kn, vn=vn, kv=caches[0], idx=idx):
+            ctx = ds.decode_step(q, kn, vn, *kv, idx)
+            ref = ds.decode_step_plain(q, kn, vn, *(x.clone() for x in kv),
+                                       idx)
+            return (ctx.float() - ref.float()).abs().max().item()
+
+        out.append((_K7, name, lambda q=q, kn=kn, vn=vn, idx=idx,
+                    cycle=cycle: ds.decode_step(q, kn, vn, *next(cycle),
+                                                idx), err))
     for name, rows, g, t_max, idx, kind in DECODE_STEP_MULTI_CASES:
         q, kn, vn = (torch.randn((rows, g, h * d), generator=gen,
                                  device="cuda").to(torch.bfloat16)
@@ -159,7 +188,8 @@ def _use(name: str, lib):
     """Points the kernel's wrapper at ``lib`` and the variant's plan
     constants; returns what restores them."""
     source, _, plan = VARIANTS[name]
-    mod, attr = (dc, "_lib") if source == _K6 else (ds, "_multi_lib")
+    mod, attr = {_K6: (dc, "_lib"), _K7: (ds, "_lib"),
+                 _K8: (ds, "_multi_lib")}[source]
     saved = (getattr(mod, attr), {k: getattr(mod, k) for k in plan})
     setattr(mod, attr, lib)
     for key, value in plan.items():
@@ -185,8 +215,9 @@ def main(argv) -> int:
         built = dict(zip(names, pool.map(_build_variant, names)))
     for name, (_, notes) in built.items():
         print(json.dumps({"variant": name, "ptxas": notes}), flush=True)
-    real = {_K6: dc._library(), _K8: ds._multi_library()}
-    entries = {_K6: dc._NAME[1], _K8: ds._MULTI_NAME[1]}
+    real = {_K6: dc._library(), _K7: ds._library(),
+            _K8: ds._multi_library()}
+    entries = {_K6: dc._NAME[1], _K7: ds._NAME[1], _K8: ds._MULTI_NAME[1]}
     for name, (lib, _) in built.items():
         source = VARIANTS[name][0]
         fn, ref = getattr(lib, entries[source]), getattr(real[source],

@@ -7,8 +7,10 @@ that tree's ``csrc/`` sources) and prints one JSON line per kernel and
 case. WHICH is ``flash`` (the forward K1 at ``KERNEL_CASES``, K4's forward
 at ``BIAS_CASES`` and the backward K2 at the cases with a backward),
 ``decode`` (the decode cross-attention K6 at ``DECODE_CROSS_CASES``, beside
-SDPA on the same inputs, and the multi-query decode step K8 at
-``DECODE_STEP_MULTI_CASES``) or ``all`` (the default). Each line gives the
+SDPA on the same inputs, the decode step K7 at ``DECODE_STEP_CASES`` and
+the multi-query decode step K8 at ``DECODE_STEP_MULTI_CASES``), ``lora``
+(the LoRA adapter backward K3 at ``LORA_CASES``; its device time counts
+every kernel of the call) or ``all`` (the default). Each line gives the
 mean CUDA-event time of 50 calls after 5 and the device time of the
 kernels under torch.profiler (10 calls; the small cases are launch-bound,
 so compare those by the device time); the decode lines also give the
@@ -42,6 +44,16 @@ DECODE_CROSS_CASES = (("greedy", 8, 1, 1500, None, "bhtd"),
                       ("bench_step", 64, 1, 1500, None, "bhtd"),
                       ("bench_prefill", 64, 4, 1500, None, "bhtd"),
                       ("btc", 8, 1, 1504, 1500, "btc"))
+# (name, rows, Tmax, idx): chip_smoke.py's DECODE_STEP_CASES
+DECODE_STEP_CASES = (("beam_early", 80, 132, 3),
+                     ("beam_last", 80, 132, 131),
+                     ("greedy_last", 8, 36, 35),
+                     ("bench_early", 64, 52, 4),
+                     ("bench_last", 64, 52, 51))
+# (name, N, din, dout, r): chip_smoke.py's LORA_CASES
+LORA_CASES = (("fc1", 96000, 512, 2048, 32),
+              ("fc2", 96000, 2048, 512, 32),
+              ("ragged_r12", 10007, 512, 2048, 12))
 # (name, rows, G, Tmax, idx, mask): chip_smoke.py's DECODE_STEP_MULTI_CASES
 DECODE_STEP_MULTI_CASES = (("verify_early", 16, 4, 516, 8, "holes"),
                            ("verify_late", 16, 4, 516, 508, "holes"),
@@ -88,6 +100,8 @@ def main(checkout: str, tag: str, which: str = "all") -> None:
         _flash(gen, emit)
     if which in ("decode", "all"):
         _decode(gen, emit)
+    if which in ("lora", "all"):
+        _lora(gen, emit)
 
 
 def _flash(gen, emit) -> None:
@@ -158,6 +172,16 @@ def _decode(gen, emit) -> None:
         emit("SDPA", name, lambda qs=qs, bhtd=bhtd, kvl=kvl:
              F.scaled_dot_product_attention(
                  qs, *(x[:, :, :kvl] for x in bhtd(next(caches)))), None)
+    for name, rows, t_max, idx in DECODE_STEP_CASES:
+        q, kn, vn = (torch.randn((rows, 1, h * d), generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+                     .view(rows, 1, h, d) for _ in range(3))
+        caches = itertools.cycle(
+            [tuple(torch.randn((rows, h, d, t_max), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(2)) for _ in range(CACHE_COPIES)])
+        emit("K7", name, lambda q=q, kn=kn, vn=vn, idx=idx:
+             ds.decode_step(q, kn, vn, *next(caches), idx), None, host=True)
     for name, rows, g, t_max, idx, kind in DECODE_STEP_MULTI_CASES:
         q, kn, vn = (torch.randn((rows, g, h * d), generator=gen,
                                  device="cuda").to(torch.bfloat16)
@@ -177,6 +201,21 @@ def _decode(gen, emit) -> None:
         emit("K8", name, lambda q=q, kn=kn, vn=vn, mask=mask, idx=idx:
              ds.decode_step_multi(q, kn, vn, mask, *next(caches), idx),
              "decode_step_multi", host=True)
+
+
+def _lora(gen, emit) -> None:
+    """K3 at chip_smoke.py's cases: every kernel of the wrapper's call."""
+    import torch
+
+    from neuspeech1_tpu_torch.ops import lora_bwd as lb
+
+    for name, n, din, dout, r in LORA_CASES:
+        x, dy = (torch.randn((n, w), generator=gen, device="cuda")
+                 .to(torch.bfloat16) for w in (din, dout))
+        a, bm = ((0.1 * torch.randn(s, generator=gen, device="cuda"))
+                 .to(torch.bfloat16) for s in ((din, r), (r, dout)))
+        emit("K3", name, lambda x=x, dy=dy, a=a, bm=bm:
+             lb.lora_adapter_bwd(x, dy, a, bm), None, host=True)
 
 
 if __name__ == "__main__":

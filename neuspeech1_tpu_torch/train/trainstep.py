@@ -92,7 +92,14 @@ def make_loss_fn(config: WhisperConfig, stem: StemConfig,
                  ) -> Callable[[Frozen, Batch], tuple]:
     """``loss_fn(frozen, batch) -> (loss, aux)``. With ``fold_lora`` the
     'fc' regime (attention adapters merged, fc adapters folded); without,
-    the per-token delta path in every adapted linear."""
+    the per-token delta path in every adapted linear.
+
+    The model runs its own stem; ``stem`` must name the same kind. The JAX
+    forward reads the stem's weights by ``stem.kind``, so another kind
+    fails there, and the loss raises here too rather than run the model's.
+    Its other fields are inert in this loss: ``in_channels`` is read by
+    neither forward (the weights fix it), and ``dropout`` only under
+    dropout, which the port refuses."""
     if orth_reg_weight > 0.0:
         raise NotImplementedError(f"the AdaLoRA orthogonality loss {_ROADMAP}")
     if int8_matmul != "off":
@@ -106,6 +113,10 @@ def make_loss_fn(config: WhisperConfig, stem: StemConfig,
 
     def loss_fn(frozen: Frozen, batch: Batch):
         model, lora = frozen
+        if model.stem_config.kind != stem.kind:
+            raise ValueError(
+                f"stem kind {stem.kind!r} differs from the model's "
+                f"{model.stem_config.kind!r}")
         if lora is not None and not has_entries(lora):
             lora = None
         feats, ids = batch["input_features"], batch["decoder_input_ids"]

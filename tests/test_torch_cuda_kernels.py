@@ -135,21 +135,42 @@ def test_backward_kernel_matches_plain_on_card(cuda_device, shape, t_kv,
         assert not grads[1][:, kv_len:].any() and not grads[2][:, kv_len:].any()
 
 
+# (N, din, dout, r). The one-pass kernel (ops/lora_bwd.py::plan) cuts x and
+# dy into 64-column panels, splits them over clusters of 1-8 CTAs and walks
+# 64-token tiles, each cluster a contiguous range: at 512 -> 2048 the card
+# holds 33 clusters of 4, so N = 4224 gives each two tiles and 4223 / 4225
+# end one token inside or past them; 63 / 64 / 65 end around one tile. Ranks
+# 1, 16 and 33 pad to 32 or 64 with zeros; din = 16 leaves most of one panel
+# past the end. 1280 -> 5120 at r = 32 and 768 -> 3072 at r = 64 hold more
+# panels than eight CTAs: the wide path.
+LORA_CASES = [(4096, 512, 2048, 32), (1000, 256, 128, 12), (70, 128, 64, 64),
+              # rank < the padded rank over three 2048-token partials
+              (5000, 256, 128, 12),
+              # the training step's fc1 and fc2 (N = 64 x 1500)
+              (96000, 512, 2048, 32), (96000, 2048, 512, 32),
+              (3000, 512, 2048, 1), (3000, 2048, 512, 16),
+              (3000, 512, 2048, 33), (3000, 512, 2048, 64),
+              (63, 512, 2048, 32), (64, 2048, 512, 32), (65, 512, 2048, 32),
+              (4223, 512, 2048, 32), (4224, 512, 2048, 32),
+              (4225, 2048, 512, 32), (300, 16, 64, 8), (200, 16, 2048, 64),
+              (200, 1280, 5120, 32), (100, 768, 3072, 64)]
+
+
+def _lora_inputs(gen, device, n, din, dout, r):
+    x, dy = (torch.randn((n, w), generator=gen, device=device)
+             .to(torch.bfloat16) for w in (din, dout))
+    a = (0.1 * torch.randn((din, r), generator=gen, device=device)
+         ).to(torch.bfloat16)
+    bm = (0.1 * torch.randn((r, dout), generator=gen, device=device)
+          ).to(torch.bfloat16)
+    return x, dy, a, bm
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,din,dout,r", [(4096, 512, 2048, 32),
-                                          (1000, 256, 128, 12),
-                                          (70, 128, 64, 64),
-                                          # rank < the padded rank over
-                                          # three 2048-token partials
-                                          (5000, 256, 128, 12)])
+@pytest.mark.parametrize("n,din,dout,r", LORA_CASES)
 def test_lora_bwd_kernel_matches_plain_on_card(cuda_device, n, din, dout, r):
     gen = torch.Generator(device=cuda_device).manual_seed(2)
-    x, dy = (torch.randn((n, w), generator=gen, device=cuda_device)
-             .to(torch.bfloat16) for w in (din, dout))
-    a = (0.1 * torch.randn((din, r), generator=gen, device=cuda_device)
-         ).to(torch.bfloat16)
-    bm = (0.1 * torch.randn((r, dout), generator=gen, device=cuda_device)
-          ).to(torch.bfloat16)
+    x, dy, a, bm = _lora_inputs(gen, cuda_device, n, din, dout, r)
     before = tlb.launches
     got = tlb.lora_adapter_bwd(x, dy, a, bm)
     assert tlb.launches == before + 1
@@ -158,6 +179,21 @@ def test_lora_bwd_kernel_matches_plain_on_card(cuda_device, n, din, dout, r):
     # moves a sum far less than 2^-8 of its largest entry
     for g, p in zip(got, ref):
         assert g.shape == p.shape and _rel_err(g, p) <= 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,din,dout,r", [(96000, 512, 2048, 32),
+                                          (96000, 2048, 512, 32),
+                                          (10007, 512, 2048, 12),
+                                          (200, 1280, 5120, 32)])
+def test_lora_bwd_same_bits_twice_on_card(cuda_device, n, din, dout, r):
+    """The clusters' partial sums are added in a fixed order, with no
+    atomics: a second call on the same inputs gives the same bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(19)
+    x, dy, a, bm = _lora_inputs(gen, cuda_device, n, din, dout, r)
+    runs = [tlb.lora_adapter_bwd(x, dy, a, bm) for _ in range(2)]
+    for g0, g1 in zip(*runs):
+        assert torch.equal(g0.view(torch.int32), g1.view(torch.int32))
 
 
 # (B, Tq, T, kv_len, D) at H = 8. The kernel splits each (batch, head) over
@@ -216,26 +252,53 @@ def test_decode_cross_kernel_matches_plain_on_card(cuda_device, b, t_q, t,
                                rtol=0, atol=0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows,t_max,idx,dh", [
+# (rows, Tmax, idx, Dh) at H = 8. Tmax picks the copy width (the cache
+# rows lie Tmax * 2 bytes apart): 16 bytes at 136, 8 at 132, 4 at 134, 2-byte
+# loads at 131; idx 0 and Tmax - 1 at each head dim the kernel unrolls (32,
+# 64, 128), and 80 between them. Dh 128 at Tmax 448 late in the cache puts V
+# after K in one shared buffer (ops/decode_step.py::step_plan).
+DECODE_STEP_CASES = [
     (80, 132, 3, 64), (80, 132, 131, 64), (8, 36, 0, 64), (4, 448, 300, 128),
-    (5, 20, 10, 32)])
-def test_decode_step_kernel_matches_plain_on_card(cuda_device, rows, t_max,
-                                                  idx, dh):
+    (5, 20, 10, 32), (64, 52, 51, 64),
+    (6, 131, 130, 64), (6, 131, 64, 64), (6, 132, 77, 64),
+    (6, 134, 133, 64), (6, 134, 5, 64), (6, 136, 135, 64), (6, 136, 100, 64),
+    (3, 40, 0, 32), (3, 40, 39, 32), (3, 131, 0, 64), (3, 131, 130, 64),
+    (3, 134, 0, 128), (3, 134, 133, 128), (2, 448, 447, 128),
+    (2, 448, 446, 128), (3, 100, 50, 80), (3, 7, 6, 64)]
+
+
+def _step_inputs(gen, device, rows, t_max, idx, dh):
+    """q, k_new, v_new and caches with NaN in every column past idx."""
     h = 8
-    gen = torch.Generator(device=cuda_device).manual_seed(4)
     q, kn, vn = (torch.randn((rows, 1, h * dh), generator=gen,
-                             device=cuda_device).to(torch.bfloat16)
+                             device=device).to(torch.bfloat16)
                  .view(rows, 1, h, dh) for _ in range(3))
     k_t, v_t = (torch.randn((rows, h, dh, t_max), generator=gen,
-                            device=cuda_device).to(torch.bfloat16)
+                            device=device).to(torch.bfloat16)
                 for _ in range(2))
+    for x in (k_t, v_t):
+        x[..., idx + 1:] = float("nan")
+    return q, kn, vn, k_t, v_t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,t_max,idx,dh", DECODE_STEP_CASES)
+def test_decode_step_kernel_matches_plain_on_card(cuda_device, rows, t_max,
+                                                  idx, dh):
+    """K7 against its plain version. The cache columns past idx hold NaN
+    (a copy may pick them up, the context must not see them); the caches
+    after the in-place write equal the plain write bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    q, kn, vn, k_t, v_t = _step_inputs(gen, cuda_device, rows, t_max, idx,
+                                       dh)
     kp, vp = k_t.clone(), v_t.clone()
     before = tds.launches
     ctx = tds.decode_step(q, kn, vn, k_t, v_t, idx)
     assert tds.launches == before + 1
     ctx_p = tds.decode_step_plain(q, kn, vn, kp, vp, idx)
-    assert torch.equal(k_t, kp) and torch.equal(v_t, vp)
+    assert torch.equal(k_t.view(torch.int16), kp.view(torch.int16))
+    assert torch.equal(v_t.view(torch.int16), vp.view(torch.int16))
+    assert bool(torch.isfinite(ctx.float()).all())
     # a flipped bf16 score rounding, and an ulp of ctx (chip_smoke.py K7_TOL)
     assert (ctx.float() - ctx_p.float()).abs().max().item() <= 2e-2
 
@@ -312,12 +375,21 @@ def test_decode_step_multi_kernel_matches_plain_on_card(
 @pytest.mark.cuda
 @pytest.mark.parametrize("entry", ["K6_greedy", "K6_beam_prefill",
                                    "K6_bench_step", "K8_verify",
-                                   "K8_straddle"])
+                                   "K8_straddle", "K7_beam_last",
+                                   "K7_greedy_last", "K7_bench_last"])
 def test_decode_same_bits_twice_on_card(cuda_device, entry):
-    """K6 and K8 merge their CTAs' partial results in a fixed order, with no
-    atomics: a second call on the same inputs gives the same bits."""
+    """K6 and K8 merge their CTAs' partial results in a fixed order, and K7
+    sums in a fixed order, with no atomics: a second call on the same inputs
+    gives the same bits."""
     gen = torch.Generator(device=cuda_device).manual_seed(17)
-    if entry.startswith("K6"):
+    if entry.startswith("K7"):
+        rows, t_max = {"K7_beam_last": (80, 132), "K7_greedy_last": (8, 36),
+                       "K7_bench_last": (64, 52)}[entry]
+        q, kn, vn, k_t, v_t = _step_inputs(gen, cuda_device, rows, t_max,
+                                           t_max - 1, 64)
+        runs = [tds.decode_step(q, kn, vn, k_t, v_t, t_max - 1)
+                for _ in range(2)]
+    elif entry.startswith("K6"):
         b, t_q = {"K6_greedy": (8, 1), "K6_beam_prefill": (16, 20),
                   "K6_bench_step": (64, 1)}[entry]
         q = (torch.randn((b, t_q, 8 * 64), generator=gen, device=cuda_device)

@@ -210,3 +210,84 @@ def test_decode_step_multi_allocates_only_its_output(monkeypatch,
     assert tuple(ctx.shape) == (rows, g, h, dh)
     cluster, cols = tds.multi_plan(rows, h, g, dh, t_max)
     assert entry.args[7:15] == (rows, g, h, dh, t_max, idx, cluster, cols)
+
+
+STEP_SHAPES = [(DH, t_max, idx) for _, _, t_max, idx in
+               chip_smoke.DECODE_STEP_CASES] + [
+    (64, 132, 3), (64, 36, 0), (128, 448, 300), (32, 20, 10),
+    (64, 131, 130), (64, 134, 133), (64, 136, 135), (32, 40, 39),
+    (128, 134, 133), (128, 448, 447), (128, 448, 446), (80, 100, 50),
+    (64, 7, 6), (1, 448, 447), (128, 448, 0)]
+
+
+@pytest.mark.parametrize("dh,t_max,idx", STEP_SHAPES)
+def test_decode_step_plan_holds_the_columns(dh, t_max, idx):
+    """K7: the products cover columns 0..idx in whole 16-column steps, and a
+    pane row in shared memory is 8 columns longer (an odd number of 16-byte
+    chunks, and room for a copy that reaches past idx), and the panes fit
+    the H100's block; K and V get a buffer each wherever both fit."""
+    cols, panes = tds.step_plan(dh, idx)
+    assert cols % 16 == 8 and idx + 1 <= cols - 8 < idx + 17
+    assert panes in (1, 2)
+    assert tds.step_smem_bytes(dh, cols, panes) <= tds.MAX_SMEM_BYTES
+    assert (panes == 2) == (tds.step_smem_bytes(dh, cols, 2)
+                            <= tds.MAX_SMEM_BYTES)
+
+
+@pytest.mark.parametrize("case", chip_smoke.DECODE_STEP_CASES,
+                         ids=lambda c: c[0])
+def test_decode_step_plan_overlaps_v_at_the_served_shapes(case):
+    """At every chip_smoke case both panes fit at once, and at least four
+    CTAs share an SM (V's copy lands while the scores run; several panes
+    in flight per SM)."""
+    _, _, t_max, idx = case
+    cols, panes = tds.step_plan(DH, idx)
+    assert panes == 2
+    assert 4 * tds.step_smem_bytes(DH, cols, panes) <= tds.MAX_SMEM_BYTES
+
+
+def _c_step_smem_bytes():
+    """``smem_bytes`` of csrc/decode_step.cu as a Python function of (dh,
+    cols, panes), with the source's integer constants."""
+    src = (_build.SRC_DIR / "decode_step.cu").read_text()
+    consts = {n: int(v) for n, v in
+              re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    body = re.search(r"smem_bytes\(int dh, int cols, int panes\) \{\s*"
+                     r"return (.*?);\s*\}", src, re.S)
+    expr = " ".join(body.group(1).split()).replace("/", "//")
+    return lambda dh, cols, panes: eval(
+        expr, {}, {**consts, "dh": dh, "cols": cols, "panes": panes})
+
+
+@pytest.mark.parametrize("dh,cols,panes", [(64, 152, 2), (32, 24, 2),
+                                           (128, 456, 1), (80, 120, 2)])
+def test_step_smem_bytes_matches_the_c_source(dh, cols, panes):
+    """K7's shared-memory formula, which picks one buffer or two, is the C
+    source's, term for term, with the same block limit."""
+    src = (_build.SRC_DIR / "decode_step.cu").read_text()
+    assert tds.MAX_SMEM_BYTES == int(re.search(
+        r"constexpr int kMaxSmem = (\d+);", src).group(1))
+    assert tds.step_smem_bytes(dh, cols, panes) == \
+        _c_step_smem_bytes()(dh, cols, panes)
+
+
+def test_decode_step_allocates_only_its_output(monkeypatch, cpu_as_cuda):
+    """K7 allocates its context and nothing else per call, and passes the
+    plan's columns and panes to the kernel."""
+    entry = _Entry()
+    monkeypatch.setattr(tds, "_library", lambda: types.SimpleNamespace(
+        **{tds._NAME[1]: entry}))
+    rng = np.random.default_rng(25)
+    rows, h, dh, t_max, idx = 80, 8, 64, 132, 131
+    q, kn, vn = (_on_cuda(rng.standard_normal((rows, 1, h, dh)))
+                 for _ in range(3))
+    k_t, v_t = (_on_cuda(rng.standard_normal((rows, h, dh, t_max)))
+                for _ in range(2))
+    cpu_as_cuda.clear()
+    before = tds.launches
+    ctx = tds.decode_step(q, kn, vn, k_t, v_t, idx)
+    assert tds.launches == before + 1
+    assert cpu_as_cuda == [(rows, 1, h, dh)]
+    assert tuple(ctx.shape) == (rows, 1, h, dh)
+    assert entry.args[6:13] == (rows, h, dh, t_max, idx,
+                                *tds.step_plan(dh, idx))

@@ -290,3 +290,34 @@ UNPORTED = {
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         UNPORTED[option](port(tiny()), topt.make_optimizer())
+
+
+def test_loss_fn_refuses_another_stem_kind():
+    """make_loss_fn's ``stem`` was read nowhere: the port ran the model's
+    own stem whatever kind it named, where the JAX forward, which reads
+    the stem's weights by kind, fails. A stem of another kind now raises in
+    both; one that differs only in fields the deterministic forward does
+    not read (dropout) gives the model's loss, in both."""
+    config = tiny()
+    params, _, model, _ = _setup(config)
+    batch = _batch(config)
+    other = StemConfig("replace", in_channels=8)
+    with pytest.raises(KeyError):
+        jw.forward(params, jnp.asarray(batch["input_features"]),
+                   jnp.asarray(batch["decoder_input_ids"]), config, other)
+    frozen = tts.Frozen(model, None)
+    with pytest.raises(ValueError, match="stem kind 'replace'"):
+        tts.make_loss_fn(port(config), port(other))(frozen,
+                                                    _torch_batch(batch))
+    drop = StemConfig("base", in_channels=8, dropout=0.5)
+    loss, _ = tts.make_loss_fn(port(config), port(drop))(
+        frozen, _torch_batch(batch))
+    ref, _ = tts.make_loss_fn(port(config), TSTEM)(frozen,
+                                                   _torch_batch(batch))
+    assert loss.item() == ref.item()
+    jref = jw.ce_loss(jw.forward(
+        params, jnp.asarray(batch["input_features"]),
+        jnp.asarray(batch["decoder_input_ids"]), config, drop),
+        jnp.asarray(batch["labels"]))
+    np.testing.assert_allclose(loss.item(), float(jref), rtol=RTOL,
+                               atol=ATOL)
