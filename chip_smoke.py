@@ -67,7 +67,23 @@ each printing JSON lines:
             steps against the plain versions, tokens equal to the plain
             versions' up to near-ties, and that the adapters move the
             logits.
-9. probes   the perf entry points (``neuspeech1_tpu_torch/perf``): every
+9. eval     the eval CLI (``neuspeech1_tpu_torch.cli.evaluation.main``) in
+            process on the same model: a manifest of 48 synthetic 2-10 s
+            clips over 208 channels (``data/synthetic.py``), a word
+            vocabulary whose first entries are the corpus's words, the
+            CLI's defaults (beam 5, rp 5.0, ngram 2, batch 16, 128 new
+            tokens) at pipeline depth 2 with per-sentence rows and timing:
+            the phase timing, utterances/s over the decode phase and end to
+            end, whether the native clip loader ran, the metrics and
+            METEOR's stages, and K1/K6/K7 launches against the model calls.
+            Checks that the predictions equal ``generate`` on the same
+            batches, that depth 1 and the Python clip reader (the native
+            one switched off) write the same files, that a
+            ``--sequence_bias`` run finishes (its decode phase set against
+            the three unbiased runs'), and that ``sequence_bias`` gives the
+            same bits on the card as on the CPU at the beam step's shape
+            (timed beside the beam step).
+10. probes  the perf entry points (``neuspeech1_tpu_torch/perf``): every
             variant of the TPU probes' sweeps (kernel_probe, mxu_probe,
             btc_probe, bwd_probe) held against its plain version at full
             TK and 8 heads, then at the probe's shape (B*H = 512, TK =
@@ -76,7 +92,7 @@ each printing JSON lines:
             and a library call (SDPA, its backward, ``torch.bmm``), each a
             line tagged as the JAX probe tags it; launches of probe_fwd,
             probe_bwd and probe_dot over the full-shape sweep.
-10. bench   ``neuspeech1_tpu_torch.bench`` once in process: its JSON line
+11. bench   ``neuspeech1_tpu_torch.bench`` once in process: its JSON line
             (samples/s, step ms, mfu, greedy decode tokens/s with adapters).
 
 Then it prints the kernel summary (with each kernel's bound: the least time
@@ -320,6 +336,21 @@ PROBE_WARMUP, PROBE_ITERS = 3, 20
 # of that one rounding: 2^-7 of the largest value, 1e-2.
 PROBE_TOL = {"probe_fwd": 2.0 ** -6, "probe_bwd_bf16": 2e-2,
              "probe_bwd_f32": 1e-2, "probe_dot": 1e-2}
+# The eval CLI (the `eval` phase): a synthetic corpus of 2-10 s clips over
+# 208 channels, three batches of 16, decoded with the CLI's defaults (beam 5,
+# repetition penalty 5.0, no-repeat-ngram 2, 128 new tokens)
+EVAL_CLIPS = 48
+EVAL_BATCH = 16
+EVAL_NEW_TOKENS = 128
+EVAL_DURATION_S = (2.0, 10.0)
+# `sequence_bias` held between the card and the CPU at the beam step's shape
+# (16 utterances x 5 beams over whisper-base's vocabulary), scoring the
+# position after EVAL_BIAS_CUR_LEN tokens drawn from the corpus's words;
+# besides the CLI's bias (-1.0, exact in any order of summation), a bias whose
+# sums round (0.1), so that the order of the sums shows in the bits
+EVAL_BIAS_ROWS = 80
+EVAL_BIAS_CUR_LEN = 40
+EVAL_BIAS_WEIGHTS = (-1.0, 0.1)
 # Greedy serving with unmerged adapters (the `lora` phase)
 LORA_RANK = 32
 LORA_FORCED_STEPS = 8
@@ -1864,6 +1895,242 @@ def phase_lora(model) -> dict:
     return out
 
 
+def _eval_corpus(tmp: str, vocab_size: int):
+    """The eval phase's corpus (``data/synthetic.py``, EVAL_CLIPS clips of
+    2-10 s over 208 channels) and a word vocabulary of ``vocab_size``
+    words whose first entries are the corpus's words, so that its labels
+    tokenize: (corpus dir, tokenizer spec)."""
+    from neuspeech1_tpu_torch.data.synthetic import _WORDS, make_synthetic_corpus
+
+    root = os.path.join(tmp, "eval_corpus")
+    make_synthetic_corpus(root, n_clips=EVAL_CLIPS, n_channels=208,
+                          min_dur=EVAL_DURATION_S[0],
+                          max_dur=EVAL_DURATION_S[1], seed=0,
+                          with_audio=False)
+    vocab = os.path.join(tmp, "eval_vocab.txt")
+    words = list(_WORDS) + [f"w{i}" for i in range(len(_WORDS), vocab_size)]
+    with open(vocab, "w") as f:
+        f.write("\n".join(words) + "\n")
+    return root, f"word:{vocab}"
+
+
+def _run_eval(argv) -> dict:
+    """``cli.evaluation.main(argv)`` in process: its metrics, the phase
+    timing it prints (seconds, to 0.01), its wall time and its output
+    lines."""
+    import ast
+    import io
+
+    from neuspeech1_tpu_torch.cli import evaluation
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        metrics = evaluation.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    timing = next(ast.literal_eval(ln.split("timing ", 1)[1])
+                  for ln in lines if ln.startswith("[evaluation] timing "))
+    return {"metrics": metrics, "timing": timing, "wall_s": wall,
+            "lines": [ln for ln in lines if ln.startswith("[evaluation]")]}
+
+
+@contextlib.contextmanager
+def _native_loader_off():
+    """The eval CLI with the Python clip reader: ``native_available`` (read
+    when ``main`` runs) answers False."""
+    from neuspeech1_tpu_torch.data import native_loader
+
+    real = native_loader.native_available
+    native_loader.native_available = lambda: False
+    try:
+        yield
+    finally:
+        native_loader.native_available = real
+
+
+def _result_files(out_dir: str) -> dict:
+    return {name: open(os.path.join(out_dir, name), "rb").read()
+            for name in sorted(os.listdir(out_dir))}
+
+
+def _direct_preds(model_dir, tokenizer_spec, manifest, device) -> list:
+    """The CLI's decode without the CLI: the same dataset, collator and
+    loader, each batch padded to EVAL_BATCH rows as the CLI pads it, then
+    ``generate`` and ``batch_decode``."""
+    from neuspeech1_tpu_torch.cli import common
+    from neuspeech1_tpu_torch.data.collate import Collator
+    from neuspeech1_tpu_torch.data.dataset import EEGDataset
+    from neuspeech1_tpu_torch.data.loader import DataLoader
+    from neuspeech1_tpu_torch.decode.generate import (GenerationConfig,
+                                                      generate)
+
+    params, config, stem = common.load_full_model(model_dir)
+    tok = common.resolve_tokenizer(tokenizer_spec, config)
+    model = common.commit_params(params, config, stem, device)
+    ds = EEGDataset(manifest, tok, mode="test", modal_ch=208,
+                    language="English", max_duration=30.0)
+    loader = DataLoader(ds, Collator(pad_id=tok.pad_id,
+                                     decoder_start_id=config.sot_id,
+                                     max_label_len=128,
+                                     eot_id=config.eot_id),
+                        EVAL_BATCH, shuffle=False, drop_last=False)
+    prompt = np.asarray([tok.prefix_tokens("English", "transcribe")])
+    gen = GenerationConfig.for_model(
+        config, max_length=prompt.shape[1] + EVAL_NEW_TOKENS,
+        **BEAM_SETTINGS, **common.suppress_kwargs("default", tok))
+    preds = []
+    with torch.no_grad():
+        for batch in loader:
+            feats = batch["input_features"]
+            b = feats.shape[0]
+            feats = np.concatenate(
+                [feats, np.repeat(feats[-1:], EVAL_BATCH - b, axis=0)])
+            out = generate(model, common.upload_features(feats, model.dtype,
+                                                         device),
+                           torch.as_tensor(np.repeat(prompt, EVAL_BATCH, 0),
+                                           device=device), gen)
+            preds.extend(tok.batch_decode(out.cpu().numpy()[:b]))
+    return preds
+
+
+def _check_sequence_bias(train_manifest, tokenizer_spec, config,
+                         beam_ms_per_step, device) -> dict:
+    """``decode/logits_process.py::sequence_bias`` (plain PyTorch, run on
+    every beam step of a biased decode) at the beam step's shape: the same
+    bits on the card as on the CPU for the CLI's spec and for one whose
+    sums round, and its ms per call beside the beam step's."""
+    from neuspeech1_tpu_torch.cli import common
+    from neuspeech1_tpu_torch.decode.logits_process import (SequenceBiasSpec,
+                                                            sequence_bias)
+    from neuspeech1_tpu_torch.data.synthetic import _WORDS
+    from neuspeech1_tpu_torch.decode.sequence_bias import build_sequence_bias
+
+    tok = common.resolve_tokenizer(tokenizer_spec, config)
+    spec = build_sequence_bias(train_manifest, tok, bias=EVAL_BIAS_WEIGHTS[0])
+    gen = torch.Generator().manual_seed(0)
+    logits = torch.randn((EVAL_BIAS_ROWS, config.vocab_size), generator=gen)
+    # token ids of the corpus's words (the vocabulary's first entries)
+    tokens = torch.randint(0, len(_WORDS),
+                           (EVAL_BIAS_ROWS, 4 + EVAL_NEW_TOKENS),
+                           generator=gen)
+    out = {"entries": int(spec.seqs.shape[0]),
+           "max_entry_len": int(spec.seqs.shape[1])}
+    for weight in EVAL_BIAS_WEIGHTS:
+        s = SequenceBiasSpec.build({
+            tuple(x for x in row if x >= 0): weight
+            for row in spec.seqs.tolist()})
+        cpu = sequence_bias(logits, tokens, EVAL_BIAS_CUR_LEN, s)
+        dev_logits, dev_tokens = logits.to(device), tokens.to(device)
+        card_out = sequence_bias(dev_logits, dev_tokens, EVAL_BIAS_CUR_LEN, s)
+        torch.cuda.synchronize()
+        moved = int((cpu != logits).sum())
+        same = bool(torch.equal(cpu, card_out.cpu()))
+        check(moved > 0, f"eval: sequence bias {weight} moved no score")
+        check(same, f"eval: sequence_bias {weight}: card and CPU bits differ")
+        out[f"bias_{weight}"] = {
+            "scores_moved": moved, "same_bits_card_cpu": same,
+            "ordered_sum": s.tables("cpu")[-1] is not None,
+            "ms": cuda_ms(lambda: sequence_bias(
+                dev_logits, dev_tokens, EVAL_BIAS_CUR_LEN, s))}
+    out["beam_ms_per_step"] = beam_ms_per_step
+    return out
+
+
+def phase_eval(model, bm, device: str = "cuda") -> dict:
+    """The eval CLI (``neuspeech1_tpu_torch.cli.evaluation``) in process at
+    whisper-base width: a manifest of EVAL_CLIPS synthetic clips, the CLI's
+    defaults (beam 5, repetition penalty 5.0, no-repeat-ngram 2, batch 16,
+    128 new tokens) at ``--pipeline_depth 2`` with ``--per_sentence`` and
+    ``--timing``. Checks K1/K6/K7 launches against the model calls, that the
+    predictions equal ``generate`` on the same batches, that depth 1 writes
+    the same files, that a ``--sequence_bias`` run finishes, and that
+    ``sequence_bias`` gives the same bits on the card as on the CPU."""
+    from neuspeech1_tpu_torch.data.native_loader import native_available
+    from neuspeech1_tpu_torch.metrics import meteor
+
+    config, model_dir, _ = model
+    tmp = os.path.dirname(model_dir)
+    corpus, tokenizer = _eval_corpus(tmp, config.eot_id)
+    manifest = os.path.join(corpus, "all.jsonl")
+    base = [f"--test_data={manifest}", f"--model_path={model_dir}",
+            f"--tokenizer={tokenizer}", "--eeg_ch=208",
+            f"--batch_size={EVAL_BATCH}",
+            f"--max_new_tokens={EVAL_NEW_TOKENS}", "--per_sentence=True",
+            "--timing=True", f"--device={device}"]
+    out_dirs = {d: os.path.join(tmp, f"eval_out_depth{d}") for d in (2, 1)}
+
+    _reset_counts()
+    with count_model_calls() as calls:
+        run = _run_eval(base + ["--pipeline_depth=2",
+                                f"--output_dir={out_dirs[2]}"])
+    launches = _kernel_counts()
+    _check_serving_launches("eval", config, calls, launches)
+    files = _result_files(out_dirs[2])
+    rows = [json.loads(ln) for ln in
+            files["all_beam5.jsonl"].decode().splitlines()]
+    check(len(rows) == EVAL_CLIPS, f"eval: {len(rows)} rows for "
+          f"{EVAL_CLIPS} clips")
+    check(set(files) == {"all_beam5.txt", "all_beam5.jsonl",
+                         "all_beam5.json", "all_beam5_per_sentence.jsonl"},
+          f"eval: result files {sorted(files)}")
+    metrics = run["metrics"]
+    check(all(math.isfinite(float(v)) for v in metrics.values()),
+          f"eval: non-finite metric {metrics}")
+    check(all(r["label"] for r in rows), "eval: a label did not tokenize")
+
+    depth1 = _run_eval(base + ["--pipeline_depth=1",
+                               f"--output_dir={out_dirs[1]}"])
+    check(_result_files(out_dirs[1]) == files,
+          "eval: --pipeline_depth 1 wrote other files than depth 2")
+    py_dir = os.path.join(tmp, "eval_out_python_loader")
+    with _native_loader_off():
+        py_loader = _run_eval(base + ["--pipeline_depth=2",
+                                      f"--output_dir={py_dir}"])
+    check(any(ln == "[evaluation] native loader: False"
+              for ln in py_loader["lines"]),
+          "eval: the native clip reader ran when switched off")
+    check(_result_files(py_dir) == files,
+          "eval: the Python clip reader wrote other files than the native")
+    direct = _direct_preds(model_dir, tokenizer, manifest, device)
+    check([r["pred"] for r in rows] == direct,
+          "eval: the CLI's predictions differ from generate's on the same "
+          "batches")
+    train = os.path.join(corpus, "train.jsonl")
+    biased = _run_eval(base + ["--sequence_bias=True",
+                               f"--train_data={train}",
+                               f"--output_dir={os.path.join(tmp, 'eval_bias')}"])
+    bias = _check_sequence_bias(train, tokenizer, config,
+                                bm["ms_per_step"], device)
+    check(_jax_free(), "jax or the JAX package was imported")
+    timing = run["timing"]
+    out = {
+        "phase": "eval", "model": "whisper-base", "stem": "base/208",
+        "dtype": config.dtype, "clips": EVAL_CLIPS, "batch_size": EVAL_BATCH,
+        "max_new_tokens": EVAL_NEW_TOKENS, **BEAM_SETTINGS,
+        "timing_s": timing, "wall_s": run["wall_s"],
+        "utterances_per_s_decode": EVAL_CLIPS / timing["decode"],
+        "utterances_per_s_end_to_end": EVAL_CLIPS / timing["total"],
+        "depth1_timing_s": depth1["timing"], "depth1_wall_s": depth1["wall_s"],
+        "depth1_same_files": True,
+        "python_loader_timing_s": py_loader["timing"],
+        "python_loader_same_files": True,
+        "bias_run_timing_s": biased["timing"],
+        # the biased decode phase over the median of the three unbiased
+        # runs' in this call
+        "bias_decode_ratio": biased["timing"]["decode"] / sorted(
+            r["timing"]["decode"] for r in (run, depth1, py_loader))[1],
+        "native_loader": native_available(),
+        "metrics": metrics, "meteor_stages": meteor.stages(),
+        "launches": launches, "model_calls": calls,
+        "preds_equal_generate": True, "sequence_bias": bias,
+        "sample_pred": rows[0]["pred"][:80], "card": card(),
+    }
+    emit(out)
+    return out
+
+
 def _probe_variants():
     """Every variant of the TPU probes' sweeps, through the port's probe
     entry points (``neuspeech1_tpu_torch/perf``): dicts of the JAX tag, the
@@ -2657,12 +2924,12 @@ def phase_ring(tr) -> dict:
     return out
 
 
-def summary(kernels, sl, bm, sp, tr, rg, pr) -> dict:
+def summary(kernels, sl, bm, sp, tr, rg, pr, ev) -> dict:
     """One entry per kernel: launches on its path (training for K1, K2, K3;
     the sequence-parallel training step for K4; beam serving for K6, K7;
     speculative serving with the self-prefix drafter for K8; the perf
-    probes' full-shape sweep for the probe kernels; greedy serving beside
-    them), the error and the times of its case at that path's shape, its
+    probes' full-shape sweep for the probe kernels; greedy serving, and for
+    K1, K6 and K7 the eval CLI's run (``eval_launches``), beside them), the error and the times of its case at that path's shape, its
     bound and the library call's time (for a probe kernel, of one variant
     named in ``case``, with every variant's ms beside)."""
     def first(kernel, case):
@@ -2720,6 +2987,7 @@ def summary(kernels, sl, bm, sp, tr, rg, pr) -> dict:
          "source": src + "flash_fwd_btc.cu", "replaces": fa_py + ":494",
          "launches": launches["K1"], "serving_launches": sl["launches"]["K1"],
          "beam_launches": bm["launches"]["K1"],
+         "eval_launches": ev["launches"]["K1"],
          "max_abs_err": k1["o_max_abs_err"], **timing(k1)},
         {"name": "flash_bwd_btc (K2)", "route": "cuda",
          "source": src + "flash_bwd_btc.cu", "replaces": fa_py + ":599",
@@ -2755,6 +3023,7 @@ def summary(kernels, sl, bm, sp, tr, rg, pr) -> dict:
          "source": src + "decode_cross.cu", "replaces": fa_py + ":869",
          "launches": bm["launches"]["K6"],
          "greedy_launches": sl["launches"]["K6"],
+         "eval_launches": ev["launches"]["K6"],
          "max_abs_err": k6["max_abs_err"], **timing(k6),
          **device(k6)},
         # the [B, T, H*D] cache entry: no serving path holds that layout,
@@ -2769,6 +3038,7 @@ def summary(kernels, sl, bm, sp, tr, rg, pr) -> dict:
          "replaces": "neuspeech1_tpu/ops/decode_step.py:106",
          "launches": bm["launches"]["K7"],
          "greedy_launches": sl["launches"]["K7"],
+         "eval_launches": ev["launches"]["K7"],
          "max_abs_err": k7["max_abs_err"], **timing(k7), **device(k7)},
         {"name": "decode_step_multi (K8)", "route": "cuda",
          "source": src + "decode_step_multi.cu",
@@ -2805,11 +3075,12 @@ def main(argv) -> int:
         bm = phase_beam(model)
         sp = phase_spec(model)
         phase_lora(model)
+        ev = phase_eval(model, bm)
     tr = phase_train()
     rg = phase_ring(tr)
     pr = phase_probes()
     phase_bench()
-    emit(summary(kernels, sl, bm, sp, tr, rg, pr))
+    emit(summary(kernels, sl, bm, sp, tr, rg, pr, ev))
     print(card(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

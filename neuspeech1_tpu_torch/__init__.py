@@ -7,11 +7,14 @@ or self-speculative greedy in ``decode.spec``) -> ``models.whisper``
 cached decoder through the decode kernels in ``csrc/decode_cross.cu``,
 ``csrc/decode_step.cu`` and ``csrc/decode_step_multi.cu``). Training:
 ``train.trainstep`` (LoRA step through the flash backward and LoRA adapter
-backward kernels). The package imports ``torch`` and never ``jax``, and
-nothing of the JAX package ``neuspeech1_tpu``: it keeps its own copies of
-the modules it needs (``config``, ``utils.tokenizer``,
-``models.convert.load_npz``, ``models.quantize.quantize_int8``,
-``data.manifest.read_jsonlines``).
+backward kernels). Evaluation: ``cli.evaluation`` (manifest ->
+``data.dataset``/``collate``/``loader`` -> ``decode.generate`` with the
+sequence bias of ``decode.sequence_bias`` -> ``metrics.battery`` -> result
+files). The package imports ``torch`` and never ``jax``, and nothing of
+the JAX package ``neuspeech1_tpu``: it keeps its own copies of the modules
+it needs (``config``, ``utils.{tokenizer,args,text,zh_t2s}``,
+``models.convert.load_npz``, ``models.quantize.quantize_int8``, ``data``,
+``metrics``, ``decode.{yake,sequence_bias}``).
 """
 
 __version__ = "0.1.0"

@@ -10,13 +10,18 @@ only bound XLA's fixed buffer shapes; tokens are the same without them, so
 they are not ported. `generate` also dispatches self-speculative greedy
 decoding (``spec_gamma >= 2``, ``decode/spec.py``). Sampling, beam-sample and
 contrastive search raise here until they are ported (ROADMAP.md queue 1).
+Greedy and beam search take a sequence bias (``bias_spec``, built by
+``decode/sequence_bias.py``), applied last in the processor chain; the eval
+CLI's teacher forcing is `teacher_forcing_predict`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import List, Tuple
 
+import numpy as np
 import torch
 
 from neuspeech1_tpu_torch.config import WhisperConfig
@@ -70,11 +75,33 @@ class GenerationConfig:
         return GenerationConfig(**kw)
 
 
+def load_hf_generation_defaults(path: str) -> dict:
+    """The suppress / begin-suppress token lists of a local HF
+    ``generation_config.json`` (real whisper checkpoints ship a fixed list
+    of non-speech ids there), as `GenerationConfig` kwargs."""
+    with open(path) as f:
+        cfg = json.load(f)
+    out = {}
+    if cfg.get("suppress_tokens"):
+        out["suppress_ids"] = tuple(cfg["suppress_tokens"])
+    if cfg.get("begin_suppress_tokens"):
+        out["begin_suppress_ids"] = tuple(cfg["begin_suppress_tokens"])
+    return out
+
+
+def build_prompt(tokenizer, language="english", task="transcribe",
+                 timestamps=False) -> np.ndarray:
+    """Decoder prompt <|sot|><|lang|><|task|>[<|nots|>] as a [1, P] int32
+    array; the per-sample non-English path passes labels[:, :4] instead."""
+    return np.asarray([tokenizer.prefix_tokens(language, task, timestamps)],
+                      dtype=np.int32)
+
+
 def _process_logits(logits, tokens, cur_len: int, gen: GenerationConfig,
-                    prompt_len: int, seen):
-    """The processor chain in HF's order. ``seen`` is the loop's
-    incrementally kept seen-token set (None when there is no repetition
-    penalty)."""
+                    prompt_len: int, seen, bias_spec=None):
+    """The processor chain in HF's order, the sequence bias last.
+    ``seen`` is the loop's incrementally kept seen-token set (None when
+    there is no repetition penalty)."""
     logits = logits.float()
     logits = lp.suppress_tokens(logits, gen.suppress_ids)
     logits = lp.suppress_tokens_at_begin(logits, cur_len, prompt_len,
@@ -83,17 +110,18 @@ def _process_logits(logits, tokens, cur_len: int, gen: GenerationConfig,
                                      gen.min_new_tokens, gen.eos_id)
     logits = lp.repetition_penalty_from_seen(logits, seen,
                                              gen.repetition_penalty)
-    return lp.no_repeat_ngram(logits, tokens, cur_len,
-                              gen.no_repeat_ngram_size)
+    logits = lp.no_repeat_ngram(logits, tokens, cur_len,
+                                gen.no_repeat_ngram_size)
+    return lp.sequence_bias(logits, tokens, cur_len, bias_spec)
 
 
 @torch.no_grad()
 def greedy_decode(model: tw.Whisper, features, prompt_ids,
-                  gen: GenerationConfig, lora=None):
+                  gen: GenerationConfig, lora=None, bias_spec=None):
     """features [B, ch, T], prompt_ids [B, P] -> tokens [B, max_length]
     (prompt, generated tokens, then ``pad_id``). ``lora``: an unmerged
     adapter tree (``models/lora.py``) applied in the encoder and in every
-    decoder call."""
+    decoder call; ``bias_spec``: a `logits_process.SequenceBiasSpec`."""
     enc = tw.encoder_apply(model, features, lora)
     b, p = prompt_ids.shape
     length = gen.max_length
@@ -109,7 +137,8 @@ def greedy_decode(model: tw.Whisper, features, prompt_ids,
             if gen.repetition_penalty != 1.0 else None)
     finished = torch.zeros(b, dtype=torch.bool, device=enc.device)
     for cur_len in range(p, length):
-        scores = _process_logits(last, tokens, cur_len, gen, p, seen)
+        scores = _process_logits(last, tokens, cur_len, gen, p, seen,
+                                 bias_spec)
         nxt = torch.where(finished, gen.pad_id, scores.argmax(dim=-1))
         tokens[:, cur_len] = nxt
         finished |= nxt == gen.eos_id
@@ -146,7 +175,7 @@ def _gather_beams(layers: List[dict], beam_idx, batch: int, k: int):
 
 @torch.no_grad()
 def beam_search(model: tw.Whisper, features, prompt_ids,
-                gen: GenerationConfig, lora=None):
+                gen: GenerationConfig, lora=None, bias_spec=None):
     """HF-semantics beam search (transformers 4.57 ``_beam_search``), the
     port of the JAX package's ``beam_search`` without sampling. Returns
     (tokens [B, max_length], scores [B]) of the best hypothesis per
@@ -165,8 +194,9 @@ def beam_search(model: tw.Whisper, features, prompt_ids,
     the sticky per-utterance improvement bit is false everywhere, when
     every candidate hit, or (``early_stopping``) when every slot is
     finished. There is no post-loop alive fold: running beams finalize
-    through the max-length hit of the last step, as in HF. ``lora``: as
-    in `greedy_decode`."""
+    through the max-length hit of the last step, as in HF. ``lora`` and
+    ``bias_spec`` (applied to the log-probs of the B*K rows): as in
+    `greedy_decode`."""
     b, p = prompt_ids.shape
     k = gen.num_beams
     length = gen.max_length
@@ -206,7 +236,7 @@ def beam_search(model: tw.Whisper, features, prompt_ids,
     for cur_len in range(p, length):
         logp = torch.log_softmax(last.float(), dim=-1)
         logp = _process_logits(logp, tokens.view(b * k, length), cur_len, gen,
-                               p, seen)
+                               p, seen, bias_spec)
         total = alive_logp.reshape(b * k, 1) + logp       # [B*K, V]
         row_vals, row_ids = _top_k(total, 2 * k)          # [B*K, 2K]
         top_vals, pool_idx = _top_k(row_vals.reshape(b, 2 * k * k), 2 * k)
@@ -264,13 +294,22 @@ def beam_search(model: tw.Whisper, features, prompt_ids,
     return fin_seq[:, 0], fin_scores[:, 0]
 
 
+@torch.no_grad()
+def teacher_forcing_predict(model: tw.Whisper, features, decoder_input_ids,
+                            lora=None):
+    """Argmax under a gold prefix (reference `evaluation.py:387-404`):
+    [B, T] token ids, position t predicting the label at t."""
+    return tw.forward(model, features, decoder_input_ids, lora).argmax(dim=-1)
+
+
 def generate(model: tw.Whisper, features, prompt_ids, gen: GenerationConfig,
-             lora=None, draft_table=None):
+             lora=None, draft_table=None, bias_spec=None):
     """Mode dispatch as in the JAX package; greedy, beam search (without
     sampling) and self-speculative greedy (``spec_gamma >= 2``, drafting
     from ``draft_table`` when given, see `decode.spec.spec_greedy_decode`)
-    are ported, each with the unmerged adapter tree ``lora``. Returns
-    tokens [B, max_length]."""
+    are ported, each with the unmerged adapter tree ``lora``; greedy and
+    beam search with the sequence bias ``bias_spec``, which speculative
+    decoding refuses. Returns tokens [B, max_length]."""
     if gen.spec_gamma >= 2 and (
             gen.do_sample or gen.num_beams > 1
             or (gen.penalty_alpha > 0 and gen.top_k > 1)):
@@ -284,12 +323,16 @@ def generate(model: tw.Whisper, features, prompt_ids, gen: GenerationConfig,
         raise NotImplementedError(
             "sampling and beam-sample are not ported yet (ROADMAP.md queue 1)")
     if gen.num_beams > 1:
-        return beam_search(model, features, prompt_ids, gen, lora)[0]
+        return beam_search(model, features, prompt_ids, gen, lora,
+                           bias_spec)[0]
     if gen.spec_gamma >= 2:
+        if bias_spec is not None:
+            raise NotImplementedError(
+                "spec_gamma does not compose with sequence bias")
         # imported here: decode.spec builds on this module
         from neuspeech1_tpu_torch.decode.spec import spec_greedy_decode
 
         return spec_greedy_decode(model, features, prompt_ids, gen,
                                   gamma=gen.spec_gamma, lora=lora,
                                   draft_table=draft_table)[0]
-    return greedy_decode(model, features, prompt_ids, gen, lora)
+    return greedy_decode(model, features, prompt_ids, gen, lora, bias_spec)

@@ -10,6 +10,8 @@ the walk below is generic: ``nn.Linear`` weights are transposed to
 
 ``save_npz`` writes the ``/``-joined leaf names that ``load_npz`` (the
 port's copy of the JAX package's reader) reads back into a tree.
+``params_from_hf_state_dict`` (the port's copy of the JAX package's) builds
+the tree from an HF whisper state dict (torch tensors or numpy arrays).
 ``lora_from_params`` / ``params_from_lora`` do the same for adapter trees:
 the JAX package stacks each entry's leaves on ``[L, ...]``, the port keeps a
 list of per-layer entries (``models/lora.py``).
@@ -17,7 +19,7 @@ list of per-layer entries (``models/lora.py``).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -163,6 +165,97 @@ def save_npz(path: str, params: Params) -> None:
 
     walk(params, "")
     np.savez(path, **flat)
+
+
+def _hf_get(sd: Mapping, name: str) -> np.ndarray:
+    if name not in sd:
+        raise KeyError(f"missing weight: {name}")
+    x = sd[name]
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _hf_linear(sd, pattern: str, n: int, bias: bool = True) -> Params:
+    p = {"w": np.stack([_hf_get(sd, pattern.format(i) + ".weight").T
+                        for i in range(n)])}
+    if bias:
+        p["b"] = np.stack([_hf_get(sd, pattern.format(i) + ".bias")
+                           for i in range(n)])
+    return p
+
+
+def _hf_ln(sd, pattern: str, n: int) -> Params:
+    return {key: np.stack([_hf_get(sd, f"{pattern.format(i)}.{hf}")
+                           for i in range(n)])
+            for key, hf in (("scale", "weight"), ("bias", "bias"))}
+
+
+def _hf_attn(sd, prefix: str, n: int) -> Params:
+    return {"q": _hf_linear(sd, prefix + ".q_proj", n),
+            "k": _hf_linear(sd, prefix + ".k_proj", n, bias=False),
+            "v": _hf_linear(sd, prefix + ".v_proj", n),
+            "out": _hf_linear(sd, prefix + ".out_proj", n)}
+
+
+def _hf_conv(sd, name: str) -> Params:
+    return {"w": _hf_get(sd, name + ".weight"), "b": _hf_get(sd, name + ".bias")}
+
+
+def _hf_stem(sd, stem: StemConfig) -> Params:
+    """conv1's names follow the stem module: 'speech' and 'replace' ->
+    model.encoder.conv1.*; 'base' -> a Sequential, conv1.0.* and conv1.2.*
+    (gelu at index 1); 'premel' -> pre_conv1.* and the original conv1."""
+    if stem.kind in ("speech", "replace"):
+        key = "conv1" if stem.kind == "speech" else "conv"
+        return {key: _hf_conv(sd, "model.encoder.conv1")}
+    if stem.kind == "base":
+        return {"conv_a": _hf_conv(sd, "model.encoder.conv1.0"),
+                "conv_b": _hf_conv(sd, "model.encoder.conv1.2")}
+    if stem.kind == "premel":
+        return {"pre_conv": _hf_conv(sd, "pre_conv1"),
+                "conv1": _hf_conv(sd, "model.encoder.conv1")}
+    raise ValueError(stem.kind)
+
+
+def params_from_hf_state_dict(sd: Mapping, config: WhisperConfig,
+                              stem: StemConfig) -> Params:
+    """The JAX-layout tree (numpy leaves) of an HF whisper state dict:
+    linears transposed to [in, out], per-layer tensors stacked on [L],
+    ``proj_out`` tied to the token embedding. Raises KeyError on a missing
+    weight (a stock speech checkpoint has no EEG stem)."""
+    ne, nd = config.encoder_layers, config.decoder_layers
+    e, d = "model.encoder.layers.{}", "model.decoder.layers.{}"
+    encoder = {
+        "stem": _hf_stem(sd, stem),
+        "conv2": _hf_conv(sd, "model.encoder.conv2"),
+        "pos_embed": _hf_get(sd, "model.encoder.embed_positions.weight"),
+        "layers": {
+            "self_attn": _hf_attn(sd, e + ".self_attn", ne),
+            "self_attn_ln": _hf_ln(sd, e + ".self_attn_layer_norm", ne),
+            "fc1": _hf_linear(sd, e + ".fc1", ne),
+            "fc2": _hf_linear(sd, e + ".fc2", ne),
+            "final_ln": _hf_ln(sd, e + ".final_layer_norm", ne),
+        },
+        "ln_post": {"scale": _hf_get(sd, "model.encoder.layer_norm.weight"),
+                    "bias": _hf_get(sd, "model.encoder.layer_norm.bias")},
+    }
+    decoder = {
+        "token_embed": _hf_get(sd, "model.decoder.embed_tokens.weight"),
+        "pos_embed": _hf_get(sd, "model.decoder.embed_positions.weight"),
+        "layers": {
+            "self_attn": _hf_attn(sd, d + ".self_attn", nd),
+            "self_attn_ln": _hf_ln(sd, d + ".self_attn_layer_norm", nd),
+            "cross_attn": _hf_attn(sd, d + ".encoder_attn", nd),
+            "cross_attn_ln": _hf_ln(sd, d + ".encoder_attn_layer_norm", nd),
+            "fc1": _hf_linear(sd, d + ".fc1", nd),
+            "fc2": _hf_linear(sd, d + ".fc2", nd),
+            "final_ln": _hf_ln(sd, d + ".final_layer_norm", nd),
+        },
+        "ln": {"scale": _hf_get(sd, "model.decoder.layer_norm.weight"),
+               "bias": _hf_get(sd, "model.decoder.layer_norm.bias")},
+    }
+    return {"encoder": encoder, "decoder": decoder}
 
 
 def lora_from_params(tree: Params, device="cuda") -> Params:

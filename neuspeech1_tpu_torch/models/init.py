@@ -29,10 +29,37 @@ def sinusoids(length: int, channels: int) -> torch.Tensor:
     return torch.cat([t.sin(), t.cos()], dim=1).float()
 
 
+def init_stem(config: WhisperConfig, stem: StemConfig, seed: int = 0,
+              generator=None):
+    """The projection stem's tree alone: convs ~ N(0, 0.02), zero biases,
+    drawn from ``generator`` (or a new one seeded with ``seed``). The stem
+    swap of a stock speech checkpoint (`cli/common.py::load_base_params`)
+    takes it; `init_params` draws its stem through it first."""
+    gen = generator or torch.Generator().manual_seed(seed)
+    d = config.d_model
+
+    def conv(c_out, c_in, k):
+        return {"w": torch.randn((c_out, c_in, k), generator=gen) * INIT_STD,
+                "b": torch.zeros(c_out)}
+
+    if stem.kind == "speech":
+        return {"conv1": conv(d, config.num_mel_bins, 3)}
+    if stem.kind == "base":
+        return {"conv_a": conv(d, stem.in_channels, 3),
+                "conv_b": conv(d, d, 3)}
+    if stem.kind == "replace":
+        return {"conv": conv(d, stem.in_channels, 3)}
+    if stem.kind == "premel":
+        return {"pre_conv": conv(config.num_mel_bins, stem.in_channels, 5),
+                "conv1": conv(d, config.num_mel_bins, 3)}
+    raise ValueError(stem.kind)
+
+
 def init_params(config: WhisperConfig, stem: StemConfig, seed: int = 0):
     """The full tree of float32 CPU tensors, layers stacked on dim 0."""
     gen = torch.Generator().manual_seed(seed)
     d = config.d_model
+    stem_p = init_stem(config, stem, generator=gen)
 
     def nrm(*shape):
         return torch.randn(shape, generator=gen) * INIT_STD
@@ -52,19 +79,6 @@ def init_params(config: WhisperConfig, stem: StemConfig, seed: int = 0):
     def attn(n):
         return {"q": linear(d, d, n), "k": linear(d, d, n, bias=False),
                 "v": linear(d, d, n), "out": linear(d, d, n)}
-
-    if stem.kind == "speech":
-        stem_p = {"conv1": conv(d, config.num_mel_bins, 3)}
-    elif stem.kind == "base":
-        stem_p = {"conv_a": conv(d, stem.in_channels, 3),
-                  "conv_b": conv(d, d, 3)}
-    elif stem.kind == "replace":
-        stem_p = {"conv": conv(d, stem.in_channels, 3)}
-    elif stem.kind == "premel":
-        stem_p = {"pre_conv": conv(config.num_mel_bins, stem.in_channels, 5),
-                  "conv1": conv(d, config.num_mel_bins, 3)}
-    else:
-        raise ValueError(stem.kind)
 
     ne, nd = config.encoder_layers, config.decoder_layers
     encoder = {

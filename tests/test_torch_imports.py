@@ -85,6 +85,25 @@ SCRIPT = textwrap.dedent("""
         assert len(texts) == 3, texts
         check_clean("int8-cache Transcriber")
 
+        # the eval CLI end to end on the CPU: manifest, native or Python
+        # loader, beam decode with a sequence bias, metrics, result files
+        from neuspeech1_tpu_torch.cli import evaluation
+        from neuspeech1_tpu_torch.data.synthetic import make_synthetic_corpus
+        corpus = os.path.join(tmp, "corpus")
+        make_synthetic_corpus(corpus, n_clips=5, n_channels=4, seed=1,
+                              min_dur=0.5, max_dur=1.0, with_audio=False)
+        metrics = evaluation.main([
+            f"--test_data={corpus}/all.jsonl", f"--model_path={tmp}",
+            "--eeg_ch=4", "--batch_size=2", "--max_new_tokens=4",
+            "--num_beams=3", "--max_audio_len=2.0", "--per_sentence=True",
+            "--sequence_bias=True", f"--train_data={corpus}/train.jsonl",
+            "--device=cpu", f"--output_dir={tmp}/eval"])
+        assert "wer" in metrics and "meteor" in metrics, metrics
+        assert sorted(os.listdir(f"{tmp}/eval")) == [
+            "all_beam3.json", "all_beam3.jsonl", "all_beam3.txt",
+            "all_beam3_per_sentence.jsonl"], os.listdir(f"{tmp}/eval")
+        check_clean("eval CLI")
+
     # one LoRA training step (fold_lora, the 'fc' regime) on the CPU
     from neuspeech1_tpu_torch.models.convert import module_from_params
     from neuspeech1_tpu_torch.models.lora import init_lora
@@ -94,7 +113,25 @@ SCRIPT = textwrap.dedent("""
             "neuspeech1_tpu_torch.train.trainstep",
             "neuspeech1_tpu_torch.decode.spec",
             "neuspeech1_tpu_torch.models.quantize",
-            "neuspeech1_tpu_torch.data.manifest"} <= set(names)
+            "neuspeech1_tpu_torch.data.manifest",
+            "neuspeech1_tpu_torch.cli.evaluation",
+            "neuspeech1_tpu_torch.data.collate",
+            "neuspeech1_tpu_torch.data.dataset",
+            "neuspeech1_tpu_torch.data.loader",
+            "neuspeech1_tpu_torch.data.native_loader",
+            "neuspeech1_tpu_torch.data.synthetic",
+            "neuspeech1_tpu_torch.decode.sequence_bias",
+            "neuspeech1_tpu_torch.decode.yake",
+            "neuspeech1_tpu_torch.metrics.battery",
+            "neuspeech1_tpu_torch.metrics.bertscore",
+            "neuspeech1_tpu_torch.metrics.bleu",
+            "neuspeech1_tpu_torch.metrics.edit",
+            "neuspeech1_tpu_torch.metrics.meteor",
+            "neuspeech1_tpu_torch.metrics.perplexity",
+            "neuspeech1_tpu_torch.metrics.rouge",
+            "neuspeech1_tpu_torch.utils.args",
+            "neuspeech1_tpu_torch.utils.text",
+            "neuspeech1_tpu_torch.utils.zh_t2s"} <= set(names)
     model = module_from_params(init_params(config, stem, seed=0), config,
                                stem, device="cpu", dtype=torch.float32)
     tx = optimizer.make_optimizer(warmup_steps=0)
