@@ -51,7 +51,21 @@ each printing JSON lines:
             schedule's first steps, finite loss, ms per step and samples/s,
             and one step's gradients at batch 4 against the plain versions
             and against an f32 reference, at two states of the adapters.
-7. ring     sequence-parallel (ring) attention: a LocalRing of 4 threads on
+7. finetune the fine-tune CLI (``neuspeech1_tpu_torch.cli.finetune.main``)
+            in process at whisper-base width and its defaults (AdaLoRA
+            init_r 12 -> target_r 4 with the orthogonality loss,
+            --remat=auto, --device_cache=auto, the fold), batch 64, on 160
+            synthetic 2-10 s clips, 14 steps on a schedule that runs every
+            phase of the rank allocator, eval loss and eval-WER at 7 and
+            14: ms per step beside the train phase's LoRA step, K1/K2/K3
+            launches per step, the allocator's host ms and its budgets,
+            the remat decision and memory plan beside the measured peak,
+            checkpoint saves; a resume from step 14 (bit-exact); 4 steps
+            with remat and rotating device shards; one step's gradients
+            (with and without remat; kernels against the plain versions
+            and f32); merge_lora and the eval CLI on the merged model
+            against the eval CLI on the adapter.
+8. ring     sequence-parallel (ring) attention: a LocalRing of 4 threads on
             the card at whisper-base widths (B=8, T=1536) through K4's
             forward and backward bodies, against K1/K2 on the whole
             sequence at kv_valid_len 1500 and 1000; then the training step
@@ -59,7 +73,7 @@ each printing JSON lines:
             ``parallel/mesh.py`` (whisper-base, batch 64): K4 launches per
             step, ms per step and samples/s beside the train phase's, and
             one step's loss and gradients against the non-SP kernel step.
-8. lora     greedy serving (batch 8, 32 new tokens) through ``generate(...,
+9. lora     greedy serving (batch 8, 32 new tokens) through ``generate(...,
             lora=)`` with unmerged rank-32 adapters on encoder and decoder
             (self-attention q/k/v/out, cross-attention q/out, fc1/fc2):
             K1/K6/K7 launches against the model calls and the request
@@ -67,7 +81,7 @@ each printing JSON lines:
             steps against the plain versions, tokens equal to the plain
             versions' up to near-ties, and that the adapters move the
             logits.
-9. eval     the eval CLI (``neuspeech1_tpu_torch.cli.evaluation.main``) in
+10. eval    the eval CLI (``neuspeech1_tpu_torch.cli.evaluation.main``) in
             process on the same model: a manifest of 48 synthetic 2-10 s
             clips over 208 channels (``data/synthetic.py``), a word
             vocabulary whose first entries are the corpus's words, the
@@ -83,7 +97,7 @@ each printing JSON lines:
             the three unbiased runs'), and that ``sequence_bias`` gives the
             same bits on the card as on the CPU at the beam step's shape
             (timed beside the beam step).
-10. probes  the perf entry points (``neuspeech1_tpu_torch/perf``): every
+11. probes  the perf entry points (``neuspeech1_tpu_torch/perf``): every
             variant of the TPU probes' sweeps (kernel_probe, mxu_probe,
             btc_probe, bwd_probe) held against its plain version at full
             TK and 8 heads, then at the probe's shape (B*H = 512, TK =
@@ -92,7 +106,7 @@ each printing JSON lines:
             and a library call (SDPA, its backward, ``torch.bmm``), each a
             line tagged as the JAX probe tags it; launches of probe_fwd,
             probe_bwd and probe_dot over the full-shape sweep.
-11. bench   ``neuspeech1_tpu_torch.bench`` once in process: its JSON line
+12. bench   ``neuspeech1_tpu_torch.bench`` once in process: its JSON line
             (samples/s, step ms, mfu, greedy decode tokens/s with adapters).
 
 Then it prints the kernel summary (with each kernel's bound: the least time
@@ -368,6 +382,20 @@ BIAS_CASES = (
 # The ring phase: a LocalRing of RING_N threads on the card at whisper-base
 # widths, 1500 frames padded to 1536, and kv_valid_len 1000, which masks the
 # fourth shard entirely
+# The finetune phase: the CLI at its defaults on FT_TRAIN train and FT_VAL
+# val clips (2-10 s, 208 channels), batch 64, its default 128 labels, with a
+# schedule short enough that every phase of the rank allocator runs in
+# FT_STEPS steps (warm-up to step 2, allocations every 2 steps, the pattern
+# frozen at step FT_STEPS - 4); then FT_REMAT_STEPS steps with remat and a
+# FT_ROTATE_MB cache budget (the corpus is about 400 MB in bf16, so its
+# shards rotate), and the eval CLI on FT_EVAL val clips.
+FT_TRAIN, FT_VAL, FT_EVAL = 160, 32, 16
+FT_BATCH, FT_LABEL_LEN, FT_RANK = 64, 128, 12
+FT_STEPS, FT_REMAT_STEPS, FT_ROTATE_MB = 14, 4, 200
+FT_SPLIT_STEPS = 5
+FT_SCHEDULE = ("--adalora_tinit=2", "--adalora_tfinal=4",
+               "--adalora_deltaT=2", "--warmup_steps=2", "--eval_steps=7",
+               "--save_steps=7", "--logging_steps=1", "--eval_wer=True")
 RING_N = 4
 RING_BATCH = 8
 RING_T = 1536
@@ -2924,12 +2952,518 @@ def phase_ring(tr) -> dict:
     return out
 
 
-def summary(kernels, sl, bm, sp, tr, rg, pr, ev) -> dict:
+# --------------------------------------------------------------------------
+# finetune: the fine-tune CLI at its defaults, resume, remat, merge
+# --------------------------------------------------------------------------
+
+def _finetune_corpus(tmp: str, vocab_size: int):
+    """FT_TRAIN + FT_VAL synthetic 2-10 s clips over 208 channels
+    (``data/synthetic.py``), written as their own train and val manifests,
+    the first FT_EVAL val clips as a third, and the eval phase's word
+    vocabulary: (corpus dir, tokenizer spec)."""
+    from neuspeech1_tpu_torch.data.manifest import write_jsonlines
+    from neuspeech1_tpu_torch.data.synthetic import (_WORDS,
+                                                     make_synthetic_corpus)
+
+    root = os.path.join(tmp, "ft_corpus")
+    rows = make_synthetic_corpus(root, n_clips=FT_TRAIN + FT_VAL,
+                                 n_channels=208, min_dur=EVAL_DURATION_S[0],
+                                 max_dur=EVAL_DURATION_S[1], seed=1,
+                                 with_audio=False)
+    write_jsonlines(os.path.join(root, "train.jsonl"), rows[:FT_TRAIN])
+    write_jsonlines(os.path.join(root, "val.jsonl"), rows[FT_TRAIN:])
+    write_jsonlines(os.path.join(root, "eval.jsonl"),
+                    rows[FT_TRAIN:FT_TRAIN + FT_EVAL])
+    vocab = os.path.join(tmp, "ft_vocab.txt")
+    words = list(_WORDS) + [f"w{i}" for i in range(len(_WORDS), vocab_size)]
+    with open(vocab, "w") as f:
+        f.write("\n".join(words) + "\n")
+    return root, f"word:{vocab}"
+
+
+def _step_launches(config) -> dict:
+    """K1, K2 and K3 per training step at FT_LABEL_LEN labels: K1 and K2
+    in every encoder self-attention and every decoder cross-attention (and
+    decoder self-attention from ``decoder_flash_self_min_q`` labels on), K3
+    in every encoder fc adapter."""
+    blocks = config.encoder_layers + config.decoder_layers * (
+        1 + (FT_LABEL_LEN >= config.decoder_flash_self_min_q))
+    return {"K1": blocks, "K2": blocks, "K3": 2 * config.encoder_layers,
+            "K4": 0, "K4_bwd": 0, "K6": 0, "K7": 0, "K8": 0}
+
+
+@contextlib.contextmanager
+def _instrumented_finetune(rec: dict):
+    """Records, while open, what a finetune run does: each train step's
+    wall ms (between two synchronizes) and kernel launches, each
+    ``Trainer._adalora_update``'s host ms (no synchronize inside) and, at
+    an allocation, the kept ranks beside the schedule's budget, each
+    checkpoint save's ms and bytes, and the state a resume restored."""
+    from neuspeech1_tpu_torch.models import lora as tl
+    from neuspeech1_tpu_torch.train import trainer as trmod
+    from neuspeech1_tpu_torch.train import trainstep as ts
+    from neuspeech1_tpu_torch.train.checkpoint import CheckpointManager
+
+    make_step = ts.make_train_step
+    update = trmod.Trainer._adalora_update
+    save = CheckpointManager.save
+    restore = CheckpointManager.restore_latest
+
+    def timed_make_step(*a, **k):
+        step = make_step(*a, **k)
+
+        def timed(state, frozen, batch):
+            torch.cuda.synchronize()
+            before = _kernel_counts()
+            t0 = time.perf_counter()
+            m = step(state, frozen, batch)
+            torch.cuda.synchronize()
+            rec["steps"].append({
+                "step": state.step, "ms": 1e3 * (time.perf_counter() - t0),
+                "launches": {n: c - before[n]
+                             for n, c in _kernel_counts().items()}})
+            return m
+
+        return timed
+
+    def timed_update(self, step_num):
+        pattern = self._adalora_pattern
+        t0 = time.perf_counter()
+        update(self, step_num)
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        lora = self.frozen.lora
+        cfg = self.adalora
+        total = cfg["total_steps"]
+        budget, mask_ind = tl.adalora_budget_schedule(
+            step_num, tl.adalora_total_ranks(lora),
+            cfg["target_r"] * tl.adalora_matrix_count(lora), cfg["tinit"],
+            cfg["tfinal"], total, cfg["deltaT"])
+        allocated = (pattern is None and
+                     (mask_ind or step_num == total - cfg["tfinal"]))
+        entry = {"step": step_num, "host_ms": host_ms,
+                 "allocated": allocated,
+                 "pattern_applied": pattern is not None}
+        if allocated:
+            entry["budget"] = budget
+            entry["kept"] = int(sum(e["mask"].sum().item()
+                                    for _, e in tl.adalora_entries(lora)))
+        rec["adalora"].append(entry)
+
+    def timed_save(self, state, eval_loss=None, force=False):
+        t0 = time.perf_counter()
+        done = save(self, state, eval_loss=eval_loss, force=force)
+        self.wait()
+        path = os.path.join(self.directory, str(int(state.step)), "state.pt")
+        if done and os.path.exists(path):
+            rec["saves"].append({"step": int(state.step),
+                                 "ms": 1e3 * (time.perf_counter() - t0),
+                                 "bytes": os.path.getsize(path)})
+        return done
+
+    def kept_restore(self, state, step=None):
+        out = restore(self, state, step=step)
+        rec["restored"] = {"step": state.step, "trainable": {
+            k: t.detach().to("cpu", copy=True)
+            for k, t in state.trainable.items()}}
+        return out
+
+    ts.make_train_step = timed_make_step
+    trmod.Trainer._adalora_update = timed_update
+    CheckpointManager.save = timed_save
+    CheckpointManager.restore_latest = kept_restore
+    try:
+        yield rec
+    finally:
+        ts.make_train_step = make_step
+        trmod.Trainer._adalora_update = update
+        CheckpointManager.save = save
+        CheckpointManager.restore_latest = restore
+
+
+def _run_finetune(argv) -> dict:
+    """``cli.finetune.main(argv)`` in process, instrumented: the recorded
+    steps, allocations, saves and restore, its [finetune] and [train]
+    lines, the metrics.jsonl records, the final trainable tensors on the
+    host, the peak device memory and the wall time."""
+    import io
+
+    from neuspeech1_tpu_torch.cli import finetune
+
+    rec = {"steps": [], "adalora": [], "saves": [], "restored": None}
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _instrumented_finetune(rec), contextlib.redirect_stdout(buf):
+        state = finetune.main(argv)
+    torch.cuda.synchronize()
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["lines"] = [ln for ln in buf.getvalue().splitlines()
+                    if ln.startswith(("[finetune]", "[train] resumed"))]
+    out_dir = next(a.split("=", 1)[1] for a in argv
+                   if a.startswith("--output_dir="))
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        rec["records"] = [json.loads(ln) for ln in f]
+    rec["final"] = {k: t.detach().to("cpu", copy=True)
+                    for k, t in state.trainable.items()}
+    rec["state_step"] = state.step
+    return rec
+
+
+def _ft_model(base_npz, config, stem, adapter=None, device="cuda"):
+    """(state, frozen) of a training model with f32 masters from the base
+    npz and AdaLoRA adapters (init_r FT_RANK): fresh ones (E = 0) from the
+    CLI's seed, or ``adapter``'s (an adapter_final.npz: the trained tree and
+    the stem overrides)."""
+    from neuspeech1_tpu_torch.cli import common
+    from neuspeech1_tpu_torch.models.convert import (lora_from_params,
+                                                     load_npz,
+                                                     module_from_params)
+    from neuspeech1_tpu_torch.models.lora import init_lora
+    from neuspeech1_tpu_torch.train import optimizer, trainstep
+
+    params = load_npz(base_npz)
+    if adapter is None:
+        lora = init_lora(config, rank=FT_RANK, alpha=32.0, adalora=True,
+                         seed=2, device=device)
+    else:
+        params, lora_np = common.apply_adapter(params,
+                                               common.load_adapter(adapter))
+        lora = lora_from_params(lora_np, device=device)
+    model = module_from_params(params, config, stem, device=device,
+                               dtype=torch.float32)
+    return trainstep.init_train_state(model, lora, optimizer.make_optimizer())
+
+
+def _ft_batch(corpus, tokenizer, config, n: int, device="cuda"):
+    """The first ``n`` train clips collated as the CLI collates them, on
+    the device."""
+    from neuspeech1_tpu_torch.cli import common
+    from neuspeech1_tpu_torch.data.collate import Collator
+    from neuspeech1_tpu_torch.data.dataset import EEGDataset
+    from neuspeech1_tpu_torch.data.device_cache import to_device_batch
+
+    tok = common.resolve_tokenizer(tokenizer, config)
+    ds = EEGDataset(os.path.join(corpus, "train.jsonl"), tok, mode="train",
+                    modal_ch=208, language="English")
+    coll = Collator(pad_id=tok.pad_id, decoder_start_id=config.sot_id,
+                    max_label_len=FT_LABEL_LEN, feature_dtype="bfloat16",
+                    eot_id=config.eot_id)
+    return to_device_batch(coll([ds[i] for i in range(n)]), device)
+
+
+def _remat_grad_check(config, stem, state, frozen, batch) -> dict:
+    """One step's loss and gradients with each encoder layer under a
+    checkpoint (both policies) against the step without, on the kernels:
+    the same bounds as the kernels against the plain versions; K1 runs
+    once per layer under 'flash_qkv' and twice under full recompute."""
+    import dataclasses
+
+    from neuspeech1_tpu_torch.train.trainstep import make_loss_fn
+
+    out = {}
+    ref = None
+    for name, changes in (("none", {}),
+                          ("flash_qkv", {"remat": True,
+                                         "remat_policy": "flash_qkv"}),
+                          ("full", {"remat": True, "remat_policy": None})):
+        c = dataclasses.replace(config, **changes)
+        with _replaced_config(frozen.model, **changes):
+            _reset_counts()
+            loss, grads = _grads(make_loss_fn(c, stem, orth_reg_weight=0.5,
+                                              fold_lora=True),
+                                 state, frozen, batch)
+            counts = _kernel_counts()
+        if ref is None:
+            ref = (loss, grads, counts)
+            continue
+        errs = _leaf_errs(grads, ref[1])
+        out[name] = {"loss": loss, "loss_no_remat": ref[0],
+                     "grad_rel_err": errs["max"], "leaf": errs["leaf"],
+                     "K1": counts["K1"], "K1_no_remat": ref[2]["K1"]}
+        check(errs["max"] <= GRAD_REL_TOL,
+              f"remat {name}: grads off the step without remat: "
+              f"{errs['leaf']} {errs['max']}")
+        check(abs(loss - ref[0]) <= LOSS_TOL * abs(ref[0]),
+              f"remat {name}: loss {loss}, without remat {ref[0]}")
+        extra = 0 if name == "flash_qkv" else config.encoder_layers
+        check(counts["K1"] == ref[2]["K1"] + extra,
+              f"remat {name}: {counts['K1']} K1 launches, expected "
+              f"{ref[2]['K1'] + extra}")
+    return out
+
+
+def _adalora_split(config, stem, state, frozen, batch) -> dict:
+    """Where the AdaLoRA step's time goes, at the CLI's batch and labels on
+    the trained adapters: ms per step (one synchronize after each, median
+    of FT_SPLIT_STEPS after one warm-up) with neither the orthogonality
+    loss nor the importance EMAs, with the loss, and with both; and the
+    loss's forward and backward and one EMA update alone (CUDA events)."""
+    from neuspeech1_tpu_torch.models import lora as tl
+    from neuspeech1_tpu_torch.train import optimizer
+    from neuspeech1_tpu_torch.train.trainstep import make_train_step
+
+    tx = optimizer.make_optimizer()
+    out = {}
+    for name, kw in (("no_orth_no_ema", {}),
+                     ("orth", {"orth_reg_weight": 0.5}),
+                     ("orth_ema", {"orth_reg_weight": 0.5,
+                                   "track_adalora_importance": True})):
+        step = make_train_step(config, stem, tx, fold_lora=True, **kw)
+        ms = []
+        for _ in range(FT_SPLIT_STEPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, frozen, batch)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        out[name] = statistics.median(ms[1:])
+    lora = frozen.lora
+
+    def orth():
+        tl.adalora_orth_loss(lora).backward()
+
+    out["orth_loss_fwd_bwd"] = cuda_ms(orth)
+    for _, e in tl.adalora_entries(lora):
+        for n in ("A", "B"):
+            e[n].grad = None
+    grads = {p: {n: torch.randn_like(e[n]) for n in tl.IPT_NAMES}
+             for p, e in tl.adalora_entries(lora)}
+    out["ema_update"] = cuda_ms(
+        lambda: tl.adalora_ipt_update(state.ipt, lora, grads))
+    return out
+
+
+def _pred_tokens(out_dir) -> list:
+    name = next(f for f in os.listdir(out_dir)
+                if f.endswith(".jsonl") and "per_sentence" not in f)
+    with open(os.path.join(out_dir, name)) as f:
+        return [json.loads(ln)["pred"].split() for ln in f]
+
+
+def phase_finetune(tr, bm, device: str = "cuda") -> dict:
+    """``neuspeech1_tpu_torch.cli.finetune.main`` in process at whisper-base
+    width and its defaults (AdaLoRA init_r 12 -> target_r 4, orthogonality
+    0.5, --remat=auto, --device_cache=auto, the fold), batch 64, on
+    FT_TRAIN + FT_VAL synthetic clips, with a schedule short enough that
+    every phase of the rank allocator runs; then a resume, a run with
+    remat and rotating shards, one step's gradients against the plain
+    versions and f32 (AdaLoRA, orthogonality on), and merge_lora plus the
+    eval CLI on the merged model against the eval CLI on the adapter."""
+    from neuspeech1_tpu_torch.cli import merge_lora
+    from neuspeech1_tpu_torch.models.lora import adalora_budget_schedule
+    from neuspeech1_tpu_torch.train import memory as trainmem
+    from neuspeech1_tpu_torch.train.trainstep import make_loss_fn
+
+    with tempfile.TemporaryDirectory() as tmp:
+        from neuspeech1_tpu_torch.cli import common
+
+        config, model_dir, _ = serving_model(tmp)
+        _, _, stem = common.load_full_model(model_dir)
+        base_npz = os.path.join(model_dir, "params.npz")
+        corpus, tokenizer = _finetune_corpus(tmp, config.eot_id)
+        config = common.resolve_tokenizer(tokenizer, config).config
+        argv = [f"--train_data={corpus}/train.jsonl",
+                f"--val_data={corpus}/val.jsonl",
+                f"--base_model={base_npz}", f"--tokenizer={tokenizer}",
+                "--eeg_ch=208", f"--per_device_train_batch_size={FT_BATCH}",
+                f"--label_max_length={FT_LABEL_LEN}", f"--device={device}",
+                *FT_SCHEDULE]
+        tinit, tfinal, delta_t = 2, 4, 2
+        expect = _step_launches(config)
+
+        # 1. the CLI's defaults, FT_STEPS steps
+        run_dir = os.path.join(tmp, "ft_run")
+        _reset_counts()
+        run = _run_finetune(argv + [f"--max_steps={FT_STEPS}",
+                                    f"--output_dir={run_dir}"])
+        launches = _kernel_counts()
+        for s in run["steps"]:
+            check(s["launches"] == expect, f"finetune step {s['step']}: "
+                  f"launches {s['launches']}, expected {expect}")
+        check(all(launches[k] > 0 for k in ("K1", "K2", "K3", "K6", "K7")),
+              f"finetune: a kernel of the path never launched: {launches}")
+        check(len(run["steps"]) == FT_STEPS, f"finetune: "
+              f"{len(run['steps'])} steps")
+        losses = [r["loss"] for r in run["records"] if "loss" in r]
+        check(all(math.isfinite(x) for x in losses),
+              f"finetune: losses {losses}")
+        evals = [r for r in run["records"] if "eval_loss" in r]
+        check(len(evals) == FT_STEPS // 7 and all(
+            math.isfinite(r["eval_loss"]) and 0 <= r["eval_wer"]
+            for r in evals), f"finetune: evals {evals}")
+        allocs = [a for a in run["adalora"] if a["allocated"]]
+        want = [s for s in range(1, FT_STEPS + 1)
+                if tinit < s <= FT_STEPS - tfinal and s % delta_t == 0]
+        check([a["step"] for a in allocs] == want,
+              f"finetune: allocations at {[a['step'] for a in allocs]}, "
+              f"the schedule says {want}")
+        for a in allocs:
+            check(a["kept"] == a["budget"], f"finetune: {a['kept']} ranks "
+                  f"kept at step {a['step']}, budget {a['budget']}")
+        check(all(a["pattern_applied"] for a in run["adalora"]
+                  if a["step"] > FT_STEPS - tfinal),
+              "finetune: the frozen pattern was not re-applied")
+        corpus_bytes = FT_TRAIN * 208 * 6000 * 2
+        plan = trainmem.train_memory_plan(
+            config, stem, FT_BATCH,
+            trainable_count=trainmem.trainable_count_estimate(
+                config, stem, ft_full=False, adalora=True),
+            corpus_bytes=corpus_bytes, label_len=FT_LABEL_LEN,
+            device=device)
+        timed = [s["ms"] for s in run["steps"][2:]]
+        step_ms = statistics.median(timed)
+
+        # 2. resume from the latest checkpoint, two more steps
+        resumed = _run_finetune(argv + [
+            f"--max_steps={FT_STEPS + 2}", f"--output_dir={run_dir}",
+            "--resume_from_checkpoint=latest"])
+        restored = resumed["restored"]
+        check(restored is not None and restored["step"] == FT_STEPS,
+              f"resume: restored {restored and restored['step']}")
+        check(set(restored["trainable"]) == set(run["final"]) and all(
+            torch.equal(restored["trainable"][k], t)
+            for k, t in run["final"].items()),
+            "resume: the restored tensors differ from the saved ones")
+        check([s["step"] for s in resumed["steps"]] ==
+              [FT_STEPS + 1, FT_STEPS + 2],
+              f"resume: steps {[s['step'] for s in resumed['steps']]}")
+
+        # 3. remat and rotating shards, a fresh run
+        remat_dir = os.path.join(tmp, "ft_remat")
+        remat = _run_finetune(argv + [
+            f"--max_steps={FT_REMAT_STEPS}", f"--output_dir={remat_dir}",
+            "--remat=True", f"--device_cache_budget_mb={FT_ROTATE_MB}",
+            "--eval_wer=False"])
+        check(any("rotating" in ln for ln in remat["lines"]),
+              f"remat run: the corpus did not rotate: {remat['lines']}")
+        for s in remat["steps"]:
+            check(s["launches"] == expect, f"remat step {s['step']}: "
+                  f"launches {s['launches']}, expected {expect}")
+
+        # 4. one step's gradients: remat against none, then the kernels
+        # against the plain versions and f32 at E = 0 and trained
+        batch = _ft_batch(corpus, tokenizer, config, GRAD_CHECK_BATCH,
+                          device)
+        adapter = os.path.join(run_dir, "adapter_final.npz")
+        state, frozen = _ft_model(base_npz, config, stem, adapter, device)
+        remat_check = _remat_grad_check(config, stem, state, frozen, batch)
+        loss_fn = make_loss_fn(config, stem, orth_reg_weight=0.5,
+                               fold_lora=True)
+        checks = [_grad_check("adalora_trained", loss_fn, state, frozen,
+                              batch, expect)]
+        split = _adalora_split(config, stem, state, frozen, _ft_batch(
+            corpus, tokenizer, config, FT_BATCH, device))
+        del state, frozen
+        state, frozen = _ft_model(base_npz, config, stem, device=device)
+        checks.insert(0, _grad_check("adalora_e0", loss_fn, state, frozen,
+                                     batch, expect))
+        del state, frozen
+        torch.cuda.empty_cache()
+
+        # 5. merge, then the eval CLI on the merged model and on the adapter
+        merged = merge_lora.main([
+            f"--lora_model={adapter}", f"--base_model={base_npz}",
+            f"--tokenizer={tokenizer}", "--eeg_ch=208", f"--device={device}",
+            f"--output_dir={os.path.join(tmp, 'ft_merged')}"])
+        eval_common = [f"--test_data={corpus}/eval.jsonl",
+                       f"--tokenizer={tokenizer}", "--eeg_ch=208",
+                       f"--batch_size={EVAL_BATCH}", "--timing=True",
+                       f"--max_new_tokens={EVAL_NEW_TOKENS}",
+                       f"--device={device}"]
+        ev_dirs = {k: os.path.join(tmp, f"ft_eval_{k}")
+                   for k in ("merged", "adapter")}
+        _reset_counts()
+        ev_merged = _run_eval(eval_common + [
+            f"--model_path={merged}", f"--output_dir={ev_dirs['merged']}"])
+        eval_launches = _kernel_counts()
+        ev_adapter = _run_eval(eval_common + [
+            f"--base_model={base_npz}", f"--lora_model={adapter}",
+            f"--output_dir={ev_dirs['adapter']}"])
+        toks = {k: _pred_tokens(d) for k, d in ev_dirs.items()}
+        pairs = [(a, b) for ra, rb in zip(toks["merged"], toks["adapter"])
+                 for a, b in itertools.zip_longest(ra, rb)]
+        share = sum(a == b for a, b in pairs) / max(len(pairs), 1)
+        rows_equal = sum(ra == rb for ra, rb in
+                         zip(toks["merged"], toks["adapter"]))
+        allowance = bm["token_agreement"]["kernels_vs_plain"]["share"]
+        check(len(toks["merged"]) == len(toks["adapter"]) == FT_EVAL,
+              "merge: eval rows")
+        check(share >= allowance, f"merge: tokens of the merged model agree "
+              f"{share} with the adapter's, under the beam phase's "
+              f"kernels-vs-plain {allowance}")
+        check(_jax_free(), "jax or the JAX package was imported")
+
+    first_alloc = FT_STEPS - tfinal
+    n_mats = 6 * config.encoder_layers  # q, k, v, out, fc1, fc2 per layer
+    out = {
+        "phase": "finetune", "model": "whisper-base", "stem": "base/208",
+        "dtype": config.dtype, "masters": "float32", "adalora_init_r": FT_RANK,
+        "adalora_target_r": 4, "orth_reg_weight": 0.5, "fold": "fc",
+        "batch_size": FT_BATCH, "label_len": FT_LABEL_LEN,
+        "train_clips": FT_TRAIN, "val_clips": FT_VAL, "steps": FT_STEPS,
+        "schedule": FT_SCHEDULE, "cli_lines": run["lines"],
+        "memory_plan_gb": {k: v / 2**30 for k, v in plan.items()
+                           if k.endswith("bytes") or k == "total_no_remat"},
+        "memory_plan_fits_no_remat": plan["fits_no_remat"],
+        "peak_mem_gb": run["peak_mem_gb"],
+        "plan_over_peak": (plan["total_no_remat"] / 2**30)
+        / run["peak_mem_gb"],
+        "step_ms": step_ms, "step_ms_all": [s["ms"] for s in run["steps"]],
+        "samples_per_s": FT_BATCH / (step_ms / 1e3),
+        "lora_step_ms": tr["step_ms"],
+        "step_ms_over_lora_step": step_ms / tr["step_ms"],
+        "launches_per_step": run["steps"][-1]["launches"],
+        "launches_per_step_expected": expect, "launches": launches,
+        "adalora_host_ms": {
+            "allocation": [a["host_ms"] for a in allocs],
+            "pattern": [a["host_ms"] for a in run["adalora"]
+                        if a["pattern_applied"]],
+            "other": [a["host_ms"] for a in run["adalora"]
+                      if not a["allocated"] and not a["pattern_applied"]]},
+        "allocations": [{k: a[k] for k in ("step", "budget", "kept")}
+                        for a in allocs],
+        "schedule_budgets": {s: adalora_budget_schedule(
+            s, FT_RANK * n_mats, 4 * n_mats, tinit, tfinal, FT_STEPS,
+            delta_t)[0] for s in want},
+        "frozen_pattern_from_step": first_alloc,
+        "losses": losses, "evals": evals, "saves": run["saves"],
+        "wall_s": run["wall_s"],
+        "resume": {"from_step": restored["step"], "bit_exact": True,
+                   "steps": [s["step"] for s in resumed["steps"]],
+                   "lines": resumed["lines"]},
+        "remat": {"steps": FT_REMAT_STEPS, "budget_mb": FT_ROTATE_MB,
+                  "lines": remat["lines"],
+                  "step_ms": statistics.median(
+                      s["ms"] for s in remat["steps"][1:]),
+                  "step_ms_all": [s["ms"] for s in remat["steps"]],
+                  "peak_mem_gb": remat["peak_mem_gb"],
+                  "no_remat_peak_mem_gb": run["peak_mem_gb"],
+                  "grad_check": remat_check},
+        "grad_rel_err_max": {c["state"]: c["kernels_vs_plain"]["max"]
+                             for c in checks},
+        "adalora_split_ms": split,
+        "merge_eval": {"token_share_equal": share, "rows_equal": rows_equal,
+                       "allowance": allowance, "launches": eval_launches,
+                       "merged_metrics": ev_merged["metrics"],
+                       "adapter_metrics": ev_adapter["metrics"],
+                       "merged_timing_s": ev_merged["timing"]},
+        "jax_imported": not _jax_free(), "card": card(),
+    }
+    emit(out)
+    return out
+
+
+def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft) -> dict:
     """One entry per kernel: launches on its path (training for K1, K2, K3;
     the sequence-parallel training step for K4; beam serving for K6, K7;
     speculative serving with the self-prefix drafter for K8; the perf
     probes' full-shape sweep for the probe kernels; greedy serving, and for
-    K1, K6 and K7 the eval CLI's run (``eval_launches``), beside them), the error and the times of its case at that path's shape, its
+    K1, K6 and K7 the eval CLI's run (``eval_launches``), and for K1, K2,
+    K3, K6 and K7 the finetune CLI's first run (``finetune_launches``, its
+    eval-WER decode's K6 and K7 included) beside them), the error and the
+    times of its case at that path's shape, its
     bound and the library call's time (for a probe kernel, of one variant
     named in ``case``, with every variant's ms beside)."""
     def first(kernel, case):
@@ -2988,11 +3522,13 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev) -> dict:
          "launches": launches["K1"], "serving_launches": sl["launches"]["K1"],
          "beam_launches": bm["launches"]["K1"],
          "eval_launches": ev["launches"]["K1"],
+         "finetune_launches": ft["launches"]["K1"],
          "max_abs_err": k1["o_max_abs_err"], **timing(k1)},
         {"name": "flash_bwd_btc (K2)", "route": "cuda",
          "source": src + "flash_bwd_btc.cu", "replaces": fa_py + ":599",
-         "launches": launches["K2"], "max_abs_err": k2["max_abs_err"],
-         **timing(k2)},
+         "launches": launches["K2"],
+         "finetune_launches": ft["launches"]["K2"],
+         "max_abs_err": k2["max_abs_err"], **timing(k2)},
         # K5: the same two kernels on [B, H, T, D] strides. No path of the
         # port calls that entry; its launches are those of its own run in
         # the kernels phase (counted from 0)
@@ -3007,8 +3543,9 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev) -> dict:
         {"name": "lora_bwd (K3)", "route": "cuda",
          "source": src + "lora_bwd.cu",
          "replaces": "neuspeech1_tpu/ops/lora_bwd.py:47",
-         "launches": launches["K3"], "max_abs_err": k3["max_abs_err"],
-         **timing(k3), **device(k3)},
+         "launches": launches["K3"],
+         "finetune_launches": ft["launches"]["K3"],
+         "max_abs_err": k3["max_abs_err"], **timing(k3), **device(k3)},
         {"name": "flash_fwd_btc_bias (K4 forward)", "route": "cuda",
          "source": src + "flash_fwd_btc.cu", "replaces": fa_py + ":742",
          "launches": sp_launches["K4"],
@@ -3024,6 +3561,7 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev) -> dict:
          "launches": bm["launches"]["K6"],
          "greedy_launches": sl["launches"]["K6"],
          "eval_launches": ev["launches"]["K6"],
+         "finetune_launches": ft["launches"]["K6"],
          "max_abs_err": k6["max_abs_err"], **timing(k6),
          **device(k6)},
         # the [B, T, H*D] cache entry: no serving path holds that layout,
@@ -3039,6 +3577,7 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev) -> dict:
          "launches": bm["launches"]["K7"],
          "greedy_launches": sl["launches"]["K7"],
          "eval_launches": ev["launches"]["K7"],
+         "finetune_launches": ft["launches"]["K7"],
          "max_abs_err": k7["max_abs_err"], **timing(k7), **device(k7)},
         {"name": "decode_step_multi (K8)", "route": "cuda",
          "source": src + "decode_step_multi.cu",
@@ -3077,10 +3616,11 @@ def main(argv) -> int:
         phase_lora(model)
         ev = phase_eval(model, bm)
     tr = phase_train()
+    ft = phase_finetune(tr, bm)
     rg = phase_ring(tr)
     pr = phase_probes()
     phase_bench()
-    emit(summary(kernels, sl, bm, sp, tr, rg, pr, ev))
+    emit(summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft))
     print(card(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,12 +12,20 @@ overrides}`` in the JAX package's stacked [L, ...] layout.
 Base models (``load_base_params``): an ``.npz`` tree, a directory with HF
 torch weights (``model.safetensors`` / ``pytorch_model.bin``, local files
 only) or ``params.npz``, or ``'random'``.
+
+``trainable_tree`` turns a training state into the JAX package's trainable
+partition (what ``save_adapter`` writes), so that each package's
+``merge_lora`` and eval CLI read the other's ``adapter_final.npz``;
+``merge_params`` folds an adapter tree into a parameter tree (the JAX
+package's ``merge_lora``), for ``--lora_model``, ``--export_full_model`` and
+the merge CLI.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -28,7 +36,7 @@ from neuspeech1_tpu_torch.config import (WHISPER_PRESETS, StemConfig,
                                          WhisperConfig, preset_config)
 from neuspeech1_tpu_torch.models.convert import (
     load_npz, lora_from_params, module_from_params, params_from_hf_state_dict,
-    save_npz)
+    params_from_lora, params_from_module, save_npz)
 from neuspeech1_tpu_torch.models.init import init_params, init_stem
 from neuspeech1_tpu_torch.models.lora import merge_lora
 from neuspeech1_tpu_torch.models.whisper import Whisper
@@ -126,6 +134,68 @@ def _load_torch_state_dict(path: str) -> Dict[str, Any]:
 def save_adapter(path: str, trainable) -> None:
     """Save the trainable partition (lora + stem/conv2 overrides) as npz."""
     save_npz(path, trainable)
+
+
+def trainable_tree(trainable: Dict[str, torch.Tensor], model: Whisper,
+                   lora=None) -> Dict[str, Any]:
+    """The trainable partition in the JAX package's layout (float32 numpy
+    leaves, layers stacked on [L, ...], linears [in, out]): ``{"model":
+    the trainable model leaves, "lora": the adapter tree}``, with the keys
+    the JAX CLI saves for the same trainable set. ``trainable`` is a
+    `train.trainstep.TrainState`'s, keyed by path."""
+    wanted = {re.sub(r"/layers/\d+/", "/layers/", p)
+              for p in trainable if p.startswith("model/")}
+
+    def keep(node, prefix):
+        if not isinstance(node, dict):
+            return node if prefix in wanted else None
+        out = {}
+        for k, v in node.items():
+            sub = keep(v, f"{prefix}/{k}")
+            if sub is not None and (not isinstance(sub, dict) or sub):
+                out[k] = sub
+        return out
+
+    tree: Dict[str, Any] = {}
+    model_part = keep(params_from_module(model), "model") if wanted else {}
+    if model_part:
+        tree["model"] = model_part
+    if lora and any(p.startswith("lora/") for p in trainable):
+        tree["lora"] = params_from_lora(lora)
+    return tree
+
+
+def merge_params(params, lora, device="cpu"):
+    """``params`` (numpy or torch leaves, the JAX layout) with ``lora``
+    (the JAX package's stacked adapter tree, LoRA or AdaLoRA) folded in:
+    W + A diag(E) B * alpha / r per adapted linear, in f32 on ``device``
+    with the JAX package's ``merge_lora``'s order of operations; numpy
+    float32 leaves come back for the adapted weights."""
+    def t(x):
+        x = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+            np.array(x, dtype=np.float32))
+        return x.to(device=device, dtype=torch.float32)
+
+    def fold(dst, src):
+        out = dict(dst)
+        for name, entry in src.items():
+            if isinstance(entry, dict) and "A" in entry:
+                a = t(entry["A"])
+                if "E" in entry:
+                    a = a * t(entry["E"]).transpose(1, 2)
+                scale = t(entry["alpha"]) / a.shape[-1]
+                delta = torch.matmul(a, t(entry["B"])) * scale
+                out[name] = {**dst[name],
+                             "w": (t(dst[name]["w"]) + delta).cpu().numpy()}
+            elif isinstance(entry, dict):
+                out[name] = fold(dst[name], entry)
+        return out
+
+    new = dict(params)
+    for part, sub in lora.items():
+        new[part] = {**params[part],
+                     "layers": fold(params[part]["layers"], sub["layers"])}
+    return new
 
 
 def load_adapter(path: str) -> Dict[str, Any]:

@@ -9,6 +9,11 @@ re-creates it via shift_tokens_right; here the collator emits the shifted
 
 Label length is padded to a fixed bucket (multiple of ``pad_to_multiple``,
 or the static ``max_label_len``), as in the JAX package.
+
+``feature_dtype="bfloat16"`` halves the signal's bytes on their way to the
+device. numpy has no bfloat16 here (the JAX package takes it from
+``ml_dtypes``), so those features come back as a torch.bfloat16 tensor,
+rounded from f32 to nearest-even: ``ml_dtypes.bfloat16``'s bits.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from __future__ import annotations
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from neuspeech1_tpu_torch.config import LABEL_IGNORE_ID
 
@@ -28,14 +34,19 @@ class Collator:
         max_label_len: Optional[int] = None,
         pad_to_multiple: int = 8,
         strip_sot: bool = True,
+        feature_dtype: str = "float32",
         eot_id: Optional[int] = None,
     ):
+        if feature_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"feature_dtype {feature_dtype!r}: float32 or "
+                             "bfloat16")
         self.pad_id = pad_id
         self.decoder_start_id = decoder_start_id
         self.max_label_len = max_label_len
         self.pad_to_multiple = pad_to_multiple
         self.strip_sot = strip_sot
         self.eot_id = eot_id
+        self.feature_dtype = feature_dtype
         self.n_truncated = 0  # visible counter: silent truncation skews WER
         self._warned_truncation = False
 
@@ -50,6 +61,8 @@ class Collator:
         feats = np.stack([s["input_features"] for s in samples]).astype(
             np.float32
         )
+        if self.feature_dtype == "bfloat16":
+            feats = torch.from_numpy(feats).to(torch.bfloat16)
         label_lists = []
         for s in samples:
             lab = list(s["labels"])

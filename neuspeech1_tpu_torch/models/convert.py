@@ -11,7 +11,8 @@ the walk below is generic: ``nn.Linear`` weights are transposed to
 ``save_npz`` writes the ``/``-joined leaf names that ``load_npz`` (the
 port's copy of the JAX package's reader) reads back into a tree.
 ``params_from_hf_state_dict`` (the port's copy of the JAX package's) builds
-the tree from an HF whisper state dict (torch tensors or numpy arrays).
+the tree from an HF whisper state dict (torch tensors or numpy arrays), and
+``params_to_hf_state_dict`` the state dict from the tree.
 ``lora_from_params`` / ``params_from_lora`` do the same for adapter trees:
 the JAX package stacks each entry's leaves on ``[L, ...]``, the port keeps a
 list of per-layer entries (``models/lora.py``).
@@ -256,6 +257,77 @@ def params_from_hf_state_dict(sd: Mapping, config: WhisperConfig,
                "bias": _hf_get(sd, "model.decoder.layer_norm.bias")},
     }
     return {"encoder": encoder, "decoder": decoder}
+
+
+def params_to_hf_state_dict(params: Params, stem: StemConfig
+                            ) -> Dict[str, np.ndarray]:
+    """The HF ``WhisperForConditionalGeneration`` state dict (numpy arrays,
+    the JAX package's names) of a JAX-layout tree: the inverse of
+    ``params_from_hf_state_dict``, for exporting merged full models. (The
+    JAX function also takes the model config and reads nothing of it.)"""
+    sd: Dict[str, np.ndarray] = {}
+
+    def put(name, x):
+        sd[name] = np.asarray(x)
+
+    enc, dec = params["encoder"], params["decoder"]
+    sp = enc["stem"]
+    if stem.kind == "speech":
+        put("model.encoder.conv1.weight", sp["conv1"]["w"])
+        put("model.encoder.conv1.bias", sp["conv1"]["b"])
+    elif stem.kind == "base":
+        put("model.encoder.conv1.0.weight", sp["conv_a"]["w"])
+        put("model.encoder.conv1.0.bias", sp["conv_a"]["b"])
+        put("model.encoder.conv1.2.weight", sp["conv_b"]["w"])
+        put("model.encoder.conv1.2.bias", sp["conv_b"]["b"])
+    elif stem.kind == "premel":
+        put("pre_conv1.weight", sp["pre_conv"]["w"])
+        put("pre_conv1.bias", sp["pre_conv"]["b"])
+        put("model.encoder.conv1.weight", sp["conv1"]["w"])
+        put("model.encoder.conv1.bias", sp["conv1"]["b"])
+    else:
+        put("model.encoder.conv1.weight", sp["conv"]["w"])
+        put("model.encoder.conv1.bias", sp["conv"]["b"])
+    put("model.encoder.conv2.weight", enc["conv2"]["w"])
+    put("model.encoder.conv2.bias", enc["conv2"]["b"])
+    put("model.encoder.embed_positions.weight", enc["pos_embed"])
+    put("model.encoder.layer_norm.weight", enc["ln_post"]["scale"])
+    put("model.encoder.layer_norm.bias", enc["ln_post"]["bias"])
+
+    def unstack(part, prefix, attn_names):
+        L = part["self_attn"]["q"]["w"].shape[0]
+        for i in range(L):
+            for hf_attn, ours in attn_names:
+                blk = part[ours]
+                for hf_p, op in (
+                    ("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"), ("out_proj", "out")
+                ):
+                    put(f"{prefix}.{i}.{hf_attn}.{hf_p}.weight", blk[op]["w"][i].T)
+                    if "b" in blk[op]:
+                        put(f"{prefix}.{i}.{hf_attn}.{hf_p}.bias", blk[op]["b"][i])
+            ln_names = [("self_attn_layer_norm", "self_attn_ln"),
+                        ("final_layer_norm", "final_ln")]
+            if ("encoder_attn", "cross_attn") in attn_names:
+                ln_names.insert(1, ("encoder_attn_layer_norm", "cross_attn_ln"))
+            for hf_ln, ours_ln in ln_names:
+                put(f"{prefix}.{i}.{hf_ln}.weight", part[ours_ln]["scale"][i])
+                put(f"{prefix}.{i}.{hf_ln}.bias", part[ours_ln]["bias"][i])
+            for fc in ("fc1", "fc2"):
+                put(f"{prefix}.{i}.{fc}.weight", part[fc]["w"][i].T)
+                put(f"{prefix}.{i}.{fc}.bias", part[fc]["b"][i])
+
+    unstack(enc["layers"], "model.encoder.layers", [("self_attn", "self_attn")])
+    unstack(
+        dec["layers"],
+        "model.decoder.layers",
+        [("self_attn", "self_attn"), ("encoder_attn", "cross_attn")],
+    )
+    put("model.decoder.embed_tokens.weight", dec["token_embed"])
+    put("model.decoder.embed_positions.weight", dec["pos_embed"])
+    put("model.decoder.layer_norm.weight", dec["ln"]["scale"])
+    put("model.decoder.layer_norm.bias", dec["ln"]["bias"])
+    put("proj_out.weight", dec["token_embed"])  # tied
+    return sd
 
 
 def lora_from_params(tree: Params, device="cuda") -> Params:

@@ -1,6 +1,6 @@
 """LoRA / AdaLoRA adapters for the PyTorch port: the port of
-``neuspeech1_tpu/models/lora.py`` (everything but AdaLoRA's rank allocation,
-orthogonality loss and importance EMAs, which ROADMAP.md queues).
+``neuspeech1_tpu/models/lora.py``, AdaLoRA's rank allocation, orthogonality
+loss and importance EMAs included.
 
 An adapter tree mirrors the model's layer lists:
 ``{"encoder": {"layers": [layer_0, layer_1, ...]}}`` with, per layer,
@@ -211,3 +211,195 @@ def folded_linear(x, p, entry: Params):
             " freeze them (requires_grad=False) or use the delta path")
     return FoldedLinear.apply(x, p.weight, p.bias, entry["A"], entry["B"],
                               entry.get("E"), entry["alpha"].detach())
+
+
+# ----------------------------------------------------------------------
+# AdaLoRA rank allocation: PEFT's RankAllocator, as the JAX package has it
+#
+# Two elementwise EMAs per A/B/E tensor (sensitivity |theta * g| with beta1,
+# its uncertainty |ipt - avg| with beta2); a rank's triplet score is
+# s(E) + mean_in s(A) + mean_out s(B) with s = avg * unc; allocation zeroes
+# E at the ranks scoring at or below the global k-th smallest score and
+# records the pattern in ``mask``. The mask never gates the forward, so a
+# pruned rank keeps its gradient and can come back, as in PEFT.
+#
+# The port's tree holds one entry per layer where the JAX package stacks
+# [L, ...] leaves, so a score here is [r] per entry ([L, r] there), and the
+# budget counts the same units: one per (layer, matrix, rank). Everything
+# stays on the tensors' device; masking writes E and ``mask`` in place, so
+# the tensors the optimizer and its moments hold stay the same objects.
+# ----------------------------------------------------------------------
+
+IPT_NAMES = ("A", "B", "E")
+
+
+def adalora_entries(lora: Params) -> List[Tuple[str, Params]]:
+    """(path, entry) of every AdaLoRA entry (one with ``E``), in tree
+    order."""
+    return [(p, e) for p, e in entries(lora) if "E" in e]
+
+
+def adalora_ipt_init(lora: Params) -> Params:
+    """Zeroed ``{"avg": {path: {A, B, E}}, "unc": ...}`` EMAs over the
+    AdaLoRA entries (PEFT's exp_avg_ipt / exp_avg_unc); {} without any."""
+    ada = adalora_entries(lora)
+    if not ada:
+        return {}
+
+    def zeros():
+        return {p: {n: torch.zeros_like(e[n]) for n in IPT_NAMES}
+                for p, e in ada}
+
+    return {"avg": zeros(), "unc": zeros()}
+
+
+@torch.no_grad()
+def adalora_ipt_update(ipt: Params, lora: Params, grads: Dict[str, Params],
+                       beta1: float = 0.85, beta2: float = 0.85) -> Params:
+    """One PEFT ``update_ipt`` step in place: ipt = |theta * g|; avg <-
+    beta1 avg + (1 - beta1) ipt; unc <- beta2 unc + (1 - beta2) |ipt - avg|
+    with the updated avg. ``grads`` maps an entry's path to its ``{A, B,
+    E}`` gradients. A few fused ``torch._foreach_*`` launches over every
+    tensor at once; returns ``ipt``."""
+    avg, unc, theta, grad = [], [], [], []
+    for path, entry in adalora_entries(lora):
+        for n in IPT_NAMES:
+            avg.append(ipt["avg"][path][n])
+            unc.append(ipt["unc"][path][n])
+            theta.append(entry[n])
+            grad.append(grads[path][n])
+    if not avg:
+        return ipt
+    sens = torch._foreach_mul(theta, grad)
+    torch._foreach_abs_(sens)
+    torch._foreach_mul_(avg, beta1)
+    torch._foreach_add_(avg, torch._foreach_mul(sens, 1 - beta1))
+    dev = torch._foreach_sub(sens, avg)
+    torch._foreach_abs_(dev)
+    torch._foreach_mul_(unc, beta2)
+    torch._foreach_add_(unc, torch._foreach_mul(dev, 1 - beta2))
+    return ipt
+
+
+def adalora_triplet_scores(ipt: Params) -> Dict[str, torch.Tensor]:
+    """Per-rank triplet importance [r] by entry path: s(E) + mean over A's
+    input dim + mean over B's output dim, s = avg * unc (PEFT
+    ``_element_score`` + ``_combine_ipt``)."""
+    out = {}
+    for path, avg in ipt["avg"].items():
+        unc = ipt["unc"][path]
+        sa = (avg["A"] * unc["A"]).mean(dim=0)
+        sb = (avg["B"] * unc["B"]).mean(dim=1)
+        se = (avg["E"] * unc["E"])[..., 0]
+        out[path] = se + sa + sb
+    return out
+
+
+def adalora_total_ranks(lora: Params) -> int:
+    """init_bgt in PEFT terms: one unit per (layer, matrix, rank)."""
+    return sum(int(e["E"].shape[0]) for _, e in adalora_entries(lora))
+
+
+def adalora_matrix_count(lora: Params) -> int:
+    """The number of adapted (layer, matrix) units."""
+    return len(adalora_entries(lora))
+
+
+@torch.no_grad()
+def adalora_apply_pattern(lora: Params, pattern: Dict[str, torch.Tensor]
+                          ) -> Params:
+    """Re-apply a frozen 0/1 rank pattern in place: E <- E * mask (PEFT
+    ``mask_using_rank_pattern``, every step of the final phase, because
+    pruned E entries keep their gradients and regrow)."""
+    for path, entry in adalora_entries(lora):
+        m = pattern[path]
+        entry["E"].mul_(m)
+        entry["mask"].copy_(m)
+    return lora
+
+
+def adalora_pattern_of(lora: Params) -> Dict[str, torch.Tensor]:
+    """A copy of the current 0/1 mask of every AdaLoRA entry, by path."""
+    return {p: e["mask"].detach().clone() for p, e in adalora_entries(lora)}
+
+
+def adalora_budget_schedule(step: int, init_bgt: int, target_bgt: int,
+                            tinit: int, tfinal: int, total_steps: int,
+                            deltaT: int) -> Tuple[int, bool]:
+    """(budget, mask_ind): PEFT's ``budget_schedule`` in total-rank units
+    (the cubic decay on budgets, not per-matrix ranks)."""
+    if step <= tinit:
+        return init_bgt, False
+    if step > total_steps - tfinal:
+        return target_bgt, True
+    mul = 1 - (step - tinit) / (total_steps - tfinal - tinit)
+    budget = int((init_bgt - target_bgt) * mul**3 + target_bgt)
+    return budget, (step % deltaT == 0)
+
+
+@torch.no_grad()
+def adalora_mask_to_budget(lora: Params, scores: Dict[str, torch.Tensor],
+                           budget: int, init_bgt: Optional[int] = None
+                           ) -> Params:
+    """PEFT ``mask_to_budget`` in place: the threshold is the k-th smallest
+    triplet score over every entry, k = init_bgt - budget; E is zeroed
+    where the score is at or below it and ``mask`` holds the surviving
+    pattern. The threshold and the masks stay on the device."""
+    if init_bgt is None:
+        init_bgt = adalora_total_ranks(lora)
+    k = init_bgt - budget
+    ada = adalora_entries(lora)
+    if not ada or k <= 0:
+        return lora
+    everything = torch.cat([scores[p].reshape(-1) for p, _ in ada])
+    thresh = torch.kthvalue(everything, k).values
+    for path, entry in ada:
+        keep = (scores[path] > thresh)[:, None]
+        entry["E"].masked_fill_(~keep, 0.0)
+        entry["mask"].copy_(keep)
+    return lora
+
+
+def adalora_budget(step: int, init_r: int, target_r: int, tinit: int,
+                   tfinal: int, total_steps: int) -> int:
+    """The cubic per-matrix rank schedule, boundary-exact with PEFT's
+    ``RankAllocator.budget_schedule``: init_r through tinit, target_r after
+    total_steps - tfinal, a cubic decay between."""
+    if step <= tinit:
+        return init_r
+    if step > total_steps - tfinal:
+        return target_r
+    mul = 1 - (step - tinit) / (total_steps - tfinal - tinit)
+    return int((init_r - target_r) * mul**3 + target_r)
+
+
+def adalora_update_masks_global(lora: Params,
+                                importance: Dict[str, torch.Tensor],
+                                budget_per_matrix: int) -> Params:
+    """Global allocation from per-rank importance: ``adalora_mask_to_budget``
+    with the budget pooled over every (layer, matrix) unit, so hot matrices
+    hold more ranks than cold ones."""
+    return adalora_mask_to_budget(
+        lora, importance, budget_per_matrix * adalora_matrix_count(lora))
+
+
+def adalora_orth_loss(lora: Params) -> torch.Tensor:
+    """The orthogonality regularizer mean((A^T A - I)^2) + mean((B B^T -
+    I)^2) over each adapted matrix's layers, summed over matrices. Entries
+    are grouped by their path without the layer index and stacked, so each
+    mean runs over [L, r, r] as the JAX package's does on its stacked
+    leaves; 0 for a tree without AdaLoRA entries, as there."""
+    groups: Dict[str, List[Params]] = {}
+    for path, entry in adalora_entries(lora):
+        key = "/".join(p for p in path.split("/") if not p.isdigit())
+        groups.setdefault(key, []).append(entry)
+    total = None
+    for group in groups.values():
+        a = torch.stack([e["A"] for e in group])
+        b = torch.stack([e["B"] for e in group])
+        eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+        ata = torch.matmul(a.transpose(1, 2), a)
+        bbt = torch.matmul(b, b.transpose(1, 2))
+        term = ((ata - eye) ** 2).mean() + ((bbt - eye) ** 2).mean()
+        total = term if total is None else total + term
+    return torch.zeros(()) if total is None else total

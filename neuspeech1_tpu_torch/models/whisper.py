@@ -18,7 +18,9 @@ attention in BTHD, the decode cross cache ``k``/``v`` as [B, H, T_src, Dh]
 Attention goes through ``ops.flash_attention`` (the Hopper kernels on CUDA
 tensors) where the JAX package takes its flash kernel: encoder
 self-attention, and teacher-forcing decoder cross- and self-attention from
-the ``decoder_flash_*_min_q`` lengths on. The cached decoder goes through
+the ``decoder_flash_*_min_q`` lengths on. Under ``config.remat`` each
+encoder layer of a forward that records gradients runs under a checkpoint
+(`REMAT_POLICIES`). The cached decoder goes through
 the decode kernels: every cross-attention call on the bf16 cache through
 ``ops.decode_cross`` (K6), every width-1 self-attention step on a ``k_t``
 cache through ``ops.decode_step`` (K7) and every call on a ``k_tu`` cache
@@ -37,11 +39,14 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from neuspeech1_tpu_torch.config import StemConfig, WhisperConfig
 from neuspeech1_tpu_torch.models.lora import folded_linear, lora_delta
@@ -249,6 +254,21 @@ def fold_at_linear():
         _FOLD_AT_LINEAR.reset(token)
 
 
+# A name for the product being computed, read by the 'flash_qkv' remat
+# policy (the JAX package's ``checkpoint_name``): set around the q, k and v
+# projections. A context variable, as ``_FOLD_AT_LINEAR``.
+_SAVE_NAME = contextvars.ContextVar("save_name", default=None)
+
+
+@contextlib.contextmanager
+def _named(name: str):
+    token = _SAVE_NAME.set(name)
+    try:
+        yield
+    finally:
+        _SAVE_NAME.reset(token)
+
+
 def _cast(t, dtype):
     """``t`` in ``dtype``; no copy when it already is (a serving model's
     weights), a differentiable cast when not (a training model's masters)."""
@@ -326,9 +346,12 @@ def self_attention(x, p: Attention, n_heads: int, use_flash: bool,
     attention over this rank's shard, through K4 or, without ``use_flash``,
     its plain versions."""
     lora = lora or {}
-    q = _split_heads(linear(x, p.q, lora.get("q")), n_heads)
-    k = _split_heads(linear(x, p.k, lora.get("k")), n_heads)
-    v = _split_heads(linear(x, p.v, lora.get("v")), n_heads)
+    with _named("flash_q"):
+        q = _split_heads(linear(x, p.q, lora.get("q")), n_heads)
+    with _named("flash_k"):
+        k = _split_heads(linear(x, p.k, lora.get("k")), n_heads)
+    with _named("flash_v"):
+        v = _split_heads(linear(x, p.v, lora.get("v")), n_heads)
     if ring is not None:
         out = ring_attention_local(q, k, v, ring, kv_valid_len,
                                    kernels=use_flash)
@@ -439,6 +462,64 @@ def resolve_flash(model: Whisper) -> bool:
     return model.config.flash_attention != "off"
 
 
+# The remat policies the port has (``config.remat_policy``): None, full
+# recompute (the backward runs the layer's forward again, K1 included), and
+# 'flash_qkv', which keeps q, k, v and the flash forward's o and lse, so the
+# backward runs neither K1 nor the q/k/v projections again.
+REMAT_POLICIES = (None, "flash_qkv")
+
+
+def check_remat(config: WhisperConfig) -> None:
+    """Raises for a remat setting the port does not have."""
+    if not config.remat:
+        return
+    if config.remat_policy not in REMAT_POLICIES:
+        raise NotImplementedError(
+            f"remat policy {config.remat_policy!r} is not ported: the port "
+            f"has {REMAT_POLICIES}; ROADMAP.md queue 1 item 4 lists the rest")
+    if config.seq_parallel_axis is not None:
+        raise NotImplementedError(
+            "remat under sequence parallelism is not ported yet; ROADMAP.md "
+            "queue 1 item 8 lists it")
+
+
+def _flash_qkv_policy(ctx, op, *args, **kwargs):
+    """Keep the flash forward's outputs and every non-view result inside a
+    q/k/v projection; recompute the rest."""
+    del ctx, args, kwargs
+    if op is torch.ops.neuspeech.flash_fwd.default or (
+            _SAVE_NAME.get() is not None and not op.is_view):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_layer(layer: nn.Module, h, flash: bool, lora, policy):
+    """``layer(h, flash, lora)`` under a non-reentrant checkpoint. The
+    layer's weights are the checkpoint's inputs, read as the layer holds
+    them now (the training step's merged weights, which it substitutes with
+    ``functional_call``) and substituted again when the backward runs the
+    layer's forward anew, by which time the step's substitution has ended;
+    so is the fold regime (`fold_at_linear`), whose context has closed by
+    then too."""
+    names = [n for n, _ in layer.named_parameters()]
+    weights = [functools.reduce(getattr, n.split("."), layer) for n in names]
+    fold = _FOLD_AT_LINEAR.get()
+
+    def run(h, *weights):
+        token = _FOLD_AT_LINEAR.set(fold)
+        try:
+            return torch.func.functional_call(
+                layer, dict(zip(names, weights)), (h, flash, lora))
+        finally:
+            _FOLD_AT_LINEAR.reset(token)
+
+    kw = {}
+    if policy == "flash_qkv":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _flash_qkv_policy)
+    return checkpoint(run, h, *weights, use_reentrant=False, **kw)
+
+
 def _layer_lora(lora, part: str):
     """The per-layer adapter list of ``part`` in a LoRA tree, or None."""
     return ((lora or {}).get(part) or {}).get("layers")
@@ -465,6 +546,8 @@ def encoder_apply(model: Whisper, features, lora=None):
         raise NotImplementedError(
             "pipeline parallelism (pipeline_axis) is not ported yet; "
             "ROADMAP.md queue 1 item 8 lists it")
+    check_remat(config)
+    remat = config.remat and torch.is_grad_enabled()
     h = apply_stem(model, _cast(features, model.dtype))
     t = h.shape[1]
     if t != config.max_source_positions:
@@ -484,8 +567,12 @@ def encoder_apply(model: Whisper, features, lora=None):
         h = shard_seq(h, ring)
     layers_lora = _layer_lora(lora, "encoder")
     for i, layer in enumerate(model.encoder.layers):
-        h = layer(h, flash, None if layers_lora is None else layers_lora[i],
-                  ring=ring, kv_valid_len=kv_valid_len)
+        layer_lora = None if layers_lora is None else layers_lora[i]
+        if remat:
+            h = _remat_layer(layer, h, flash, layer_lora, config.remat_policy)
+        else:
+            h = layer(h, flash, layer_lora, ring=ring,
+                      kv_valid_len=kv_valid_len)
     if ring is not None:
         h = gather_seq(h, ring)[:, :t]
     return layer_norm(h, model.encoder.ln_post)
@@ -530,8 +617,14 @@ def decoder_apply(model: Whisper, tokens, enc_out, cache=None,
                       lora=None if layers_lora is None else layers_lora[i],
                       flash_self=flash_self, flash_cross=flash_cross)
     else:
-        pos = (dec.pos_embed[cache_index:cache_index + t] if pos_ids is None
-               else F.embedding(pos_ids, dec.pos_embed))
+        # past the table's end the JAX package's reads clamp
+        # (``lax.dynamic_slice``'s start, a gather's indices): so do these
+        n_pos = dec.pos_embed.shape[0]
+        if pos_ids is None:
+            start = min(cache_index, n_pos - t)
+            pos = dec.pos_embed[start:start + t]
+        else:
+            pos = F.embedding(pos_ids.clamp(max=n_pos - 1), dec.pos_embed)
         h = h + _cast(pos, h.dtype)
         # a width-1 step on the k_t cache attends the contiguous columns
         # without a mask (K7); K8 takes the mask of every call

@@ -285,15 +285,33 @@ def _backward(q, k, v, o, do, lse, causal: bool, kv_len: int):
     return _flash_bwd_cuda(q, k, v, o, do, lse, causal, kv_len)
 
 
+@torch.library.custom_op("neuspeech::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, kv_len: int) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """The forward (K1 on CUDA tensors, its plain version on CPU ones) as
+    one dispatcher op, ``torch.ops.neuspeech.flash_fwd``: a selective
+    checkpoint policy can name it and keep its o and lse instead of
+    running it again (``models/whisper.py``'s remat policy 'flash_qkv')."""
+    return _forward(q, k, v, causal, kv_len)
+
+
+@flash_fwd_op.register_fake
+def _(q, k, v, causal, kv_len):
+    b, t_q, h, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((b, h, t_q), dtype=torch.float32))
+
+
 class FlashAttention(torch.autograd.Function):
     """o, lse = FlashAttention.apply(q, k, v, causal, kv_len): the forward
-    kernel saving q, k, v, o and lse, the backward kernel for dq, dk, dv
-    (the TPU package's ``custom_vjp`` around ``_flash_btc``). lse is not
-    differentiable."""
+    kernel (through ``flash_fwd_op``) saving q, k, v, o and lse, the
+    backward kernel for dq, dk, dv (the TPU package's ``custom_vjp`` around
+    ``_flash_btc``). lse is not differentiable."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, kv_len: int):
-        o, lse = _forward(q, k, v, causal, kv_len)
+        o, lse = flash_fwd_op(q, k, v, causal, kv_len)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.kv_len = causal, kv_len
         ctx.mark_non_differentiable(lse)

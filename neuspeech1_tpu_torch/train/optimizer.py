@@ -66,11 +66,12 @@ def named_leaves(model: nn.Module, lora=None) -> Dict[str, torch.Tensor]:
     return out
 
 
-def default_trainable_pred() -> PathPred:
-    """The reference's LoRA trainable set: the adapters and the stem convs
-    (``lora/*``, ``model/encoder/stem/*``, ``model/encoder/conv2/*``). Its
-    ``ft_full`` and ``fine_tune_layers`` options are not ported yet
-    (ROADMAP.md queue 1)."""
+def default_trainable_pred(ft_full: bool = False) -> PathPred:
+    """The reference's trainable set: the adapters and the stem convs
+    (``lora/*``, ``model/encoder/stem/*``, ``model/encoder/conv2/*``), or
+    with ``ft_full`` every leaf (`finetune.py:191`)."""
+    if ft_full:
+        return lambda p: True
     return lambda p: (p.startswith("lora/")
                       or p.startswith("model/encoder/stem/")
                       or p.startswith("model/encoder/conv2/"))
@@ -109,15 +110,26 @@ def global_norm(tensors) -> torch.Tensor:
 
 @dataclasses.dataclass
 class AdamState:
+    """AdamW's update count and moments; under accumulation also the
+    micro-step within the current group and the running mean of its
+    gradients (optax ``MultiStepsState``'s ``mini_step`` and
+    ``acc_grads``)."""
+
     count: int
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
+    mini_step: int = 0
+    acc: Optional[Dict[str, torch.Tensor]] = None
 
 
 @dataclasses.dataclass
 class Optimizer:
     """Clip by global norm, then AdamW on a schedule, with optax's order
-    and constants (see the module docstring)."""
+    and constants (see the module docstring). With ``accum_steps`` k > 1,
+    optax's ``MultiSteps``: each call adds its gradients to a running mean,
+    and only every k-th call clips that mean and updates the parameters
+    (and counts a step of the schedule); the calls between leave them
+    unchanged."""
 
     schedule: Callable[[int], float]
     b1: float = 0.9
@@ -125,21 +137,41 @@ class Optimizer:
     eps: float = 1e-8
     weight_decay: float = 0.0
     grad_clip: Optional[float] = 1.0
+    accum_steps: int = 1
 
     def init(self, params: Dict[str, torch.Tensor]) -> AdamState:
         zeros = lambda: {k: torch.zeros_like(p, memory_format=torch.contiguous_format)
                          for k, p in params.items()}
-        return AdamState(count=0, mu=zeros(), nu=zeros())
+        return AdamState(count=0, mu=zeros(), nu=zeros(),
+                         acc=zeros() if self.accum_steps > 1 else None)
 
     @torch.no_grad()
     def update(self, params: Dict[str, torch.Tensor],
                grads: Dict[str, torch.Tensor], state: AdamState,
                norm: Optional[torch.Tensor] = None) -> None:
-        """One step on ``params`` in place. ``grads`` maps a subset of the
+        """One call on ``params`` in place. ``grads`` maps a subset of the
         paths of ``params`` to gradients. A leaf without one keeps its value
         and moments: these are the leaves the loss never reaches (adapter
         ``alpha`` and ``mask``), whose optax update is exactly 0. ``norm``
-        is the gradients' global norm when the caller has it."""
+        is the gradients' global norm when the caller has it (unused under
+        accumulation, which clips the mean)."""
+        if self.accum_steps > 1:
+            n = state.mini_step
+            for k, g in grads.items():
+                acc = state.acc[k]
+                acc.add_((g - acc) / (n + 1))
+            if n + 1 < self.accum_steps:
+                state.mini_step = n + 1
+                return
+            self._apply(params, {k: state.acc[k] for k in grads}, state,
+                        None)
+            for acc in state.acc.values():
+                acc.zero_()
+            state.mini_step = 0
+            return
+        self._apply(params, grads, state, norm)
+
+    def _apply(self, params, grads, state: AdamState, norm) -> None:
         if self.grad_clip:
             if norm is None:
                 norm = global_norm(grads.values())
@@ -167,14 +199,10 @@ def make_optimizer(peak_lr: float = 1e-3, warmup_steps: int = 500,
                    grad_clip: Optional[float] = 1.0,
                    accum_steps: int = 1) -> Optimizer:
     """AdamW + warmup-linear + clip (HF Trainer's defaults: max_grad_norm
-    1.0, eps 1e-8, no weight decay). Gradient accumulation (optax's
-    ``MultiSteps``) is not ported yet: ``accum_steps > 1`` raises."""
-    if accum_steps > 1:
-        raise NotImplementedError(
-            "gradient accumulation (accum_steps > 1) is not ported yet; "
-            "ROADMAP.md queue 1 lists it")
+    1.0, eps 1e-8, no weight decay), with optax ``MultiSteps``'s gradient
+    accumulation over ``accum_steps`` calls."""
     return Optimizer(warmup_linear_schedule(peak_lr, warmup_steps,
                                             total_steps),
                      b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
-                     grad_clip=grad_clip)
+                     grad_clip=grad_clip, accum_steps=accum_steps)
 

@@ -1,14 +1,17 @@
 """The training step of the PyTorch port: the port of
 ``neuspeech1_tpu/train/trainstep.py`` for the path ``bench.py`` times.
 
-One step: bf16 forward through the EEG-Whisper with LoRA adapters ->
-masked cross entropy with its custom backward -> backward -> clip by global
-norm -> AdamW on the trainable leaves. With ``fold_lora`` (the 'fc' regime
+One step: bf16 forward through the EEG-Whisper with LoRA or AdaLoRA
+adapters -> masked cross entropy with its custom backward (+ AdaLoRA's
+orthogonality loss over the whole adapter tree) -> backward -> clip by
+global norm -> AdamW on the trainable leaves (-> AdaLoRA's importance EMAs
+on the updated adapters and the raw gradients). With ``fold_lora`` (the 'fc' regime
 of the JAX package) the attention adapters are merged into f32 weights
 W + s A B with autograd, and the fc adapters run through
 ``models/lora.py::folded_linear``, whose backward is the adapter-backward
 kernel. Attention runs through the flash kernels (encoder self-attention,
-decoder cross-attention) and their backward.
+decoder cross-attention) and their backward. Under ``config.remat`` each
+encoder layer runs under a checkpoint (``models/whisper.py``).
 
 Under a config's ``seq_parallel_axis`` each rank of that axis's ring runs
 the encoder's layer stack on its sequence shard (``models/whisper.py::
@@ -19,9 +22,12 @@ rank ends with the same gradients and parameters. Every other leaf is whole
 on every rank already. Data parallelism (a mesh ``data`` axis larger than
 1) is not ported and raises.
 
+The step makes no host sync: its metrics stay 0-d device tensors, and the
+importance EMAs' stop test reads the host's step count.
+
 Not ported yet, and raising with a pointer to ROADMAP.md: augmentation,
-dropout, int8 matmuls, the AdaLoRA orthogonality loss and importance
-tracking, the 'merge' and 'linear' fold regimes, and remat.
+dropout, int8 matmuls, the 'merge' and 'linear' fold regimes, and remat
+policies other than full recompute and 'flash_qkv'.
 """
 
 from __future__ import annotations
@@ -35,7 +41,8 @@ import torch
 from neuspeech1_tpu_torch.config import StemConfig, WhisperConfig
 from neuspeech1_tpu_torch.models import whisper as tw
 from neuspeech1_tpu_torch.models.lora import (
-    has_entries, merge_lora, split_lora_fc)
+    IPT_NAMES, adalora_entries, adalora_ipt_init, adalora_ipt_update,
+    adalora_orth_loss, has_entries, merge_lora, split_lora_fc)
 from neuspeech1_tpu_torch.parallel import mesh as pmesh
 from neuspeech1_tpu_torch.train.optimizer import (
     AdamState, Optimizer, PathPred, default_trainable_pred, global_norm,
@@ -61,12 +68,15 @@ class Frozen(NamedTuple):
 
 @dataclasses.dataclass
 class TrainState:
-    """step count, trainable leaves by path, optimizer state, generator."""
+    """step count, trainable leaves by path, optimizer state, generator,
+    and AdaLoRA's importance EMAs ({} without AdaLoRA entries; not
+    checkpointed, as PEFT's allocator state is not)."""
 
     step: int
     trainable: Dict[str, torch.Tensor]
     opt_state: AdamState
     generator: torch.Generator
+    ipt: Any = None
 
 
 def init_train_state(model: tw.Whisper, lora: Optional[Params],
@@ -82,7 +92,8 @@ def init_train_state(model: tw.Whisper, lora: Optional[Params],
         t.requires_grad_(path in trainable)
     state = TrainState(step=0, trainable=trainable,
                        opt_state=tx.init(trainable),
-                       generator=torch.Generator().manual_seed(seed))
+                       generator=torch.Generator().manual_seed(seed),
+                       ipt=adalora_ipt_init(lora or {}))
     return state, Frozen(model, lora)
 
 
@@ -100,16 +111,13 @@ def make_loss_fn(config: WhisperConfig, stem: StemConfig,
     Its other fields are inert in this loss: ``in_channels`` is read by
     neither forward (the weights fix it), and ``dropout`` only under
     dropout, which the port refuses."""
-    if orth_reg_weight > 0.0:
-        raise NotImplementedError(f"the AdaLoRA orthogonality loss {_ROADMAP}")
     if int8_matmul != "off":
         raise NotImplementedError(f"int8 training matmuls {_ROADMAP}")
     if fold_impl != "fc":
         raise NotImplementedError(
             f"fold regime {fold_impl!r} is not ported: the port keeps the 'fc' "
             "regime (ROADMAP.md 'Not to port')")
-    if config.remat:
-        raise NotImplementedError(f"remat {_ROADMAP}")
+    tw.check_remat(config)
 
     def loss_fn(frozen: Frozen, batch: Batch):
         model, lora = frozen
@@ -119,6 +127,7 @@ def make_loss_fn(config: WhisperConfig, stem: StemConfig,
                 f"{model.stem_config.kind!r}")
         if lora is not None and not has_entries(lora):
             lora = None
+        reg_lora = lora
         feats, ids = batch["input_features"], batch["decoder_input_ids"]
         if fold_lora and lora is not None:
             merge_tree, fc_tree = split_lora_fc(lora)
@@ -131,7 +140,14 @@ def make_loss_fn(config: WhisperConfig, stem: StemConfig,
         else:
             logits = tw.forward(model, feats, ids, lora)
         loss = tw.ce_loss(logits, batch["labels"])
-        return loss, {"ce_loss": loss.detach(), "loss": loss.detach()}
+        aux = {"ce_loss": loss.detach()}
+        if orth_reg_weight > 0.0 and reg_lora is not None:
+            # over the whole tree, merged and folded entries alike
+            reg = adalora_orth_loss(reg_lora)
+            loss = loss + orth_reg_weight * reg
+            aux["orth_reg"] = reg.detach()
+        aux["loss"] = loss.detach()
+        return loss, aux
 
     return loss_fn
 
@@ -141,17 +157,23 @@ def make_train_step(config: WhisperConfig, stem: StemConfig, tx: Optimizer,
                     augment_config: Optional[dict] = None,
                     use_dropout: bool = False,
                     track_adalora_importance: bool = False,
-                    fold_lora: bool = False, int8_matmul: str = "off"):
+                    fold_lora: bool = False,
+                    adalora_ipt_stop_step: Optional[int] = None,
+                    int8_matmul: str = "off"):
     """``step(state, frozen, batch) -> metrics``: one optimizer step on
     ``state`` (in place). Metrics are 0-d device tensors: ``loss``,
-    ``ce_loss`` and ``grad_norm``, the pre-clip global norm of the
-    trainable leaves' gradients (``optax.global_norm``)."""
+    ``ce_loss`` (and ``orth_reg``) and ``grad_norm``, the pre-clip global
+    norm of the trainable leaves' gradients (``optax.global_norm``).
+
+    With ``track_adalora_importance`` the state's importance EMAs take one
+    PEFT ``update_ipt`` step after the update: on the updated adapters and
+    the raw (pre-clip) gradients, the reference's order ``optimizer.step();
+    update_and_allocate()``, until the step count before the increment
+    reaches ``adalora_ipt_stop_step`` (PEFT: total_step - tfinal)."""
     if augment_config:
         raise NotImplementedError(f"on-device augmentation {_ROADMAP}")
     if use_dropout:
         raise NotImplementedError(f"dropout {_ROADMAP}")
-    if track_adalora_importance:
-        raise NotImplementedError(f"AdaLoRA importance tracking {_ROADMAP}")
     loss_fn = make_loss_fn(config, stem, orth_reg_weight,
                            fold_lora=fold_lora, int8_matmul=int8_matmul)
 
@@ -167,6 +189,12 @@ def make_train_step(config: WhisperConfig, stem: StemConfig, tx: Optimizer,
             grads = sum_seq_sharded_grads(grads, ring)
         norm = global_norm(grads.values())
         tx.update(state.trainable, grads, state.opt_state, norm)
+        if track_adalora_importance and state.ipt and (
+                adalora_ipt_stop_step is None
+                or state.step < adalora_ipt_stop_step):
+            adalora_ipt_update(state.ipt, frozen.lora, {
+                path: {n: grads[f"lora/{path}/{n}"] for n in IPT_NAMES}
+                for path, _ in adalora_entries(frozen.lora)})
         state.step += 1
         return {**aux, "grad_norm": norm}
 

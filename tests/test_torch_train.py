@@ -272,17 +272,13 @@ UNPORTED = {
         c, TSTEM, tx, augment_config={"noise": 0.1}),
     "dropout": lambda c, tx: tts.make_train_step(c, TSTEM, tx,
                                                  use_dropout=True),
-    "orth_reg": lambda c, tx: tts.make_train_step(c, TSTEM, tx,
-                                                  orth_reg_weight=0.5),
-    "adalora_importance": lambda c, tx: tts.make_train_step(
-        c, TSTEM, tx, track_adalora_importance=True),
     "int8": lambda c, tx: tts.make_train_step(c, TSTEM, tx,
                                               int8_matmul="fwd"),
     "fold_merge": lambda c, tx: tts.make_loss_fn(c, TSTEM, fold_lora=True,
                                                  fold_impl="merge"),
-    "remat": lambda c, tx: tts.make_train_step(
-        port(tiny(remat=True)), TSTEM, tx),
-    "accum_steps": lambda c, tx: topt.make_optimizer(accum_steps=4),
+    # the port's remat policies are None and 'flash_qkv'
+    "remat_policy_dots": lambda c, tx: tts.make_train_step(
+        port(tiny(remat=True, remat_policy="dots")), TSTEM, tx),
 }
 
 
