@@ -393,6 +393,12 @@ FT_TRAIN, FT_VAL, FT_EVAL = 160, 32, 16
 FT_BATCH, FT_LABEL_LEN, FT_RANK = 64, 128, 12
 FT_STEPS, FT_REMAT_STEPS, FT_ROTATE_MB = 14, 4, 200
 FT_SPLIT_STEPS = 5
+# merge_lora's adapted weights against a float64 merge, relative to each
+# layer's largest |delta| (beside f32's rounding of W + delta): a merge
+# that drops E or misscales B by 2% or more lands above it. The check runs
+# on the trained adapter and on it with E redrawn at TRAINED_E_STD
+MERGE_REL_TOL = 1e-2
+TRAINED_E_STD = 0.1
 FT_SCHEDULE = ("--adalora_tinit=2", "--adalora_tfinal=4",
                "--adalora_deltaT=2", "--warmup_steps=2", "--eval_steps=7",
                "--save_steps=7", "--logging_steps=1", "--eval_wer=True")
@@ -2995,7 +3001,9 @@ def _step_launches(config) -> dict:
 @contextlib.contextmanager
 def _instrumented_finetune(rec: dict):
     """Records, while open, what a finetune run does: each train step's
-    wall ms (between two synchronizes) and kernel launches, each
+    kernel launches and a CUDA event on each side of it (no synchronize:
+    the loop runs as it would; `_run_finetune` reads the step's device span
+    from the events after the run), each
     ``Trainer._adalora_update``'s host ms (no synchronize inside) and, at
     an allocation, the kept ranks beside the schedule's budget, each
     checkpoint save's ms and bytes, and the state a resume restored."""
@@ -3013,13 +3021,13 @@ def _instrumented_finetune(rec: dict):
         step = make_step(*a, **k)
 
         def timed(state, frozen, batch):
-            torch.cuda.synchronize()
             before = _kernel_counts()
-            t0 = time.perf_counter()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
             m = step(state, frozen, batch)
-            torch.cuda.synchronize()
+            ev[1].record()
             rec["steps"].append({
-                "step": state.step, "ms": 1e3 * (time.perf_counter() - t0),
+                "step": state.step, "events": ev,
                 "launches": {n: c - before[n]
                              for n, c in _kernel_counts().items()}})
             return m
@@ -3098,6 +3106,9 @@ def _run_finetune(argv) -> dict:
         state = finetune.main(argv)
     torch.cuda.synchronize()
     rec["wall_s"] = time.perf_counter() - t0
+    for s in rec["steps"]:
+        start, end = s.pop("events")
+        s["ms"] = start.elapsed_time(end)
     rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
     rec["lines"] = [ln for ln in buf.getvalue().splitlines()
                     if ln.startswith(("[finetune]", "[train] resumed"))]
@@ -3198,27 +3209,36 @@ def _adalora_split(config, stem, state, frozen, batch) -> dict:
     """Where the AdaLoRA step's time goes, at the CLI's batch and labels on
     the trained adapters: ms per step (one synchronize after each, median
     of FT_SPLIT_STEPS after one warm-up) with neither the orthogonality
-    loss nor the importance EMAs, with the loss, and with both; and the
-    loss's forward and backward and one EMA update alone (CUDA events)."""
+    loss nor the importance EMAs, with the loss, and with both; the
+    `train` phase's LoRA step (r=32, alpha 64, the same targets) on the
+    same model and batch; and the loss's forward and backward and one EMA
+    update alone (CUDA events)."""
     from neuspeech1_tpu_torch.models import lora as tl
     from neuspeech1_tpu_torch.train import optimizer
-    from neuspeech1_tpu_torch.train.trainstep import make_train_step
+    from neuspeech1_tpu_torch.train.trainstep import (init_train_state,
+                                                      make_train_step)
 
     tx = optimizer.make_optimizer()
+    lora_r32 = init_train_state(frozen.model, tl.init_lora(
+        config, rank=32, alpha=64, seed=1,
+        device=next(frozen.model.parameters()).device), tx)
     out = {}
-    for name, kw in (("no_orth_no_ema", {}),
-                     ("orth", {"orth_reg_weight": 0.5}),
-                     ("orth_ema", {"orth_reg_weight": 0.5,
-                                   "track_adalora_importance": True})):
+    for name, (st, fr), kw in (
+            ("no_orth_no_ema", (state, frozen), {}),
+            ("orth", (state, frozen), {"orth_reg_weight": 0.5}),
+            ("orth_ema", (state, frozen),
+             {"orth_reg_weight": 0.5, "track_adalora_importance": True}),
+            ("lora_r32", lora_r32, {})):
         step = make_train_step(config, stem, tx, fold_lora=True, **kw)
         ms = []
         for _ in range(FT_SPLIT_STEPS + 1):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            step(state, frozen, batch)
+            step(st, fr, batch)
             torch.cuda.synchronize()
             ms.append(1e3 * (time.perf_counter() - t0))
         out[name] = statistics.median(ms[1:])
+    del lora_r32
     lora = frozen.lora
 
     def orth():
@@ -3232,6 +3252,99 @@ def _adalora_split(config, stem, state, frozen, batch) -> dict:
              for p, e in tl.adalora_entries(lora)}
     out["ema_update"] = cuda_ms(
         lambda: tl.adalora_ipt_update(state.ipt, lora, grads))
+    return out
+
+
+def _merge_weight_check(base_npz, adapter, merged_dir,
+                        every_layer: bool = False) -> dict:
+    """merge_lora's ``params.npz`` against the merge computed here in
+    float64 from the base npz and the adapter npz (W + A diag(E) B *
+    alpha / r), layer by layer: each adapted weight off it by at most
+    MERGE_REL_TOL of the layer's largest |delta| plus the f32 rounding of
+    W + delta (2^-23 of its largest entry), so a merge that drops E,
+    scales B wrongly or skips an adapter fails wherever f32 can hold the
+    delta; a layer whose ranks were all pruned (delta 0) must come back
+    bit for bit. Some layer's delta must be nonzero, and with
+    ``every_layer`` each layer's must lie 100 times above its rounding, so
+    that a 2% misscaling fails in every layer; every leaf no adapter
+    touches must equal the base's or the adapter's override."""
+    from neuspeech1_tpu_torch.models.convert import load_npz
+
+    def flat(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", np.asarray(v)
+
+    def adapters(tree, prefix=""):
+        if "A" in tree:
+            yield prefix, tree
+            return
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from adapters(v, f"{prefix}{k}/")
+
+    ad = load_npz(adapter)
+    want = dict(flat(load_npz(base_npz)))
+    want.update(flat(ad.get("model") or {}))
+    got = dict(flat(load_npz(os.path.join(merged_dir, "params.npz"))))
+    check(set(got) == set(want), "merge: the merged model's leaves differ "
+          f"from the base's: {sorted(set(got) ^ set(want))[:8]}")
+    layers = []
+    for prefix, e in adapters(ad.get("lora") or {}):
+        a = np.asarray(e["A"], np.float64)
+        if "E" in e:
+            a = a * np.asarray(e["E"], np.float64).transpose(0, 2, 1)
+        alpha = np.asarray(e["alpha"], np.float64).reshape(-1, 1, 1)
+        delta = a @ np.asarray(e["B"], np.float64) * alpha / a.shape[-1]
+        path = f"{prefix}w"
+        w_eff = want.pop(path).astype(np.float64) + delta
+        merged = got.pop(path)
+        for i in range(delta.shape[0]):
+            err = float(np.abs(merged[i] - w_eff[i]).max())
+            dmax = float(np.abs(delta[i]).max())
+            floor = 2.0 ** -23 * float(np.abs(w_eff[i]).max())
+            layers.append({"path": path, "layer": i, "err": err,
+                           "delta": dmax, "floor": floor})
+            check(err <= (MERGE_REL_TOL * dmax + floor if dmax else 0.0),
+                  f"merge: {path} layer {i} off the float64 merge by {err}, "
+                  f"largest delta {dmax}, f32 rounding {floor}")
+    live = [x for x in layers if x["delta"] > 0]
+    check(bool(live), "merge: every adapted layer's delta is 0")
+    if every_layer:
+        low = [x for x in layers if x["delta"] <= 100 * x["floor"]]
+        check(not low, f"merge: deltas within 100x f32 rounding: {low[:4]}")
+    same = [k for k in want if np.array_equal(got[k], want[k])]
+    check(len(same) == len(want), "merge: leaves changed that no adapter "
+          f"touches: {sorted(set(want) - set(same))[:8]}")
+    return {"layers": len(layers), "layers_pruned_to_zero":
+            len(layers) - len(live), "untouched_leaves_equal": len(same),
+            "worst_err_over_delta": max(x["err"] / x["delta"] for x in live),
+            "delta_range": [min(x["delta"] for x in live),
+                            max(x["delta"] for x in live)],
+            "delta_over_rounding_max": max(x["delta"] / x["floor"]
+                                           for x in live),
+            "rel_tol": MERGE_REL_TOL}
+
+
+def _nonzero_e(adapter: str) -> int:
+    """The nonzero AdaLoRA E entries of an adapter npz."""
+    with np.load(adapter) as f:
+        return int(sum(np.count_nonzero(f[k]) for k in f.files
+                       if k.endswith("/E")))
+
+
+def _refill_e(adapter: str, out: str) -> str:
+    """``adapter`` with every AdaLoRA E redrawn from N(0, TRAINED_E_STD^2)
+    (seeded), pruned ranks included: a trained magnitude, where the
+    fine-tune phase's 14 steps leave E near its initial 0."""
+    gen = np.random.default_rng(4)
+    with np.load(adapter) as f:
+        flat = {k: (TRAINED_E_STD * gen.standard_normal(f[k].shape)).astype(
+            f[k].dtype) if k.endswith("/E") else f[k] for k in f.files}
+    check(any(k.endswith("/E") for k in flat), "merge: the adapter has no E")
+    np.savez(out, **flat)
     return out
 
 
@@ -3314,6 +3427,21 @@ def phase_finetune(tr, bm, device: str = "cuda") -> dict:
             device=device)
         timed = [s["ms"] for s in run["steps"][2:]]
         step_ms = statistics.median(timed)
+        # the CLI's own rate: its loop between two logging records, with
+        # nothing added (at --logging_steps=1 the loop reads the loss at
+        # every step; the records after an eval step hold that eval)
+        cli_rate = {r["step"]: r["samples_per_sec"] for r in run["records"]
+                    if "samples_per_sec" in r}
+
+        # the 14-step adapter, kept before the resume below rewrites
+        # adapter_final.npz; its nonzero E are the ranks the last
+        # allocation kept
+        adapter = os.path.join(tmp, "ft_adapter_final_14.npz")
+        os.replace(os.path.join(run_dir, "adapter_final.npz"), adapter)
+        nonzero_e = {"after_steps": _nonzero_e(adapter)}
+        check(nonzero_e["after_steps"] == allocs[-1]["kept"],
+              f"finetune: {nonzero_e['after_steps']} nonzero E in the "
+              f"adapter, {allocs[-1]['kept']} ranks kept")
 
         # 2. resume from the latest checkpoint, two more steps
         resumed = _run_finetune(argv + [
@@ -3329,6 +3457,11 @@ def phase_finetune(tr, bm, device: str = "cuda") -> dict:
         check([s["step"] for s in resumed["steps"]] ==
               [FT_STEPS + 1, FT_STEPS + 2],
               f"resume: steps {[s['step'] for s in resumed['steps']]}")
+        # the importance EMAs and the frozen pattern are not saved (the
+        # JAX package's semantics), so a resume inside the final phase
+        # masks on zero scores (ROADMAP queue 3): recorded, not checked
+        nonzero_e["after_resume"] = _nonzero_e(
+            os.path.join(run_dir, "adapter_final.npz"))
 
         # 3. remat and rotating shards, a fresh run
         remat_dir = os.path.join(tmp, "ft_remat")
@@ -3346,7 +3479,6 @@ def phase_finetune(tr, bm, device: str = "cuda") -> dict:
         # against the plain versions and f32 at E = 0 and trained
         batch = _ft_batch(corpus, tokenizer, config, GRAD_CHECK_BATCH,
                           device)
-        adapter = os.path.join(run_dir, "adapter_final.npz")
         state, frozen = _ft_model(base_npz, config, stem, adapter, device)
         remat_check = _remat_grad_check(config, stem, state, frozen, batch)
         loss_fn = make_loss_fn(config, stem, orth_reg_weight=0.5,
@@ -3367,6 +3499,15 @@ def phase_finetune(tr, bm, device: str = "cuda") -> dict:
             f"--lora_model={adapter}", f"--base_model={base_npz}",
             f"--tokenizer={tokenizer}", "--eeg_ch=208", f"--device={device}",
             f"--output_dir={os.path.join(tmp, 'ft_merged')}"])
+        wide = _refill_e(adapter, os.path.join(tmp, "ft_adapter_e.npz"))
+        merge_weights = {
+            "trained": _merge_weight_check(base_npz, adapter, merged),
+            "e_redrawn": _merge_weight_check(base_npz, wide, merge_lora.main([
+                f"--lora_model={wide}", f"--base_model={base_npz}",
+                f"--tokenizer={tokenizer}", "--eeg_ch=208",
+                f"--device={device}",
+                f"--output_dir={os.path.join(tmp, 'ft_merged_e')}"]),
+                every_layer=True)}
         eval_common = [f"--test_data={corpus}/eval.jsonl",
                        f"--tokenizer={tokenizer}", "--eeg_ch=208",
                        f"--batch_size={EVAL_BATCH}", "--timing=True",
@@ -3411,7 +3552,10 @@ def phase_finetune(tr, bm, device: str = "cuda") -> dict:
         "plan_over_peak": (plan["total_no_remat"] / 2**30)
         / run["peak_mem_gb"],
         "step_ms": step_ms, "step_ms_all": [s["ms"] for s in run["steps"]],
-        "samples_per_s": FT_BATCH / (step_ms / 1e3),
+        "step_samples_per_s": FT_BATCH / (step_ms / 1e3),
+        "cli_samples_per_s": statistics.median(
+            v for k, v in cli_rate.items() if k > 2),
+        "cli_samples_per_s_by_step": cli_rate,
         "lora_step_ms": tr["step_ms"],
         "step_ms_over_lora_step": step_ms / tr["step_ms"],
         "launches_per_step": run["steps"][-1]["launches"],
@@ -3444,6 +3588,7 @@ def phase_finetune(tr, bm, device: str = "cuda") -> dict:
         "grad_rel_err_max": {c["state"]: c["kernels_vs_plain"]["max"]
                              for c in checks},
         "adalora_split_ms": split,
+        "nonzero_e": nonzero_e, "merge_weights": merge_weights,
         "merge_eval": {"token_share_equal": share, "rows_equal": rows_equal,
                        "allowance": allowance, "launches": eval_launches,
                        "merged_metrics": ev_merged["metrics"],

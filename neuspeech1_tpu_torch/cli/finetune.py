@@ -404,7 +404,6 @@ def main(argv=None):
         num_epochs=None if args.max_steps else args.num_train_epochs,
         eval_steps=args.eval_steps, save_steps=args.save_steps,
         logging_steps=args.logging_steps, max_to_keep=args.save_total_limit,
-        best_only_save=True,
         orth_reg_weight=(args.orth_reg_weight
                          if (lora is not None and args.use_adalora) else 0.0),
         adalora=adalora_cfg,

@@ -16,8 +16,6 @@ Usage:
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 
@@ -54,14 +52,13 @@ class DeviceCache:
 
     @staticmethod
     def build(dataset, collator, device="cuda",
-              feature_dtype=torch.bfloat16,
-              limit: Optional[int] = None) -> "DeviceCache":
+              feature_dtype=torch.bfloat16) -> "DeviceCache":
         """Collate the dataset once (the only host -> device copy);
         ``collator.max_label_len`` must be set."""
         if collator.max_label_len is None:
             raise ValueError("DeviceCache needs a static max_label_len")
-        n = len(dataset) if limit is None else min(limit, len(dataset))
-        batch = to_device_batch(collator([dataset[i] for i in range(n)]),
+        batch = to_device_batch(collator([dataset[i]
+                                          for i in range(len(dataset))]),
                                 device, feature_dtype)
         return DeviceCache(batch["input_features"], batch["labels"],
                            batch["decoder_input_ids"])

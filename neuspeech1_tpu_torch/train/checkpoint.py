@@ -16,8 +16,8 @@ the state's ``torch.Generator``, all on the CPU. As in the JAX package:
     model, the adapter tree and the optimizer keep referring to them, and
     it is exact: the same bits as before the save.
 
-With ``async_save`` the copy to the host happens in ``save`` and the file is
-written by a thread; ``wait`` joins it. A step's directory appears under its
+The copy to the host happens in ``save`` and the file is written by a
+thread; ``wait`` joins it and re-raises the writer's error. A step's directory appears under its
 final name only once its file is complete.
 """
 
@@ -33,13 +33,10 @@ import torch
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int = 5,
-                 best_only: bool = True, async_save: bool = True):
+    def __init__(self, directory: str, max_to_keep: int = 5):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
-        self.best_only = best_only
-        self.async_save = async_save
         self.best_eval = float("inf")
         self._writer: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -64,7 +61,7 @@ class CheckpointManager:
             self.best_eval = eval_loss
             with open(self._meta_path, "w") as f:
                 json.dump({"best_eval": self.best_eval}, f)
-        if self.best_only and not force:
+        if not force:
             if eval_loss is None or eval_loss > self.best_eval:
                 return False
         step = int(state.step)
@@ -74,12 +71,9 @@ class CheckpointManager:
         payload = _payload(state)
         final = os.path.join(self.directory, str(step))
         os.makedirs(final + ".tmp", exist_ok=True)
-        if self.async_save:
-            self._writer = threading.Thread(
-                target=self._write, args=(payload, final), daemon=True)
-            self._writer.start()
-        else:
-            self._write(payload, final)
+        self._writer = threading.Thread(
+            target=self._write, args=(payload, final), daemon=True)
+        self._writer.start()
         return True
 
     def _write(self, payload, final: str) -> None:

@@ -26,7 +26,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -56,13 +56,9 @@ class Trainer:
         save_steps: int = 1000,
         logging_steps: int = 100,
         max_to_keep: int = 5,
-        best_only_save: bool = True,
-        augment_config: Optional[dict] = None,
         orth_reg_weight: float = 0.0,
         adalora: Optional[dict] = None,
-        batch_transform: Optional[Callable] = None,
         fold_lora: bool = False,
-        int8_matmul: str = "off",
         generate_eval_tokenizer=None,
         generate_eval_max_new: int = 48,
         generate_eval_language: Optional[str] = "english",
@@ -83,17 +79,14 @@ class Trainer:
         self.save_steps = save_steps
         self.logging_steps = logging_steps
         self.adalora = adalora
-        self.batch_transform = batch_transform
         os.makedirs(output_dir, exist_ok=True)
         self.ckpt = CheckpointManager(
             os.path.join(output_dir, "checkpoints"),
-            max_to_keep=max_to_keep, best_only=best_only_save)
+            max_to_keep=max_to_keep)
         adalora_total = (adalora or {}).get("total_steps", max_steps or 10_000)
         self.train_step = ts.make_train_step(
             config, stem, tx, orth_reg_weight=orth_reg_weight,
-            augment_config=augment_config,
             track_adalora_importance=bool(adalora), fold_lora=fold_lora,
-            int8_matmul=int8_matmul,
             adalora_ipt_stop_step=(
                 adalora_total - (adalora or {}).get("tfinal", 1000)
                 if adalora else None))
@@ -170,7 +163,6 @@ class Trainer:
         WER / BLEU-1."""
         if self.eval_loader is None or self._gen_tok is None:
             return {}
-        from neuspeech1_tpu_torch.cli.common import upload_features
         from neuspeech1_tpu_torch.decode.generate import (
             GenerationConfig, greedy_decode)
         from neuspeech1_tpu_torch.metrics.battery import compute_battery
@@ -186,15 +178,15 @@ class Trainer:
         preds, refs = [], []
         for batch in self.eval_loader:
             batch, true_rows = self._pad_batch(batch)
-            feats = batch["input_features"]
-            if isinstance(feats, torch.Tensor):
-                feats = feats.float().cpu().numpy()
-            labels = np.asarray(batch["labels"])[:true_rows]
+            labels = batch["labels"]
+            labels = (labels.cpu().numpy() if isinstance(labels, torch.Tensor)
+                      else np.asarray(labels))[:true_rows]
+            feats = self._prep({"input_features": batch["input_features"]}
+                               )["input_features"].to(model.dtype)
             bp = torch.from_numpy(np.repeat(prompt, feats.shape[0], axis=0)
                                   ).to(self.device)
-            out = greedy_decode(
-                model, upload_features(feats, model.dtype, self.device),
-                bp, gen, lora=lora).cpu().numpy()[:true_rows]
+            out = greedy_decode(model, feats, bp, gen,
+                                lora=lora).cpu().numpy()[:true_rows]
             preds.extend(tok.batch_decode(out))
             refs.extend(tok.decode(l) for l in labels)
         m = compute_battery(preds, refs, include_cer=False)
@@ -215,8 +207,6 @@ class Trainer:
                     t = t.pin_memory()
                 t = t.to(self.device, non_blocking=True)
             out[k] = t
-        if self.batch_transform is not None:
-            out = self.batch_transform(out)
         return out
 
     # ------------------------------------------------------------------

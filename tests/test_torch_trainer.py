@@ -376,6 +376,63 @@ def test_resume_is_exact(corpus, tmp_path):
         cm.restore_latest(resumed, step=4)
 
 
+def test_resume_in_the_final_phase_matches_jax(corpus, tmp_path):
+    """A resume inside AdaLoRA's final phase (step > total - tfinal) in
+    both packages: neither checkpoints the importance EMAs or the frozen
+    rank pattern, so after the resume both mask to the budget on all-zero
+    scores and every E goes to 0, the trained ranks included (a fault of
+    the reference that the port keeps; ROADMAP queue 3)."""
+    jconfig, tconfig = _configs()
+    params, lora = _weights(jconfig)
+    loaders = _loaders(corpus, jconfig, tconfig)
+    data = [_Batches([b for b, _ in zip(ld[0], range(3))]) for ld in loaders]
+    kw = dict(save_steps=8, logging_steps=100, orth_reg_weight=0.5,
+              adalora=ADALORA, fold_lora=True)
+    opt_kw = dict(peak_lr=1e-2, warmup_steps=2, total_steps=10)
+
+    def run_jax(out, max_steps, resume=False):
+        tx = jopt.make_optimizer(**opt_kw)
+        state, frozen = jts.init_train_state(
+            jax.random.key(2), params, lora, tx,
+            jopt.default_trainable_pred())
+        tr = JTrainer(jconfig, STEM, tx, state, frozen, data[0], None,
+                      output_dir=str(out), max_steps=max_steps, **kw)
+        try:
+            tree = jax.device_get(
+                tr.train(resume_from_checkpoint=resume).trainable["lora"])
+        finally:
+            tr.ckpt.close()
+        es = []
+
+        def walk(node):
+            for v in node.values():
+                if isinstance(v, dict) and "E" in v:
+                    es.append(np.asarray(v["E"]))
+                elif isinstance(v, dict):
+                    walk(v)
+
+        walk(tree)
+        return _masks_jax(tree), np.concatenate([e.ravel() for e in es])
+
+    def run_port(out, max_steps, resume=False):
+        tx = topt.make_optimizer(**opt_kw)
+        state, frozen = _port_state(params, lora, tconfig, tx)
+        tr = TTrainer(tconfig, TSTEM, tx, state, frozen, data[1],
+                      output_dir=str(out), max_steps=max_steps, **kw)
+        tr.train(resume_from_checkpoint=resume)
+        return _masks_port(frozen.lora), torch.cat([
+            e["E"].detach().ravel() for _, e in
+            tl.adalora_entries(frozen.lora)]).numpy()
+
+    for name, run in (("jax", run_jax), ("port", run_port)):
+        masks, e = run(tmp_path / name, 8)
+        assert np.count_nonzero(e) == sum(int(m.sum()) for m in masks.values()
+                                          ) > 0, name
+        masks, e = run(tmp_path / name, 10, resume=True)
+        assert not np.any(e) and not any(m.any() for m in masks.values()), \
+            name
+
+
 def test_best_eval_gating(tmp_path):
     """tests/test_trainer.py::test_best_eval_gating on the port's manager."""
     _, tconfig = _configs()
@@ -384,8 +441,7 @@ def test_best_eval_gating(tmp_path):
     tx = topt.make_optimizer()
     state, _ = _port_state(params, None, tconfig, tx,
                            topt.default_trainable_pred(ft_full=True))
-    cm = CheckpointManager(str(tmp_path / "ck"), best_only=True,
-                           async_save=False)
+    cm = CheckpointManager(str(tmp_path / "ck"))
     assert cm.save(state, eval_loss=1.0) is True       # first eval -> best
     state.step += 1
     assert cm.save(state, eval_loss=2.0) is False      # worse -> gated
@@ -398,6 +454,36 @@ def test_best_eval_gating(tmp_path):
         assert json.load(f) == {"best_eval": 0.5}
     # a new manager reads the gate back
     assert CheckpointManager(str(tmp_path / "ck")).best_eval == 0.5
+
+
+def test_checkpoint_write_joins_through_wait(tmp_path, monkeypatch):
+    """The file is written by a thread: the step's directory appears under
+    its final name once wait() has joined it, and a failed write re-raises
+    from wait() and leaves no step behind."""
+    _, tconfig = _configs()
+    jconfig, _ = _configs()
+    params, _ = _weights(jconfig)
+    tx = topt.make_optimizer()
+    state, _ = _port_state(params, None, tconfig, tx,
+                           topt.default_trainable_pred(ft_full=True))
+    cm = CheckpointManager(str(tmp_path / "ck"))
+    assert cm.save(state, force=True) is True
+    cm.wait()
+    assert cm.all_steps() == [0]
+    assert cm._writer is None
+
+    import neuspeech1_tpu_torch.train.checkpoint as ckmod
+
+    def failing_save(*_a, **_k):
+        raise OSError("disk full")
+
+    monkeypatch.setattr(ckmod.torch, "save", failing_save)
+    state.step += 1
+    assert cm.save(state, force=True) is True
+    with pytest.raises(OSError, match="disk full"):
+        cm.wait()
+    assert cm.all_steps() == [0]
+    cm.wait()  # the error is raised once
 
 
 def test_ft_full_matches_jax():
