@@ -2,8 +2,9 @@
 // shared-memory layout of a [ROWS, D] bf16 tile, its cp.async copy with
 // zero-fill, the wgmma descriptors that name it, and the wgmma.m64nNk16
 // products (A from shared memory or from registers) with their fences;
-// mbarriers, and TMA loads with the driver's tensor-map encoder. Included by
-// flash_fwd_btc.cu, flash_bwd_btc.cu and lora_bwd.cu, with decode_sm90.cuh
+// mbarriers, named barriers, TMA loads and stores with the tensor-map
+// encoder (cuTensorMapEncodeTiled). Included by flash_fwd_btc.cu, flash_bwd_btc.cu,
+// lora_bwd.cu, probe_fwd.cu and probe_dot.cu, with decode_sm90.cuh
 // (ldmatrix, mma.sync, cp.async groups, cluster launches); everything is in
 // an anonymous namespace, so each source gets its own copy.
 
@@ -368,6 +369,44 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// TMA: a swizzled [rows, 64] bf16 box from shared memory to (column c0,
+// row c1) of a 2-D map, in the thread's bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}],"
+      " [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's bulk groups are still reading
+// their shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads) over n threads: wait for
+// them, or only count this thread's arrival.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
 // cuTensorMapEncodeTiled, from the driver through the runtime (this library
 // links nothing but the runtime).
 using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -388,6 +427,25 @@ EncodeFn encoder() {
     }
   }
   return fn;
+}
+
+// The TMA map of a 2-D bf16 array of `rows` rows of `cols` elements,
+// `row_bytes` apart, in boxes of [box_rows, 64] swizzled by 128 bytes (the
+// Swz<64> layout of each box); false if the encoder refuses it.
+inline bool make_map_2d(CUtensorMap* map, const void* ptr, long long cols,
+                        long long rows, long long row_bytes, int box_rows) {
+  const EncodeFn encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_bytes)};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

@@ -3,8 +3,10 @@
 b [n, K, N], products accumulated in f32, c rounded to bfloat16.
 
 On CUDA tensors `probe_dot` launches the Hopper kernel of
-``csrc/probe_dot.cu`` (mma.sync bf16, 128 x 128 output tiles) or raises; on
-CPU tensors it runs `probe_dot_plain`, also the kernel's gold on the card.
+``csrc/probe_dot.cu`` (persistent CTAs, a TMA ring, wgmma, TMA stores;
+128 x 256 output tiles, 64-deep stages) or raises; on CPU tensors it runs
+`probe_dot_plain`, also the kernel's gold on the card. The tile is checked
+on every device, so that a shape the card cannot run fails on the CPU too.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import torch
 
 from neuspeech1_tpu_torch.ops import _build
 
-TILE_MN, TILE_K = 128, 32  # csrc/probe_dot.cu kBM = kBN, kBK
+TILE_M, TILE_N, TILE_K = 128, 256, 64  # csrc/probe_dot.cu kBM, kBN, kBK
+STAGES = 3                             # kStages
 
 # Kernel launches since the count was last set to 0, one per wrapper call.
 launches = 0
@@ -45,6 +48,22 @@ def _check(a, b):
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
 
 
+def plan(m: int, n: int, k: int) -> dict:
+    """The kernel's tiling of [M, K] @ [K, N] (csrc/probe_dot.cu): the
+    output tile, the k-stages of one tile, the ring's stages, threads and
+    dynamic shared memory (the stages of A [128, 64] and B [64, 256], two
+    [64, 256] staging buffers for the TMA stores, a full and an empty
+    mbarrier per stage, 1 KB of alignment). Raises for M, N or K off the
+    tile."""
+    if m % TILE_M or n % TILE_N or k % TILE_K or k < TILE_K:
+        raise ValueError(f"probe_dot takes M a multiple of {TILE_M}, N of "
+                         f"{TILE_N} and K of {TILE_K}; got {m}, {n}, {k}")
+    stage = (TILE_M + TILE_N) * TILE_K * 2
+    smem = STAGES * stage + 2 * 64 * TILE_N * 2 + 16 * STAGES + 1024
+    return {"tile": (TILE_M, TILE_N, TILE_K), "k_steps": k // TILE_K,
+            "stages": STAGES, "threads": 384, "smem_bytes": smem}
+
+
 def probe_dot_plain(a, b):
     """Plain PyTorch version: bf16 [n, M, N] from an f32 product of the
     inputs' values."""
@@ -61,9 +80,6 @@ def _probe_dot_cuda(a, b):
                 or not t.is_contiguous():
             raise ValueError(f"probe_dot takes contiguous bfloat16 on one "
                              f"device; {name} is {t.dtype} on {t.device}")
-    if m % TILE_MN or width % TILE_MN or k % TILE_K:
-        raise ValueError(f"probe_dot takes M and N multiples of {TILE_MN} and "
-                         f"K a multiple of {TILE_K}; got {m}, {width}, {k}")
     c = torch.empty((n, m, width), dtype=torch.bfloat16, device=a.device)
     fn = getattr(_library(), _FN)
     with torch.cuda.device(a.device):
@@ -77,8 +93,10 @@ def _probe_dot_cuda(a, b):
 
 def probe_dot(a, b):
     """a [n, M, K] @ b [n, K, N] -> bf16 [n, M, N]. CPU tensors run the
-    plain version; CUDA tensors launch the kernel or raise."""
+    plain version; CUDA tensors launch the kernel or raise. M, N and K off
+    the kernel's tile raise on every device."""
     _check(a, b)
+    plan(a.shape[1], b.shape[2], a.shape[2])
     if a.device.type == "cpu":
         return probe_dot_plain(a, b)
     if not a.is_cuda:

@@ -16,12 +16,14 @@ Two layouts: [B*H, TK, 64] (the probes' flattened heads) and, with
 ``btc=True``, [B, TK, H*64] (heads read in place, lse [B, H, TK]).
 
 On CUDA tensors `probe_fwd` launches the Hopper kernel of
-``csrc/probe_fwd.cu`` or raises; on CPU tensors it runs
+``csrc/probe_fwd.cu`` (wgmma fed by a TMA ring, two sweeps over K: the
+block maxima, then p and PV) or raises; on CPU tensors it runs
 `probe_fwd_plain`, which is also the kernel's gold on the card. ``rows``
-(R, query rows per CTA), ``n_sub`` (sub-tiles of R whose softmax and PV
-run on their own warps after every QK product) and ``order`` (the grid's
-raster) shape only the kernel's schedule; they are checked on every device,
-so that a configuration the card cannot run fails on the CPU too.
+(query rows per CTA, whole warpgroups of 64), ``n_sub`` (how the consumer
+warpgroups share the tensor cores: 1 free-running, 2 or 4 taking turns) and
+``order`` (the walk over (head, q tile) items) shape only the kernel's
+schedule (`plan`); they are checked on every device, so that a
+configuration the card cannot run fails on the CPU too.
 """
 
 from __future__ import annotations
@@ -36,14 +38,16 @@ from neuspeech1_tpu_torch.ops import _build
 HEAD_DIM = 64
 NEG_INF = -1e30
 MODES = ("base", "nomask", "noexp", "bf16exp")
-# the grid's raster: 'head' = one head's q blocks consecutive (they share
-# its K/V in L2), 'qblock' = one q block of every head consecutive
+# the items' walk: 'head' = one head's q tiles consecutive (the CTAs in
+# flight share its K/V in L2), 'qblock' = one q tile of every head
+# consecutive
 ORDERS = ("head", "qblock")
-# (rows, n_sub) instances built for every mode, and for 'base' only
-BUILT_ALL_MODES = ((16, 1), (32, 1))
-BUILT_BASE = ((32, 2), (32, 4))
+# (rows, n_sub) schedules built, each for every mode (csrc/probe_fwd.cu
+# launch_tile): one warpgroup; two free-running; two taking turns per
+# 128-column K tile (n_sub 2) or per 64-column one (n_sub 4)
+SCHEDULES = ((64, 1), (128, 1), (128, 2), (128, 4))
+MAX_BLOCKS = 4           # n_kb: the block maxima a thread keeps
 MAX_SMEM_BYTES = 232448  # an H100 block's shared memory (227 KB)
-_K_TILE = 64             # K rows per QK tile (csrc/probe_fwd.cu kKTile)
 
 # Kernel launches since the count was last set to 0, one per wrapper call.
 launches = 0
@@ -65,13 +69,32 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def smem_bytes(rows: int, n_sub: int, kb: int) -> int:
-    """Dynamic shared memory of one CTA (csrc/probe_fwd.cu ``smem_bytes``):
-    f32 scores of ``rows`` rows over ``kb`` columns (+4 padding), three
-    per-row statistics, and the larger of a 64-row K tile and ``n_sub``
-    32-row V tiles (bf16, rows of 64 + 8)."""
-    tile = max(_K_TILE, n_sub * 32) * (HEAD_DIM + 8) * 2
-    return rows * (kb + 4) * 4 + 3 * rows * 4 + tile
+def plan(rows: int, n_sub: int, tk: int, n_kb: int = 1) -> dict:
+    """The kernel's schedule for ``rows`` q rows per CTA, ``n_sub`` and the
+    column blocks of ``tk`` keys, as csrc/probe_fwd.cu builds it
+    (``Sched``): consumer warpgroups, K-tile rows, ring stages, turns,
+    threads, dynamic shared memory (a Q tile, the stages of K and V tiles,
+    two mbarriers for Q and two for each stage, 1 KB of alignment) and
+    CTAs an SM. Raises for a schedule that is not built."""
+    if rows % 64 or (rows, n_sub) not in SCHEDULES:
+        raise ValueError(
+            f"no probe_fwd schedule for rows {rows}, n_sub {n_sub}: rows are "
+            f"whole warpgroups of 64 q rows, one or two; n_sub is 1, or the "
+            f"turns two warpgroups take per 128 columns (2, or 4 on "
+            f"64-column tiles); built are {SCHEDULES}")
+    if not 1 <= n_kb <= MAX_BLOCKS or tk % (64 * n_kb) or tk % rows:
+        raise ValueError(
+            f"TK {tk} must be a multiple of rows ({rows}) and of 64 * n_kb "
+            f"({n_kb}, at most {MAX_BLOCKS} column blocks)")
+    wg = rows // 64
+    block_k = 64 if n_sub == 4 or (tk // n_kb) % 128 else 128
+    stages = (3 if wg == 1 else 4) * (128 // block_k)
+    tile_k = block_k * HEAD_DIM * 2
+    smem = rows * HEAD_DIM * 2 + stages * 2 * tile_k + 16 * (1 + stages) \
+        + 1024
+    return {"warpgroups": wg, "block_k": block_k, "stages": stages,
+            "turns": n_sub > 1, "threads": 160 if wg == 1 else 128 * (wg + 1),
+            "smem_bytes": smem, "ctas_per_sm": 2 if wg == 1 else 1}
 
 
 def heads_view(x, btc: bool):
@@ -115,26 +138,12 @@ def check_shapes(btc: bool, *xs) -> None:
 def check_schedule(mode: str, rows: int, n_sub: int, n_kb: int, order: str,
                    tk: int) -> None:
     """Raises for a (mode, rows, n_sub, n_kb, order) the kernel does not
-    take at ``tk`` keys, or whose shared memory exceeds the card's."""
+    take at ``tk`` keys (see `plan`)."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
     if order not in ORDERS:
         raise ValueError(f"order {order!r} is not one of {ORDERS}")
-    built = (rows, n_sub) in BUILT_ALL_MODES or (
-        mode == "base" and (rows, n_sub) in BUILT_BASE)
-    if not built:
-        raise ValueError(f"no probe_fwd instance for mode {mode!r}, rows "
-                         f"{rows}, n_sub {n_sub}: built are {BUILT_ALL_MODES} "
-                         f"for every mode and {BUILT_BASE} for 'base'")
-    if n_kb < 1 or tk % (_K_TILE * n_kb) or tk % rows:
-        raise ValueError(f"TK {tk} must be a multiple of 64 * n_kb "
-                         f"({n_kb}) and of rows ({rows})")
-    need = smem_bytes(rows, n_sub, tk // n_kb)
-    if need > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"probe_fwd at rows {rows}, n_sub {n_sub}, {tk // n_kb} columns "
-            f"per block needs {need} B of shared memory, above the "
-            f"{MAX_SMEM_BYTES} B a block may use")
+    plan(rows, n_sub, tk, n_kb)
 
 
 def _prob(x, mode: str):
@@ -208,7 +217,7 @@ def _probe_fwd_cuda(q, k, v, t_valid, mode, rows, n_sub, n_kb, order, btc,
     return o, lse
 
 
-def probe_fwd(q, k, v, t_valid: int, mode: str = "base", rows: int = 32,
+def probe_fwd(q, k, v, t_valid: int, mode: str = "base", rows: int = 128,
               n_sub: int = 1, n_kb: int = 1, order: str = "head",
               btc: bool = False, want_lse: bool = False):
     """o (q's layout) or, with ``want_lse``, (o, lse). CPU tensors run the

@@ -1,20 +1,37 @@
-"""What the probe modules share: the map from a TPU probe's ``block_q`` and
-``dimension_semantics`` to the card's schedule, seeded inputs, and the
-sweep's timer; and what the flash kernels' variant scripts share: a
-source with its substitutions applied, built on its own.
+"""What the probe modules share: the map from a TPU probe's ``block_q``,
+``n_sub`` and ``dimension_semantics`` to the card's schedule, seeded
+inputs, and the sweep's timer; and what the flash kernels' variant scripts
+share: a source with its substitutions applied, built on its own.
 
-- Forward: a TPU block of ``block_q`` rows held its whole score row in
-  VMEM; a Hopper CTA keeps R rows of f32 scores in shared memory, 192 KB
-  at R = 32 over 1536 columns. R = block_q / 16: 512 -> 32, 256 -> 16.
-  These are the only R the full row fits in 16-row mma fragments (R = 64
-  would need 394 KB), so the sweep covers every R the card can run there.
+- Forward (csrc/probe_fwd.cu, redesigned for Hopper: wgmma fed by a TMA
+  ring, scores in registers, two sweeps over K). A TPU block of
+  ``block_q`` rows held its whole score row in VMEM; a Hopper CTA holds
+  its q rows in whole consumer warpgroups of 64, each with its scores in
+  registers, one K tile at a time. rows = block_q / 4: 512 -> 128 (two
+  warpgroups, one CTA an SM), 256 -> 64 (one warpgroup, two CTAs an SM).
+  This replaces R = block_q / 16 (f32 scores of R rows over all 1536
+  columns in shared memory, 192 KB at R = 32: one 4-warp CTA an SM, 11.5
+  ms at bq512); the new forward is bound by its exponentials (PERF.md
+  §6).
+- ``n_sub`` (``perf/mxu_probe.py::make_fwd``: the q block in sub-tiles
+  whose QK products all issue before any softmax, so that the MXU and the
+  VPU overlap) becomes how the consumer warpgroups take turns on the
+  tensor cores: 1, free-running (no order between them); 2, ping-pong
+  (each warpgroup issues a K tile's products in its turn and hands the
+  turn on by a named barrier, so one warpgroup's softmax runs under the
+  other's products); 4, ping-pong on 64-column K tiles (four turns per
+  128 columns). With one warpgroup (rows 64) only n_sub = 1 exists.
 - Backward: R = the q rows of a dq CTA and of each q tile the dk/dv CTA
   walks, block_q / 8 rounded up to the 16-row mma fragment: 512 -> 64,
   256 -> 32, 192 -> 32.
 - ``dimension_semantics`` told Mosaic which grid axes it may split across
-  cores or reorder; on the card its counterpart is the grid's raster. The
-  last entry names the q-block axis: 'arbitrary' (kept in order per head)
-  maps to the head-major raster, 'parallel' to the q-block-major one.
+  cores or reorder; on the card its counterpart is the order of the work
+  items. The last entry names the q-block axis: 'arbitrary' (kept in
+  order per head) maps to the head-major walk ('head': a head's q tiles in
+  consecutive items, so the persistent CTAs in flight share its K/V in
+  L2), 'parallel' to the q-block-major one ('qblock').
+- ``btc`` ([B, TK, H*64]) reads each head in place: the TMA maps view the
+  array as B*TK rows of H*64 elements and take a head's 64 columns.
 """
 
 from __future__ import annotations
@@ -30,7 +47,7 @@ from neuspeech1_tpu_torch.ops import _build
 
 
 def fwd_rows(block_q: int) -> int:
-    return block_q // 16
+    return block_q // 4
 
 
 def bwd_rows(block_q: int) -> int:

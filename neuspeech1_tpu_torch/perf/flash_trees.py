@@ -10,7 +10,12 @@ at ``BIAS_CASES`` and the backward K2 at the cases with a backward),
 SDPA on the same inputs, the decode step K7 at ``DECODE_STEP_CASES`` and
 the multi-query decode step K8 at ``DECODE_STEP_MULTI_CASES``), ``lora``
 (the LoRA adapter backward K3 at ``LORA_CASES``; its device time counts
-every kernel of the call) or ``all`` (the default). Each line gives the
+every kernel of the call), ``probes`` (the probes' attention forward P-fwd
+at ``PROBE_FWD_CASES``, beside SDPA with the key mask, and the batched dot
+P-dot at each K of ``PROBE_DOT_KS``, beside ``torch.bmm``, all at the
+probes' full shape through the checkout's ``perf`` make_* functions, so
+each tree maps block_q and n_sub to its own schedule) or ``all`` (the
+default: every group but ``probes``). Each line gives the
 mean CUDA-event time of 50 calls after 5 and the device time of the
 kernels under torch.profiler (10 calls; the small cases are launch-bound,
 so compare those by the device time); the decode lines also give the
@@ -59,6 +64,19 @@ DECODE_STEP_MULTI_CASES = (("verify_early", 16, 4, 516, 8, "holes"),
                            ("verify_late", 16, 4, 516, 508, "holes"),
                            ("prefill", 16, 4, 516, 0, "broadcast"))
 DECODE_HEADS, DECODE_HEAD_DIM = 8, 64
+# (tag, module, make_* and its arguments): P-fwd at the probes' shape,
+# B*H = 512 heads of 64 over TK = 1536 keys, 1500 kept
+PROBE_FWD_CASES = (("base_bq512", "kernel_probe", "make_kernel", ("base", 512)),
+                   ("base_bq256", "kernel_probe", "make_kernel", ("base", 256)),
+                   ("noexp_bq512", "kernel_probe", "make_kernel",
+                    ("noexp", 512)),
+                   ("online_bq512_kb4", "kernel_probe", "make_online",
+                    (512, 4)),
+                   ("fwd_bq512_sub2", "mxu_probe", "make_fwd", (512, 2)))
+# P-dot: 256 x [512, K] @ [K, 1536]
+PROBE_DOT_KS = (64, 128, 256, 512)
+PROBE_BH, PROBE_TK, PROBE_T = 512, 1536, 1500
+PROBE_DOT_M, PROBE_DOT_GRID = 512, 256
 ACCEPTED_SHARE = 0.7
 CACHE_COPIES = 4
 
@@ -102,6 +120,8 @@ def main(checkout: str, tag: str, which: str = "all") -> None:
         _decode(gen, emit)
     if which in ("lora", "all"):
         _lora(gen, emit)
+    if which == "probes":
+        _probes(gen, emit)
 
 
 def _flash(gen, emit) -> None:
@@ -216,6 +236,41 @@ def _lora(gen, emit) -> None:
                  .to(torch.bfloat16) for s in ((din, r), (r, dout)))
         emit("K3", name, lambda x=x, dy=dy, a=a, bm=bm:
              lb.lora_adapter_bwd(x, dy, a, bm), None, host=True)
+
+
+def _probes(gen, emit) -> None:
+    """P-fwd beside SDPA with the key mask, P-dot beside torch.bmm; the
+    device time of P-fwd and P-dot counts their own kernels."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+
+    def rnd(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                .to(torch.bfloat16))
+
+    q, k, v = (rnd(PROBE_BH, PROBE_TK, 64) for _ in range(3))
+    for tag, module, make, args in PROBE_FWD_CASES:
+        mod = importlib.import_module(f"neuspeech1_tpu_torch.perf.{module}")
+        run = getattr(mod, make)(*args, t_valid=PROBE_T)
+        emit("P-fwd", tag, lambda run=run: run(q, k, v), "probe_fwd")
+    mask = (torch.arange(PROBE_TK, device="cuda") < PROBE_T).view(1, 1, 1, -1)
+    q4, k4, v4 = (x.unsqueeze(1) for x in (q, k, v))
+    emit("SDPA", "base", lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask), None)
+    del q, k, v, q4, k4, v4
+    from neuspeech1_tpu_torch.perf import mxu_probe
+
+    for kdim in PROBE_DOT_KS:
+        a, b = rnd(PROBE_DOT_GRID, PROBE_DOT_M, kdim), rnd(
+            PROBE_DOT_GRID, kdim, PROBE_TK)
+        run = mxu_probe.make_dot(kdim, PROBE_DOT_GRID)
+        emit("P-dot", f"dot_k{kdim}", lambda run=run, a=a, b=b: run(a, b),
+             "probe_dot")
+        emit("bmm", f"dot_k{kdim}", lambda a=a, b=b: torch.bmm(a, b), None)
+        del a, b
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

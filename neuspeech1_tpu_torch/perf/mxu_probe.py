@@ -36,7 +36,9 @@ def make_dot(kdim: int, n_grid: int):
 
 
 def make_fwd(block_q: int, n_sub: int, *, t_valid: int):
-    """The 'base' forward with each CTA's rows in ``n_sub`` sub-tiles."""
+    """The 'base' forward with the TPU block's ``n_sub`` sub-tiles mapped
+    to turns of the CTA's warpgroups on the tensor cores
+    (``perf/common.py``)."""
     rows = fwd_rows(block_q)
 
     def run(q, k, v):

@@ -576,26 +576,45 @@ def _probe_inputs(device, seed, n, shape):
             .to(torch.bfloat16) for _ in range(n)]
 
 
+# rows are the CTA's q rows in warpgroups of 64 (bq256 -> 64, bq512 ->
+# 128); n_sub 2 and 4 take turns on 128- and 64-column K tiles; TK 768 with
+# n_kb 4 gives 192-column blocks, so K tiles of 64 rows.
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode,rows,n_sub,n_kb,order,btc", [
-    ("base", 32, 1, 1, "head", False), ("base", 16, 1, 1, "qblock", False),
-    ("nomask", 32, 1, 1, "head", False), ("noexp", 16, 1, 1, "head", False),
-    ("bf16exp", 32, 1, 1, "head", False), ("base", 32, 1, 2, "head", False),
-    ("base", 32, 1, 4, "head", False), ("base", 32, 2, 1, "head", False),
-    ("base", 32, 4, 1, "qblock", False), ("base", 32, 1, 1, "head", True)])
+@pytest.mark.parametrize("mode,rows,n_sub,n_kb,order,btc,tk", [
+    ("base", 128, 1, 1, "head", False, 1536),
+    ("base", 64, 1, 1, "qblock", False, 1536),
+    ("nomask", 128, 1, 1, "head", False, 1536),
+    ("noexp", 64, 1, 1, "head", False, 1536),
+    ("bf16exp", 128, 1, 1, "head", False, 1536),
+    ("base", 128, 1, 2, "head", False, 1536),
+    ("base", 128, 1, 4, "head", False, 1536),
+    ("base", 128, 2, 1, "head", False, 1536),
+    ("base", 128, 4, 1, "qblock", False, 1536),
+    ("base", 128, 1, 1, "head", True, 1536),
+    ("nomask", 128, 2, 1, "head", False, 1536),
+    ("base", 128, 1, 2, "head", True, 1536),
+    ("noexp", 128, 1, 4, "head", False, 768)])
 def test_probe_fwd_kernel_matches_plain_on_card(cuda_device, mode, rows,
-                                                n_sub, n_kb, order, btc):
-    shape = (1, 1536, 4 * 64) if btc else (4, 1536, 64)
+                                                n_sub, n_kb, order, btc, tk):
+    shape = (1, tk, 4 * 64) if btc else (4, tk, 64)
+    t_valid = tk * 1500 // 1536
     q, k, v = _probe_inputs(cuda_device, 8, 3, shape)
     before = tpf.launches
-    o, lse = tpf.probe_fwd(q, k, v, 1500, mode=mode, rows=rows, n_sub=n_sub,
-                           n_kb=n_kb, order=order, btc=btc, want_lse=True)
+    o, lse = tpf.probe_fwd(q, k, v, t_valid, mode=mode, rows=rows,
+                           n_sub=n_sub, n_kb=n_kb, order=order, btc=btc,
+                           want_lse=True)
     assert tpf.launches == before + 1
-    o_p, lse_p = tpf.probe_fwd_plain(q, k, v, 1500, mode, n_kb, btc)
+    o_p, lse_p = tpf.probe_fwd_plain(q, k, v, t_valid, mode, n_kb, btc)
     # two bf16 ulps of the largest |o|; lse stays f32 ('noexp' sums
     # p = (s - m) * 0.001 + 1 < 0 over the masked columns: lse is NaN in both)
     assert _rel_err(o, o_p) <= 2.0 ** -6
     torch.testing.assert_close(lse, lse_p, rtol=0, atol=1e-4, equal_nan=True)
+    again = tpf.probe_fwd(q, k, v, t_valid, mode=mode, rows=rows,
+                          n_sub=n_sub, n_kb=n_kb, order=order, btc=btc,
+                          want_lse=True)
+    # no atomics: the same bits every run
+    assert torch.equal(o, again[0])
+    assert torch.equal(lse.nan_to_num(), again[1].nan_to_num())
 
 
 @pytest.mark.cuda
@@ -625,7 +644,7 @@ def test_probe_bwd_kernel_matches_plain_on_card(cuda_device, ops, rows, btc):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kdim", [64, 512])
+@pytest.mark.parametrize("kdim", [64, 128, 512])
 def test_probe_dot_kernel_matches_plain_on_card(cuda_device, kdim):
     gen = torch.Generator(device=cuda_device).manual_seed(10)
     a = torch.randn((3, 512, kdim), generator=gen, device=cuda_device
@@ -637,3 +656,5 @@ def test_probe_dot_kernel_matches_plain_on_card(cuda_device, kdim):
     assert tpd.launches == before + 1
     # one bf16 rounding of the output, flipped by f32 sum order
     assert _rel_err(c, tpd.probe_dot_plain(a, b)) <= 1e-2
+    # no atomics: the same bits every run
+    assert torch.equal(c, tpd.probe_dot(a, b))

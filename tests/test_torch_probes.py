@@ -218,20 +218,23 @@ def test_bwd_uses_the_given_lse():
         _close(b, a.numpy() * np.exp(-1.0))
 
 
-@pytest.mark.parametrize("case", ["rows64_full_row", "rows48", "n_sub4_nomask",
-                                  "tk_not_tiled", "rows32_tk2048"])
+@pytest.mark.parametrize("case", ["rows48", "rows256", "n_sub2_rows64",
+                                  "tk_not_tiled", "n_kb5"])
 def test_schedules_the_card_cannot_run_raise_on_the_cpu(case):
     """The wrapper refuses what the kernel does not take, on every device:
-    an instance that is not built (64 rows, whose f32 scores over 1536
-    columns would not fit either; 48 rows; sub-tiles outside 'base'),
-    ragged tiles, a shared-memory request above 227 KB (32 rows of f32
-    scores over 2048 columns)."""
-    tk = {"tk_not_tiled": 1000, "rows32_tk2048": 2048}.get(case, 1536)
+    rows that are not whole warpgroups of 64 (48); more consumer
+    warpgroups than a CTA is built with (four, rows 256); turns with one
+    warpgroup (n_sub 2 at rows 64); K tiles that do not cover TK (1000 is
+    no multiple of 64); more column blocks than the block maxima a thread
+    keeps (n_kb 5, and 1536 is no multiple of 64 * 5)."""
+    tk = {"tk_not_tiled": 1000}.get(case, 1536)
     q = torch.zeros((1, tk, D))
-    kw = {"rows64_full_row": dict(rows=64), "rows48": dict(rows=48),
-          "n_sub4_nomask": dict(mode="nomask", n_sub=4),
-          "tk_not_tiled": {}, "rows32_tk2048": dict(rows=32)}[case]
-    with pytest.raises(ValueError, match="shared memory" if case ==
-                       "rows32_tk2048" else None):
+    kw = {"rows48": dict(rows=48), "rows256": dict(rows=256),
+          "n_sub2_rows64": dict(rows=64, n_sub=2),
+          "tk_not_tiled": {}, "n_kb5": dict(n_kb=5)}[case]
+    with pytest.raises(ValueError, match={
+            "rows48": "whole warpgroups", "rows256": "one or two",
+            "n_sub2_rows64": "turns", "tk_not_tiled": "multiple of",
+            "n_kb5": "column blocks"}[case]):
         tpf.probe_fwd(q, q, q, 100, **kw)
-    assert tpf.smem_bytes(32, 1, 1536) <= tpf.MAX_SMEM_BYTES
+    assert tpf.plan(128, 1, 1536)["smem_bytes"] <= tpf.MAX_SMEM_BYTES
