@@ -214,8 +214,6 @@ F32_TIE_RTOL, F32_TIE_ATOL = 1e-4, 2e-4
 # over the first and its operations over the second.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
-# f32 outside the tensor cores (data sheet): the f32-operand probe backward
-F32_FLOPS = 67e12
 
 KERNEL_CASES = (
     # the serving path: encoder self-attention at whisper-base width
@@ -350,6 +348,14 @@ PROBE_WARMUP, PROBE_ITERS = 3, 20
 # of that one rounding: 2^-7 of the largest value, 1e-2.
 PROBE_TOL = {"probe_fwd": 2.0 ** -6, "probe_bwd_bf16": 2e-2,
              "probe_bwd_f32": 1e-2, "probe_dot": 1e-2}
+# The f32-operand backward's outputs bit-equal to the plain f32 version's:
+# at least the share of the FFMA kernel this design replaced, less one
+# point. That kernel's least share over tests/test_torch_cuda_kernels.py's
+# inputs and this phase's full-shape ones was 0.99994 (perf/flash_trees.py
+# CHECKOUT TAG probes; NVIDIA H100 80GB HBM3, 700.00 W); the bf16-operand
+# mode's is 0.62. The 1e-2 bound above cannot tell f32 passes from bf16
+# ones; this can.
+PROBE_BWD_F32_SHARE_FLOOR = 0.9899
 # The eval CLI (the `eval` phase): a synthetic corpus of 2-10 s clips over
 # 208 channels, three batches of 16, decoded with the CLI's defaults (beam 5,
 # repetition penalty 5.0, no-repeat-ngram 2, 128 new tokens)
@@ -2209,12 +2215,12 @@ def _probe_variants():
                 tag=f"bwd_bq{bq}_{ops}ops", kernel="probe_bwd",
                 replaces="perf/bwd_probe.py:98", ops=ops, btc=False,
                 make=functools.partial(wp.make_bwd, bq, bf16_ops=bf16_ops),
-                library="sdpa_bwd" if bf16_ops else None))
+                library="sdpa_bwd" if bf16_ops else "sdpa_bwd_f32"))
     for bq in (512, 256, 192):
         out.append(dict(tag=f"bwd_btc_bq{bq}", kernel="probe_bwd",
                         replaces="perf/btc_probe.py:132", ops="f32", btc=True,
                         make=functools.partial(bp.make_bwd_btc, bq),
-                        library=None))
+                        library="sdpa_bwd_f32"))
     for kdim in (64, 128, 256, 512):
         out.append(dict(tag=f"dot_k{kdim}", kernel="probe_dot",
                         replaces="perf/mxu_probe.py:48", kdim=kdim,
@@ -2258,8 +2264,9 @@ def _probe_plain(v, args):
 
 def _probe_library(v, args):
     """One PyTorch call of the same function, or None: SDPA with the key
-    mask (forward; its autograd backward for the bf16 backward, which
-    recomputes its own lse: timed only), ``torch.bmm`` for the dot."""
+    mask (forward; its autograd backward for the backward, which recomputes
+    its own lse: timed only; on f32 copies of the inputs for the
+    f32-operand backward), ``torch.bmm`` for the dot."""
     import torch.nn.functional as F
 
     if v["library"] == "bmm":
@@ -2277,6 +2284,8 @@ def _probe_library(v, args):
     if v["library"] == "sdpa":
         return lambda: F.scaled_dot_product_attention(q, k, v_,
                                                       attn_mask=mask)
+    if v["library"] == "sdpa_bwd_f32":
+        q, k, v_ = (x.float() for x in (q, k, v_))
     q, k, v_ = (x.detach().requires_grad_() for x in (q, k, v_))
     o = F.scaled_dot_product_attention(q, k, v_, attn_mask=mask)
     do = torch.randn_like(o)
@@ -2285,7 +2294,9 @@ def _probe_library(v, args):
 
 def _probe_cost(v, args):
     """(bytes, operations, peak) of one call: each input read once, each
-    output written once; the products over the kept key columns."""
+    output written once; the products over the kept key columns (the
+    f32-operand backward's as the bf16 tensor-core passes of its exact
+    split)."""
     if v["kernel"] == "probe_dot":
         a, b = args
         n, m, kd = a.shape
@@ -2298,9 +2309,52 @@ def _probe_cost(v, args):
         n_bytes = 4 * args[0].numel() * 2 + (4 * n_heads_rows if v["btc"]
                                              else 0)
         return n_bytes, 4 * n_heads_rows * kept * PROBE_D, BF16_FLOPS
+    # s and dp one bf16 pass each; dv, dk and dq one per term of the split
+    # of p and ds (three in f32 mode): 5 or 11 passes
+    from neuspeech1_tpu_torch.ops.probe_bwd import PASSES
+
+    passes = 2 + 3 * PASSES[v["ops"]]
     n_bytes = 8 * args[0].numel() * 2 + 4 * n_heads_rows
-    return n_bytes, 10 * n_heads_rows * kept * PROBE_D, (
-        BF16_FLOPS if v["ops"] == "bf16" else F32_FLOPS)
+    return n_bytes, 2 * passes * n_heads_rows * kept * PROBE_D, BF16_FLOPS
+
+
+def _sdpa_f32_library(gen) -> dict:
+    """What SDPA's f32 backward with the key mask runs: its device kernels
+    (by name, under the profiler) and how far its gradients lie from a
+    float64 computation of the same function on 8 heads, relative to the
+    largest |gradient|: about 1e-6 for f32 products, 1e-3 for TF32. Only
+    an f32-class result stands as the f32-operand backward's library
+    call."""
+    import torch.nn.functional as F
+
+    shape = (8, 1, PROBE_TK, PROBE_D)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   for _ in range(4))
+    mask = (torch.arange(PROBE_TK, device="cuda") < PROBE_T).view(1, 1, 1, -1)
+
+    def grads(dtype):
+        xs = [x.to(dtype).requires_grad_() for x in (q, k, v)]
+        o = F.scaled_dot_product_attention(*xs, attn_mask=mask)
+        return torch.autograd.grad(o, xs, do.to(dtype))
+
+    names = _profiled(
+        lambda: grads(torch.float32), 1,
+        lambda events: sorted({e.key[:120] for e in events
+                               if e.device_type.name == "CUDA" and any(
+                                   w in e.key.lower() for w in (
+                                       "fmha", "attention", "flash", "gemm",
+                                       "cudnn", "cutlass", "softmax", "bmm",
+                                       "mem_eff"))}), bool)
+    err = max(_rel_err(a, b) for a, b in zip(grads(torch.float32),
+                                             grads(torch.float64)))
+    return {"kernels": names, "rel_err_vs_f64": err,
+            "f32_products": err <= 1e-5}
+
+
+def _bit_share(got, ref) -> float:
+    """The share of the outputs' elements bit-equal to the reference's."""
+    same = sum(int((g == r).sum()) for g, r in zip(got, ref))
+    return same / sum(r.numel() for r in ref)
 
 
 def _probe_err(v, got, ref) -> float:
@@ -2331,7 +2385,8 @@ def phase_probes() -> dict:
                 else v["make"](t_valid=PROBE_T))
 
     def checked(v, run, args, where):
-        """The kernel's outputs against the plain version's on ``args``."""
+        """The kernel's outputs against the plain version's on ``args``;
+        (the outputs, the error, its bound)."""
         got = run(*args)
         got = got if isinstance(got, tuple) else (got,)
         ref = _probe_plain(v, args)
@@ -2344,23 +2399,41 @@ def phase_probes() -> dict:
               f"probe {v['tag']} ({where}): non-finite output")
         check(err <= tol, f"probe {v['tag']} ({where}): kernel {err} off its "
               f"plain version (bound {tol})")
-        return err, tol
+        return got, err, tol
 
     for v in variants:
         checked(v, make(v, PROBE_DOT_CHECK_GRID),
                 _probe_arrays(v, gen, PROBE_CHECK_BH), "reduced")
 
+    # SDPA's f32 backward stands as the f32-operand backward's library call
+    # only if its products are f32
+    sdpa_f32 = _sdpa_f32_library(gen)
+    emit({"phase": "probes", "k": "sdpa_bwd_f32", **sdpa_f32})
     lines = []
     _reset_counts()
     for v in variants:
         args = _probe_arrays(v, gen, PROBE_BH)
         run = make(v, PROBE_DOT_GRID)
-        err, tol = checked(v, run, args, "full shape")
+        got, err, tol = checked(v, run, args, "full shape")
+        share = {}
+        if v["kernel"] == "probe_bwd":
+            # the outputs bit-equal to the f32 gold: the f32 mode's at its
+            # floor, the bf16 mode's for comparison
+            share["f32_gold_share"] = _bit_share(
+                got, _probe_plain(dict(v, ops="f32"), args))
+            check(v["ops"] != "f32" or share["f32_gold_share"] >=
+                  PROBE_BWD_F32_SHARE_FLOOR,
+                  f"probe {v['tag']}: {share['f32_gold_share']} of the "
+                  f"outputs bit-equal to the f32 gold, under the floor "
+                  f"{PROBE_BWD_F32_SHARE_FLOOR}")
+        del got
         torch.cuda.empty_cache()
-        lib = _probe_library(v, args)
+        lib = (None if v["library"] == "sdpa_bwd_f32"
+               and not sdpa_f32["f32_products"] else _probe_library(v, args))
         n_bytes, flops, peak = _probe_cost(v, args)
         res = {"phase": "probes", "k": v["tag"], "kernel": v["kernel"],
                "replaces": v["replaces"], "max_abs_err": err, "tol": tol,
+               **share,
                "ms": cuda_ms(lambda: run(*args), iters=PROBE_ITERS,
                              warmup=PROBE_WARMUP),
                "plain_ms": cuda_ms(lambda: _probe_plain(v, args), iters=3,
@@ -2380,6 +2453,15 @@ def phase_probes() -> dict:
                        for k in launches},
           f"probes: launches {launches} against {len(variants)} variants "
           f"x {per_variant} calls")
+    # the wrappers' host time per call (20 calls queued without a
+    # synchronize, the least of 5 runs), after the launches are counted
+    for v, res in zip(variants, lines):
+        args = _probe_arrays(v, gen, PROBE_BH)
+        run = make(v, PROBE_DOT_GRID)
+        res["host_us"] = _host_us(lambda: run(*args), calls=20, repeats=5)
+        emit({"phase": "probes", "k": v["tag"], "host_us": res["host_us"]})
+        del args
+        torch.cuda.empty_cache()
 
     # the TPU probe's two library yardsticks: two batched products with a
     # bf16 score tensor (xla_batched_2dots) and a library flash kernel
@@ -2398,7 +2480,7 @@ def phase_probes() -> dict:
     torch.cuda.empty_cache()
     check(_jax_free(), "jax or the JAX package was imported")
     out = {"phase": "probes", "variants": len(variants), "launches": launches,
-           "card": card()}
+           "sdpa_bwd_f32": sdpa_f32, "card": card()}
     emit(out)
     return {**out, "lines": lines}
 
@@ -3651,7 +3733,11 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft) -> dict:
                 "path": "perf probes (neuspeech1_tpu_torch/perf)",
                 "case": case, "max_abs_err": max(x["max_abs_err"]
                                                  for x in rows),
-                **timing(r), "variant_ms": {x["k"]: x["ms"] for x in rows}}
+                **timing(r), "host_us": r["host_us"],
+                "variant_ms": {x["k"]: x["ms"] for x in rows},
+                **({"f32_gold_share": {x["k"]: x["f32_gold_share"]
+                                       for x in rows}}
+                   if kernel == "probe_bwd" else {})}
 
     probes = [
         probe("probe_fwd", "base_bq512",

@@ -3,10 +3,11 @@
 // zero-fill, the wgmma descriptors that name it, and the wgmma.m64nNk16
 // products (A from shared memory or from registers) with their fences;
 // mbarriers, named barriers, TMA loads and stores with the tensor-map
-// encoder (cuTensorMapEncodeTiled). Included by flash_fwd_btc.cu, flash_bwd_btc.cu,
-// lora_bwd.cu, probe_fwd.cu and probe_dot.cu, with decode_sm90.cuh
-// (ldmatrix, mma.sync, cp.async groups, cluster launches); everything is in
-// an anonymous namespace, so each source gets its own copy.
+// encoder (cuTensorMapEncodeTiled). Included by flash_fwd_btc.cu,
+// flash_bwd_btc.cu, lora_bwd.cu, probe_fwd.cu, probe_bwd.cu and
+// probe_dot.cu, with decode_sm90.cuh (ldmatrix, mma.sync, cp.async groups,
+// cluster launches); everything is in an anonymous namespace, so each
+// source gets its own copy.
 
 #pragma once
 

@@ -17,11 +17,21 @@ dq, dk, dv come out in the inputs' dtype. Layouts as in `probe_fwd`:
 takes one).
 
 On CUDA tensors `probe_bwd` launches the Hopper kernels of
-``csrc/probe_bwd.cu`` (three kernels: delta, dk/dv, dq; deterministic) or
-raises; on CPU tensors it runs `probe_bwd_plain`, also the kernels' gold on
-the card. ``rows`` (R: the q rows of a dq CTA and of each q tile the dk/dv
-CTA walks, 32 or 64) shapes only the kernels' schedule and is checked on
-every device.
+``csrc/probe_bwd.cu`` or raises: a delta pass, then one persistent,
+warp-specialized wgmma pipeline on a TMA ring, instantiated for dk/dv
+(K/V rows resident, q tiles streamed) and for dq (q rows resident, K/V
+tiles streamed); no atomics. The f32 mode is the same pipeline with p and
+ds split into three bf16 terms (hi, mid, lo; their sum is the f32 value
+exactly), one tensor-core pass each, so every product is exact and only
+the f32 accumulation rounds. On CPU tensors it runs `probe_bwd_plain`,
+also the kernels' gold on the card. ``rows`` (R: the q rows of each tile
+the dk/dv items stream, 64 or 32) shapes only the schedule (`plan`) and
+is checked on every device. The card tests (every ops, rows and layout;
+the f32 mode's share of outputs bit-equal to the f32 gold) run on the
+machine with the card, which has no JAX, without tests/conftest.py:
+
+    python -m pytest tests/test_torch_cuda_kernels.py --noconftest -q \\
+        -k probe_bwd
 """
 
 from __future__ import annotations
@@ -37,6 +47,16 @@ from neuspeech1_tpu_torch.ops.probe_fwd import (
 
 OPS = ("bf16", "f32")
 ROWS = (32, 64)
+# the schedule's constants (csrc/probe_bwd.cu): resident rows of a work
+# item (two consumer warpgroups of 64), the dq kernel's K/V tile, the
+# streamed rows the ring holds, the threads of a CTA (a producer
+# warpgroup beside the consumers), and the bf16 passes of a product with
+# p or ds as an operand
+RESIDENT_ROWS = 128
+DQ_TILE = 64
+RING_ROWS = 512
+THREADS = 384
+PASSES = {"bf16": 1, "f32": 3}
 
 # Kernel launches since the count was last set to 0, one per wrapper call.
 launches = 0
@@ -58,17 +78,50 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
+def _side(tile: int, stats: bool, passes: int, products: int) -> dict:
+    stages = RING_ROWS // tile
+    tile_bytes = tile * HEAD_DIM * 2
+    res_bytes = RESIDENT_ROWS * HEAD_DIM * 2
+    smem = 4 * res_bytes + stages * (2 * tile_bytes + (8 * tile if stats
+                                                      else 0)) \
+        + 8 * (4 + 2 * stages) + 1024
+    return {"resident_rows": RESIDENT_ROWS, "tile_rows": tile,
+            "stages": stages, "passes": 2 + passes * products,
+            "smem_bytes": smem}
+
+
+def plan(rows: int, ops: str, tk: int) -> dict:
+    """The kernels' schedule for ``rows`` (R), ``ops`` and ``tk`` keys, as
+    csrc/probe_bwd.cu builds it (``Sched``): for the dk/dv and the dq
+    kernel, the resident rows of an item, the rows of a streamed tile,
+    the ring's stages, the tensor-core passes per tile (s and dp one each;
+    dv and dk, or dq, one per split term) and the dynamic shared memory
+    (two resident buffers of two tiles, the stages' two tiles and, for
+    dk/dv, their lse and delta rows, the mbarriers, 1 KB of alignment);
+    the warpgroups and threads of a CTA (one CTA an SM) and the launches
+    of a call (delta, dk/dv, dq). Raises for what is not built."""
+    if ops not in OPS:
+        raise ValueError(f"ops {ops!r} is not one of {OPS}")
+    if rows not in ROWS:
+        raise ValueError(f"no probe_bwd schedule for rows {rows}: the q "
+                         f"tiles of the dk/dv kernel are {ROWS} rows")
+    if tk % RESIDENT_ROWS:
+        raise ValueError(f"probe_bwd takes TK a multiple of "
+                         f"{RESIDENT_ROWS} (the rows of a work item); got "
+                         f"TK {tk}")
+    p = PASSES[ops]
+    return {"dkdv": _side(rows, True, p, 2), "dq": _side(DQ_TILE, False, p, 1),
+            "warpgroups": 2, "threads": THREADS, "ctas_per_sm": 1,
+            "launches": 3}
+
+
 def _check(q, k, v, o, do, lse, t_valid, ops, rows, btc):
     check_shapes(btc, q, k, v, o, do)
     n_bh, n_heads, tk, _ = layout(q, btc)
     want = (q.shape[0], n_heads, tk) if btc else (n_bh, tk)
     if tuple(lse.shape) != want:
         raise ValueError(f"lse must be {want}; got {tuple(lse.shape)}")
-    if ops not in OPS:
-        raise ValueError(f"ops {ops!r} is not one of {OPS}")
-    if rows not in ROWS or tk % 64 or tk % rows:
-        raise ValueError(f"probe_bwd takes rows in {ROWS} and TK a multiple "
-                         f"of 64 and of rows; got rows {rows}, TK {tk}")
+    plan(rows, ops, tk)
     if not 1 <= t_valid <= tk:
         raise ValueError(f"t_valid {t_valid} outside 1..{tk}")
 

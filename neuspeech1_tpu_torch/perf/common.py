@@ -21,9 +21,11 @@ share: a source with its substitutions applied, built on its own.
   turn on by a named barrier, so one warpgroup's softmax runs under the
   other's products); 4, ping-pong on 64-column K tiles (four turns per
   128 columns). With one warpgroup (rows 64) only n_sub = 1 exists.
-- Backward: R = the q rows of a dq CTA and of each q tile the dk/dv CTA
-  walks, block_q / 8 rounded up to the 16-row mma fragment: 512 -> 64,
-  256 -> 32, 192 -> 32.
+- Backward (csrc/probe_bwd.cu, one wgmma pipeline on a TMA ring for the
+  dk/dv and the dq kernel): R = the q rows of each tile the dk/dv kernel
+  streams past its resident K/V rows, block_q / 8 rounded up to 16 rows:
+  512 -> 64, 256 -> 32, 192 -> 32 (the dq kernel streams 64-row K/V tiles
+  either way).
 - ``dimension_semantics`` told Mosaic which grid axes it may split across
   cores or reorder; on the card its counterpart is the order of the work
   items. The last entry names the q-block axis: 'arbitrary' (kept in

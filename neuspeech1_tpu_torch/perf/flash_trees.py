@@ -11,10 +11,13 @@ SDPA on the same inputs, the decode step K7 at ``DECODE_STEP_CASES`` and
 the multi-query decode step K8 at ``DECODE_STEP_MULTI_CASES``), ``lora``
 (the LoRA adapter backward K3 at ``LORA_CASES``; its device time counts
 every kernel of the call), ``probes`` (the probes' attention forward P-fwd
-at ``PROBE_FWD_CASES``, beside SDPA with the key mask, and the batched dot
-P-dot at each K of ``PROBE_DOT_KS``, beside ``torch.bmm``, all at the
-probes' full shape through the checkout's ``perf`` make_* functions, so
-each tree maps block_q and n_sub to its own schedule) or ``all`` (the
+at ``PROBE_FWD_CASES``, beside SDPA with the key mask, the attention
+backward P-bwd at ``PROBE_BWD_CASES``, beside SDPA's backward in bf16 and
+f32, with each variant's share of outputs bit-equal to the plain f32
+version, and the batched dot P-dot at each K of ``PROBE_DOT_KS``, beside
+``torch.bmm``, all at the probes' full shape through the checkout's
+``perf`` make_* functions, so each tree maps block_q and n_sub to its own
+schedule) or ``all`` (the
 default: every group but ``probes``). Each line gives the
 mean CUDA-event time of 50 calls after 5 and the device time of the
 kernels under torch.profiler (10 calls; the small cases are launch-bound,
@@ -73,6 +76,14 @@ PROBE_FWD_CASES = (("base_bq512", "kernel_probe", "make_kernel", ("base", 512)),
                    ("online_bq512_kb4", "kernel_probe", "make_online",
                     (512, 4)),
                    ("fwd_bq512_sub2", "mxu_probe", "make_fwd", (512, 2)))
+# (tag, module, make_* and its arguments, btc): P-bwd at the probes' shape
+# from a given lse ~ N(8, 0.1^2), every variant of chip_smoke's sweep
+PROBE_BWD_CASES = tuple(
+    (f"bwd_bq{bq}_{ops}ops", "bwd_probe", "make_bwd",
+     (bq,), {"bf16_ops": ops == "bf16"}, False)
+    for bq in (512, 256) for ops in ("bf16", "f32")) + tuple(
+    (f"bwd_btc_bq{bq}", "btc_probe", "make_bwd_btc", (bq,), {}, True)
+    for bq in (512, 256, 192))
 # P-dot: 256 x [512, K] @ [K, 1536]
 PROBE_DOT_KS = (64, 128, 256, 512)
 PROBE_BH, PROBE_TK, PROBE_T = 512, 1536, 1500
@@ -90,7 +101,9 @@ def main(checkout: str, tag: str, which: str = "all") -> None:
 
     def emit(kernel, case, fn, prefix, host=False):
         """One line: CUDA-event ms, device ms of the kernels whose names
-        hold ``prefix`` (every kernel for None), the host's us per call."""
+        hold ``prefix`` (every kernel for None), the host's us per call
+        (``host``: True for the least of 20 runs of 100 calls, or (calls,
+        runs))."""
         ms = cuda_ms(fn, iters=50, warmup=5)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(10):
@@ -101,16 +114,17 @@ def main(checkout: str, tag: str, which: str = "all") -> None:
                   and (prefix is None or prefix in e.key)) / 1e4
         line = {"tree": tag, "kernel": kernel, "case": case, "ms": ms,
                 "device_ms": dev}
-        if host:  # the least of 20 runs of 100 calls
+        if host:
+            calls, runs = (100, 20) if host is True else host
             best = float("inf")
-            for _ in range(20):
+            for _ in range(runs):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                for _ in range(100):
+                for _ in range(calls):
                     fn()
                 best = min(best, time.perf_counter() - t0)
             torch.cuda.synchronize()
-            line["host_us"] = 1e6 * best / 100
+            line["host_us"] = 1e6 * best / calls
         print(json.dumps(line), flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -121,7 +135,7 @@ def main(checkout: str, tag: str, which: str = "all") -> None:
     if which in ("lora", "all"):
         _lora(gen, emit)
     if which == "probes":
-        _probes(gen, emit)
+        _probes(gen, emit, tag)
 
 
 def _flash(gen, emit) -> None:
@@ -238,7 +252,7 @@ def _lora(gen, emit) -> None:
              lb.lora_adapter_bwd(x, dy, a, bm), None, host=True)
 
 
-def _probes(gen, emit) -> None:
+def _probes(gen, emit, tree) -> None:
     """P-fwd beside SDPA with the key mask, P-dot beside torch.bmm; the
     device time of P-fwd and P-dot counts their own kernels."""
     import importlib
@@ -260,6 +274,7 @@ def _probes(gen, emit) -> None:
     emit("SDPA", "base", lambda: F.scaled_dot_product_attention(
         q4, k4, v4, attn_mask=mask), None)
     del q, k, v, q4, k4, v4
+    _probes_bwd(gen, emit, tree)
     from neuspeech1_tpu_torch.perf import mxu_probe
 
     for kdim in PROBE_DOT_KS:
@@ -271,6 +286,78 @@ def _probes(gen, emit) -> None:
         emit("bmm", f"dot_k{kdim}", lambda a=a, b=b: torch.bmm(a, b), None)
         del a, b
         torch.cuda.empty_cache()
+
+
+def _probes_bwd(gen, emit, tree) -> None:
+    """P-bwd at every variant (device time: every kernel of the call; host
+    time: the least of 5 runs of 20 calls) beside SDPA's backward with the
+    key mask on the same inputs, in bf16 and on f32 copies; then each
+    variant's share of outputs bit-equal to the plain f32 version on these
+    inputs and on the card test's (tests/test_torch_cuda_kernels.py::
+    _probe_bwd_inputs: four heads over 1536 keys, seeds 9 and 19)."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+
+    from neuspeech1_tpu_torch.ops.probe_bwd import probe_bwd_plain
+
+    def arrays(g, shape, lse_shape):
+        """q, k, v, o, do bf16 N(0, 1) and lse ~ N(8, 0.1^2) from ``g``."""
+        xs = [torch.randn(shape, generator=g, device="cuda")
+              .to(torch.bfloat16) for _ in range(5)]
+        return xs + [8.0 + 0.1 * torch.randn(lse_shape, generator=g,
+                                             device="cuda")]
+
+    b = PROBE_BH // 8
+    full = {False: arrays(gen, (PROBE_BH, PROBE_TK, 64),
+                          (PROBE_BH, PROBE_TK)),
+            True: arrays(gen, (b, PROBE_TK, 8 * 64), (b, 8, PROBE_TK))}
+    test = {}
+    for btc in (False, True):
+        xs = arrays(torch.Generator(device="cuda").manual_seed(9),
+                    (1, 1536, 4 * 64) if btc else (4, 1536, 64), (1,))[:5]
+        g19 = torch.Generator(device="cuda").manual_seed(19)
+        lse = 8.0 + 0.1 * torch.randn((4, 1536), generator=g19, device="cuda")
+        test[btc] = xs + [lse.view(1, 4, 1536) if btc else lse]
+
+    runs = {}
+    for tag, module, make, args, kw, btc in PROBE_BWD_CASES:
+        mod = importlib.import_module(f"neuspeech1_tpu_torch.perf.{module}")
+        run = getattr(mod, make)(*args, t_valid=PROBE_T, **kw)
+        runs[tag] = (run, btc)
+        emit("P-bwd", tag, lambda run=run, a=full[btc]: run(*a), None,
+             host=(20, 5))
+    q, k, v, _, do, _ = full[False]
+    mask = (torch.arange(PROBE_TK, device="cuda") < PROBE_T).view(1, 1, 1, -1)
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        xs = [x.unsqueeze(1).to(dtype).detach().requires_grad_()
+              for x in (q, k, v)]
+        o = F.scaled_dot_product_attention(*xs, attn_mask=mask)
+        g = do.unsqueeze(1).to(dtype)
+        emit("SDPA_bwd", name, lambda o=o, xs=xs, g=g: torch.autograd.grad(
+            o, xs, g, retain_graph=True), None)
+        del xs, o, g
+        torch.cuda.empty_cache()
+
+    def share(got, ref):
+        same = sum(int((a == r).sum()) for a, r in zip(got, ref))
+        return same / sum(r.numel() for r in ref)
+
+    for where, inputs, t_valid in (("full", full, PROBE_T),
+                                   ("card_test", test, 1500)):
+        for btc in (False, True):
+            gold = probe_bwd_plain(*inputs[btc], t_valid, "f32", btc)
+            for tag, (run, b_) in runs.items():
+                if b_ == btc:
+                    print(json.dumps({"tree": tree, "kernel": "P-bwd",
+                                      "case": tag,
+                                      "inputs": where,
+                                      "f32_gold_share": share(
+                                          run(*inputs[btc]), gold)}),
+                          flush=True)
+            del gold
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -43,14 +43,13 @@ def test_editing_a_file_renames_the_libraries_that_include_it(
 
 
 def test_flash_sources_share_the_header():
-    """Both flash sources, the LoRA backward and the probes' forward and
-    dot include csrc/flash_sm90.cuh, which includes csrc/decode_sm90.cuh,
-    so an edit of either rebuilds all five; the decode step includes only
-    decode_sm90.cuh, and a source that includes neither keeps its key."""
+    """Both flash sources, the LoRA backward and the probes' forward,
+    backward and dot include csrc/flash_sm90.cuh, which includes
+    csrc/decode_sm90.cuh, so an edit of either rebuilds all six; the
+    decode step includes only decode_sm90.cuh."""
     for name in ("flash_fwd_btc", "flash_bwd_btc", "lora_bwd", "probe_fwd",
-                 "probe_dot"):
+                 "probe_bwd", "probe_dot"):
         assert [p.name for p in _build.sources(name)] == [
             f"{name}.cu", "flash_sm90.cuh", "decode_sm90.cuh"]
     assert [p.name for p in _build.sources("decode_step")] == [
         "decode_step.cu", "decode_sm90.cuh"]
-    assert [p.name for p in _build.sources("probe_bwd")] == ["probe_bwd.cu"]

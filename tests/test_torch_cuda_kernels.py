@@ -617,30 +617,60 @@ def test_probe_fwd_kernel_matches_plain_on_card(cuda_device, mode, rows,
     assert torch.equal(lse.nan_to_num(), again[1].nan_to_num())
 
 
+def _probe_bwd_inputs(device, tk, btc):
+    """q, k, v, o, do and lse ~ N(8, 0.1^2) of four heads over ``tk`` keys,
+    from seeded generators."""
+    shape = (1, tk, 4 * 64) if btc else (4, tk, 64)
+    arrays = _probe_inputs(device, 9, 5, shape)
+    gen = torch.Generator(device=device).manual_seed(19)
+    lse = 8.0 + 0.1 * torch.randn((4, tk), generator=gen, device=device)
+    return arrays + [lse.view(1, 4, tk) if btc else lse]
+
+
+# Every (ops, rows, btc) pair at the probes' TK and at the CPU tests' TK =
+# 256 (two work items a head; t_valid inside the last K/V tile)
 @pytest.mark.cuda
+@pytest.mark.parametrize("tk,t_valid", [(1536, 1500), (256, 250)])
 @pytest.mark.parametrize("ops,rows,btc", [
-    ("bf16", 64, False), ("bf16", 32, False), ("f32", 64, False),
-    ("f32", 32, True)])
-def test_probe_bwd_kernel_matches_plain_on_card(cuda_device, ops, rows, btc):
-    shape = (1, 1536, 4 * 64) if btc else (4, 1536, 64)
-    q, k, v, o, do = _probe_inputs(cuda_device, 9, 5, shape)
-    lse = 8.0 + 0.1 * torch.randn((4, 1536), device=cuda_device)
-    lse = lse.view(1, 4, 1536) if btc else lse
+    (ops, rows, btc) for ops in tpb.OPS for rows in tpb.ROWS
+    for btc in (False, True)])
+def test_probe_bwd_kernel_matches_plain_on_card(cuda_device, ops, rows, btc,
+                                                tk, t_valid):
+    args = _probe_bwd_inputs(cuda_device, tk, btc)
     before = tpb.launches
-    got = tpb.probe_bwd(q, k, v, o, do, lse, 1500, ops=ops, rows=rows,
-                        btc=btc)
+    got = tpb.probe_bwd(*args, t_valid, ops=ops, rows=rows, btc=btc)
     assert tpb.launches == before + 1
-    ref = tpb.probe_bwd_plain(q, k, v, o, do, lse, 1500, ops, btc)
+    ref = tpb.probe_bwd_plain(*args, t_valid, ops, btc)
     # bf16 operands: a few ulps of the largest gradient (K2's bound); f32
     # operands: the one rounding of the output, flipped by sum order
     for g, r in zip(got, ref):
         assert _rel_err(g, r) <= (2e-2 if ops == "bf16" else 1e-2)
     # masked keys get no gradient (rows are dim 1 in both layouts)
-    assert not got[1][:, 1500:].any() and not got[2][:, 1500:].any()
-    again = tpb.probe_bwd(q, k, v, o, do, lse, 1500, ops=ops, rows=rows,
-                          btc=btc)
+    assert not got[1][:, t_valid:].any() and not got[2][:, t_valid:].any()
+    again = tpb.probe_bwd(*args, t_valid, ops=ops, rows=rows, btc=btc)
     for g, h in zip(got, again):  # no atomics: the same bits every run
         assert torch.equal(g, h)
+
+
+# The f32 mode's outputs bit-equal to the f32 gold: at least the share of
+# the FFMA kernel this design replaced, on these inputs, less one point
+# (chip_smoke.PROBE_BWD_F32_SHARE_FLOOR, with its measurement), and above
+# the bf16 mode's share, which a kernel that ran bf16 passes in f32 mode
+# would show.
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,btc", [(64, False), (32, False), (64, True),
+                                      (32, True)])
+def test_probe_bwd_f32_mode_is_bit_close_to_the_f32_gold(cuda_device, rows,
+                                                          btc):
+    import chip_smoke
+
+    args = _probe_bwd_inputs(cuda_device, 1536, btc)
+    gold = tpb.probe_bwd_plain(*args, 1500, "f32", btc)
+    f32, bf16 = (chip_smoke._bit_share(tpb.probe_bwd(
+        *args, 1500, ops=ops, rows=rows, btc=btc), gold)
+        for ops in ("f32", "bf16"))
+    assert f32 >= chip_smoke.PROBE_BWD_F32_SHARE_FLOOR, (f32, bf16)
+    assert bf16 < f32, (f32, bf16)
 
 
 @pytest.mark.cuda

@@ -1,10 +1,11 @@
 """The probe kernels' schedules, pure functions of the arguments: the map
 from a TPU probe's ``block_q``, ``n_sub`` and ``dimension_semantics`` to
 P-fwd's schedule (``perf/common.py``; ``ops/probe_fwd.py::plan``, mirroring
-``Sched`` in ``csrc/probe_fwd.cu``), P-dot's tiling (``ops/probe_dot.py::
-plan``, mirroring ``csrc/probe_dot.cu``), every variant of chip_smoke's
-probe sweep against them, and what the wrappers hand the C entries
-(followed on CPU tensors that report a CUDA device)."""
+``Sched`` in ``csrc/probe_fwd.cu``), P-bwd's (``ops/probe_bwd.py::plan``,
+mirroring ``Sched`` in ``csrc/probe_bwd.cu``), P-dot's tiling
+(``ops/probe_dot.py::plan``, mirroring ``csrc/probe_dot.cu``), every
+variant of chip_smoke's probe sweep against them, and what the wrappers
+hand the C entries (followed on CPU tensors that report a CUDA device)."""
 
 import re
 import types
@@ -15,10 +16,11 @@ import torch
 
 import chip_smoke
 from neuspeech1_tpu_torch.ops import _build
+from neuspeech1_tpu_torch.ops import probe_bwd as tpb
 from neuspeech1_tpu_torch.ops import probe_dot as tpd
 from neuspeech1_tpu_torch.ops import probe_fwd as tpf
-from neuspeech1_tpu_torch.perf import btc_probe, common, kernel_probe
-from neuspeech1_tpu_torch.perf import mxu_probe
+from neuspeech1_tpu_torch.perf import btc_probe, bwd_probe, common
+from neuspeech1_tpu_torch.perf import kernel_probe, mxu_probe
 from tests.test_torch_decode_plan import _Entry, cpu_as_cuda  # noqa: F401
 from tests.test_torch_flash_attention import _on_cuda
 
@@ -27,23 +29,25 @@ SMEM = 232448  # an H100 block's shared memory (227 KB)
 PROBE_MODULES = (kernel_probe, mxu_probe, btc_probe)
 
 
-def _sweep_calls(monkeypatch):
-    """Each forward variant of chip_smoke's probe sweep, run through its
-    ``perf`` make_* function with probe_fwd replaced by a recorder: (tag,
-    the keyword arguments it passes)."""
+def _sweep_calls(monkeypatch, kernel="probe_fwd"):
+    """Each variant of chip_smoke's probe sweep for ``kernel`` (probe_fwd
+    or probe_bwd), run through its ``perf`` make_* function with the
+    kernel's entry replaced by a recorder: (tag, the keyword arguments it
+    passes)."""
     seen = []
 
-    def record(q, k, v, t_valid, **kw):
+    def record(*arrays, **kw):
         seen.append(kw)
 
-    for mod in PROBE_MODULES:
-        monkeypatch.setattr(mod, "probe_fwd", record)
+    for mod in PROBE_MODULES + (bwd_probe,):
+        if hasattr(mod, kernel):
+            monkeypatch.setattr(mod, kernel, record)
+    n_arrays = 3 if kernel == "probe_fwd" else 6
     out = []
     for v in chip_smoke._probe_variants():
-        if v["kernel"] != "probe_fwd":
-            continue
-        v["make"](t_valid=T)(None, None, None)
-        out.append((v["tag"], seen.pop()))
+        if v["kernel"] == kernel:
+            v["make"](t_valid=T)(*[None] * n_arrays)
+            out.append((v["tag"], seen.pop()))
     return out
 
 
@@ -192,3 +196,117 @@ def test_forward_wrapper_hands_the_c_entry_its_schedule(
     assert (n_heads, s_h) == ((4, 64) if btc else (1, 0))
     assert s_b == tk * s_t and s_t == (256 if btc else 64)
     assert cpu_as_cuda == [shape, (8, 256)]
+
+
+def test_every_backward_variant_of_the_sweep_has_a_plan(monkeypatch):
+    """All 7 variants map to a built schedule at the probes' TK whose two
+    kernels fit the card's shared memory, one CTA an SM; none is refused.
+    Their ops and rows are the sweep's: bf16 and f32 at bq256 and bq512,
+    f32 on [B, T, H*D] at bq512, 256, 192."""
+    calls = _sweep_calls(monkeypatch, "probe_bwd")
+    assert len(calls) == 7
+    for tag, kw in calls:
+        ops, rows = kw.get("ops", "bf16"), kw["rows"]
+        assert ops == ("bf16" if tag.endswith("bf16ops") else "f32"), tag
+        assert kw.get("btc", False) == tag.startswith("bwd_btc"), tag
+        pl = tpb.plan(rows, ops, TK)
+        for side in ("dkdv", "dq"):
+            assert pl[side]["smem_bytes"] <= SMEM, (tag, side)
+            assert TK % pl[side]["tile_rows"] == 0, (tag, side)
+        assert pl["ctas_per_sm"] * pl["dkdv"]["smem_bytes"] <= SMEM
+    assert {kw["rows"] for _, kw in calls} == set(tpb.ROWS)
+
+
+@pytest.mark.parametrize("block_q,rows", [(512, 64), (256, 32), (192, 32)])
+@pytest.mark.parametrize("ops,passes", [("bf16", (4, 3)), ("f32", (8, 5))])
+def test_block_q_maps_to_the_backward_tiles(block_q, rows, ops, passes):
+    """block_q -> R, the q rows of the dk/dv kernel's streamed tiles (512
+    -> 64, 256 and 192 -> 32), in a ring of 512 rows; the dq kernel streams
+    64-row K/V tiles either way. Tensor-core passes per tile: s and dp one
+    each, dv and dk (dq) one each in bf16 and three each (hi, mid, lo) in
+    f32."""
+    assert common.bwd_rows(block_q) == rows
+    pl = tpb.plan(rows, ops, TK)
+    assert pl["dkdv"]["tile_rows"] == rows
+    assert pl["dkdv"]["stages"] == 512 // rows
+    assert (pl["dq"]["tile_rows"], pl["dq"]["stages"]) == (64, 8)
+    assert (pl["dkdv"]["passes"], pl["dq"]["passes"]) == passes
+    assert pl["dkdv"]["resident_rows"] == pl["dq"]["resident_rows"] == 128
+    assert (pl["warpgroups"], pl["threads"], pl["launches"]) == (2, 384, 3)
+
+
+def test_backward_plan_mirrors_the_c_source():
+    """The Python plan and the C Sched share their constants and the
+    shared-memory sum; every product is a wgmma (the mma.sync and FFMA
+    product loops of the first design are gone); the schedules built are
+    the plan's rows, each in both modes."""
+    src = _c_source("probe_bwd")
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", src)}
+    assert (consts["kRes"], consts["kDqTile"], consts["kRingRows"],
+            consts["kThreads"]) == (tpb.RESIDENT_ROWS, tpb.DQ_TILE,
+                                    tpb.RING_ROWS, tpb.THREADS)
+    assert "kStages = kRingRows / BN;" in src
+    assert "kStats = DKDV ? 2 * BN * 4 : 0;" in src
+    assert "kBytes = kBars + 8 * (4 + 2 * kStages) + 1024;" in src
+    assert "constexpr int P = F32 ? 3 : 1;" in src
+    assert (tpb.PASSES["bf16"], tpb.PASSES["f32"]) == (1, 3)
+    assert '#include "flash_sm90.cuh"' in src
+    for gone in ("mma.sync", "mma_16816(", "gemm_f32", "fmaf(av[i], bv[j]"):
+        assert gone not in src, gone
+    assert "wgmma_rs<kD>" in src and "wgmma_ss<BN>" in src
+    assert {int(r) for r in re.findall(r"rows == (\d+)", src)} == \
+        set(tpb.ROWS)
+    res = consts["kRes"] * 64 * 2
+    for rows in tpb.ROWS:
+        for tile, stats, side in ((rows, 8 * rows, "dkdv"),
+                                  (consts["kDqTile"], 0, "dq")):
+            stages = consts["kRingRows"] // tile
+            smem = 4 * res + stages * (2 * tile * 64 * 2 + stats) + \
+                8 * (4 + 2 * stages) + 1024
+            assert tpb.plan(rows, "f32", TK)[side]["smem_bytes"] == smem
+
+
+@pytest.mark.parametrize("rows,ops,tk,match", [
+    (48, "bf16", 1536, "rows 48"), (64, "tf32", 1536, "ops"),
+    (64, "f32", 192, "multiple of 128"), (32, "bf16", 1000,
+                                          "multiple of 128")])
+def test_backward_refuses_what_is_not_built_on_every_device(rows, ops, tk,
+                                                            match):
+    """rows off the built tiles, an unknown mode, and TK off the 128-row
+    work items raise on CPU tensors too."""
+    q = torch.zeros((1, tk, 64))
+    with pytest.raises(ValueError, match=match):
+        tpb.probe_bwd(q, q, q, q, q, torch.zeros((1, tk)), min(tk, 100),
+                      ops=ops, rows=rows)
+
+
+@pytest.mark.parametrize("ops,rows,btc", [("bf16", 64, False),
+                                          ("f32", 32, False),
+                                          ("f32", 64, True),
+                                          ("bf16", 32, True)])
+def test_backward_wrapper_hands_the_c_entry_its_schedule(
+        monkeypatch, cpu_as_cuda, ops, rows, btc):  # noqa: F811
+    """On a tensor that reports a CUDA device the wrapper calls the C
+    entry once, with rows, the mode (1 for f32 operands) and strides that
+    view both layouts as B*TK rows of H*64 elements, and allocates dq, dk,
+    dv and the f32 delta scratch."""
+    entry = _Entry()
+    monkeypatch.setattr(tpb, "_library", lambda: types.SimpleNamespace(
+        **{tpb._FN: entry}))
+    shape = (2, 256, 4 * 64) if btc else (8, 256, 64)
+    q, k, v, o, do = (_on_cuda(np.zeros(shape, np.float32))
+                      for _ in range(5))
+    lse = _on_cuda(np.zeros((2, 4, 256) if btc else (8, 256), np.float32),
+                   torch.float32)
+    before = tpb.launches
+    tpb.probe_bwd(q, k, v, o, do, lse, 250, ops=ops, rows=rows, btc=btc)
+    assert tpb.launches == before + 1
+    (n_bh, n_heads, tk, t_valid, r, f32_ops, s_b, s_h, s_t,
+     scale) = entry.args[10:20]
+    assert (n_bh, tk, t_valid, r, f32_ops) == (8, 256, 250, rows,
+                                               int(ops == "f32"))
+    assert (n_heads, s_h) == ((4, 64) if btc else (1, 0))
+    assert s_b == tk * s_t and s_t == (256 if btc else 64)
+    assert scale == 64 ** -0.5
+    assert cpu_as_cuda == [shape] * 3 + [(8, 256)]
