@@ -408,6 +408,37 @@ TRAINED_E_STD = 0.1
 FT_SCHEDULE = ("--adalora_tinit=2", "--adalora_tfinal=4",
                "--adalora_deltaT=2", "--warmup_steps=2", "--eval_steps=7",
                "--save_steps=7", "--logging_steps=1", "--eval_wer=True")
+# options: the training step's options at the train phase's setup
+# (whisper-base, batch 64, 64 labels, LoRA r=32, the fold). Each timed
+# setting runs OPT_WARM steps, then OPT_TIMED timed ones (median).
+OPT_WARM, OPT_TIMED = 3, 7
+OPT_AUGMENT = {
+    "noise": {"prob": 0.5, "min_snr_dB": 5, "max_snr_dB": 20},
+    "mask": {"prob": 0.5, "kwargs": {"unit": [1, 40], "mask_prob": 0.25,
+                                     "random_type": 1}},
+    "taylor": {"prob": 0.5},
+    "spec_augment": {"mask_time_prob": 0.05, "mask_time_length": 10,
+                     "mask_time_min_masks": 2}}
+OPT_DROPOUT = 0.1
+# the draws held by their distributions: OPT_DRAWS batches of draws on the
+# card, each rate within Z_BINOMIAL standard deviations of its probability
+OPT_DRAWS = 16
+Z_BINOMIAL = 5.0
+# measured SNR of a noisy (row, channel) over its 6000 samples against the
+# drawn SNR: the ratio of two means of squares over 6000 samples spreads by
+# 10 log10(e) sqrt(2 / 6000) = 0.079 dB (one standard deviation), and the
+# power is taken from the bf16 batch (2^-8 relative, 0.017 dB); 0.7 dB is
+# about 8.5 standard deviations, past the extreme of 13,312 estimates
+SNR_TOL_DB = 0.7
+# int8 against the bf16 step, per trainable leaf |g_int8 - g_bf16| / |g_bf16|:
+# on the CPU in f32 (tests/test_torch_int8_matmul.py's setup) int8 moves a
+# leaf by up to 4.7% under fwd and full (median 1.9% and 2.6%); three times
+# that, plus the bf16 paths' own GRAD_REL_TOL. The loss: int8 moved it by
+# 3.5e-5 relative on the CPU; 1e-2 leaves room for bf16.
+INT8_GRAD_REL_TOL = 0.2
+INT8_LOSS_REL_TOL = 1e-2
+# the fine-tune CLI with augmentation and int8: steps per run
+OPT_CLI_STEPS = 3
 RING_N = 4
 RING_BATCH = 8
 RING_T = 1536
@@ -3246,27 +3277,44 @@ def _ft_batch(corpus, tokenizer, config, n: int, device="cuda"):
     return to_device_batch(coll([ds[i] for i in range(n)]), device)
 
 
-def _remat_grad_check(config, stem, state, frozen, batch) -> dict:
+def _remat_settings():
+    """(name, config changes) of no remat and every remat policy of
+    ``models/whisper.py::REMAT_POLICIES`` (None, full recompute, is
+    'full')."""
+    from neuspeech1_tpu_torch.models.whisper import REMAT_POLICIES
+
+    return [("none", {})] + [
+        (p or "full", {"remat": True, "remat_policy": p})
+        for p in REMAT_POLICIES]
+
+
+def _remat_extra_k1(name: str, config) -> int:
+    """K1 launches a policy adds to a step: the backward runs each encoder
+    layer's flash forward again unless the policy keeps its o and lse
+    (full recompute, 'dots' and 'attn' do not)."""
+    return config.encoder_layers if name in ("full", "dots", "attn") else 0
+
+
+def _remat_grad_check(config, stem, state, frozen, batch,
+                      orth_reg_weight: float = 0.5) -> dict:
     """One step's loss and gradients with each encoder layer under a
-    checkpoint (both policies) against the step without, on the kernels:
-    the same bounds as the kernels against the plain versions; K1 runs
-    once per layer under 'flash_qkv' and twice under full recompute."""
+    checkpoint, for every remat policy, against the step without, on the
+    kernels: the same bounds as the kernels against the plain versions; K1
+    runs once more per layer where the policy recomputes the flash forward
+    (`_remat_extra_k1`), and K2 and K3 as often as without remat."""
     import dataclasses
 
     from neuspeech1_tpu_torch.train.trainstep import make_loss_fn
 
     out = {}
     ref = None
-    for name, changes in (("none", {}),
-                          ("flash_qkv", {"remat": True,
-                                         "remat_policy": "flash_qkv"}),
-                          ("full", {"remat": True, "remat_policy": None})):
+    for name, changes in _remat_settings():
         c = dataclasses.replace(config, **changes)
         with _replaced_config(frozen.model, **changes):
             _reset_counts()
-            loss, grads = _grads(make_loss_fn(c, stem, orth_reg_weight=0.5,
-                                              fold_lora=True),
-                                 state, frozen, batch)
+            loss, grads = _grads(make_loss_fn(
+                c, stem, orth_reg_weight=orth_reg_weight, fold_lora=True),
+                state, frozen, batch)
             counts = _kernel_counts()
         if ref is None:
             ref = (loss, grads, counts)
@@ -3280,10 +3328,9 @@ def _remat_grad_check(config, stem, state, frozen, batch) -> dict:
               f"{errs['leaf']} {errs['max']}")
         check(abs(loss - ref[0]) <= LOSS_TOL * abs(ref[0]),
               f"remat {name}: loss {loss}, without remat {ref[0]}")
-        extra = 0 if name == "flash_qkv" else config.encoder_layers
-        check(counts["K1"] == ref[2]["K1"] + extra,
-              f"remat {name}: {counts['K1']} K1 launches, expected "
-              f"{ref[2]['K1'] + extra}")
+        want = dict(ref[2], K1=ref[2]["K1"] + _remat_extra_k1(name, config))
+        check(counts == want, f"remat {name}: launches {counts}, expected "
+              f"{want}")
     return out
 
 
@@ -3682,6 +3729,390 @@ def phase_finetune(tr, bm, device: str = "cuda") -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# options: remat policies, int8 matmuls, augmentation, dropout, and the
+# fine-tune CLI with them
+# --------------------------------------------------------------------------
+
+def _timed_steps(step, state, frozen, batch, expect=None) -> dict:
+    """OPT_WARM steps, then OPT_TIMED timed ones (a device -> host copy of
+    the loss ends each): median ms, the losses, the peak memory from the
+    first step on, and the kernel launches of each step (checked against
+    ``expect`` where given)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses, launches = [], [], None
+    for i in range(OPT_WARM + OPT_TIMED):
+        _reset_counts()
+        t0 = time.perf_counter()
+        m = step(state, frozen, batch)
+        loss = float(m["loss"])
+        seconds = time.perf_counter() - t0
+        launches = _kernel_counts()
+        check(math.isfinite(loss) and math.isfinite(float(m["grad_norm"])),
+              f"options step: loss {loss}")
+        if expect is not None:
+            check(launches == expect, f"options step: launches {launches}, "
+                  f"expected {expect}")
+        losses.append(loss)
+        if i >= OPT_WARM:
+            ms.append(1e3 * seconds)
+    return {"step_ms": statistics.median(ms), "step_ms_all": ms,
+            "losses": losses,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "launches_per_step": {k: launches[k] for k in ("K1", "K2",
+                                                            "K3")}}
+
+
+def _options_remat(config, stem, tx, state, frozen, batch, expect,
+                   grads) -> dict:
+    """Every remat policy and no remat at batch 64: ms per step, peak
+    memory and launches per step of the training step under each, beside
+    ``grads``, `_remat_grad_check`'s record of the same policies."""
+    import dataclasses
+
+    from neuspeech1_tpu_torch.train.trainstep import make_train_step
+
+    out = {}
+    for name, changes in _remat_settings():
+        c = dataclasses.replace(config, **changes)
+        want = dict(expect, K1=expect["K1"] + _remat_extra_k1(name, config))
+        with _replaced_config(frozen.model, **changes):
+            rec = _timed_steps(make_train_step(c, stem, tx, fold_lora=True),
+                               state, frozen, batch, want)
+        out[name] = {**rec, **({"grad_check": grads[name]}
+                               if name in grads else {})}
+        emit({"phase": "options", "item": "remat", "policy": name,
+              **{k: v for k, v in out[name].items() if k != "losses"}})
+    return out
+
+
+def _int_mm_exact(gen, device: str = "cuda") -> dict:
+    """One quantized product at the encoder's fc1 shape, [96000, 512] @
+    [512, 2048] (bf16 activations and weights quantized as the step
+    quantizes them): ``torch._int_mm``'s int32 sums equal a float64 product
+    of the same int8 operands exactly (every sum is below 2^53); its ms
+    beside the bf16 product's."""
+    from neuspeech1_tpu_torch.ops import int8_matmul as i8
+
+    n = TRAIN_BATCH * 1500
+    x = torch.randn(n, 512, generator=gen, device=device).bfloat16()
+    w = torch.randn(2048, 512, generator=gen, device=device).bfloat16()
+    xq, _ = i8._quant(x, 1)
+    wq, _ = i8._quant(w, 1)
+    y = i8._int_mm(xq, wq)
+    exact = torch.equal(y.double(), xq.double() @ wq.double().t())
+    check(exact, "int8: torch._int_mm differs from the float64 product")
+    return {"shape": [n, 512, 2048], "exact": exact,
+            "int_mm_ms": cuda_ms(lambda: i8._int_mm(xq, wq)),
+            "qdot_ms": cuda_ms(lambda: i8.qdot(x, w, torch.bfloat16)),
+            "bf16_mm_ms": cuda_ms(lambda: x @ w.t())}
+
+
+def _int8_grad_check(config, stem, state, frozen, batch, expect) -> dict:
+    """One step's loss and gradients under int8 'fwd' and 'full' against
+    the bf16 step's at the same state (INT8_GRAD_REL_TOL,
+    INT8_LOSS_REL_TOL; beside them the cosine of the whole gradient), with
+    K1, K2 and K3 launched as in the bf16 step."""
+    from neuspeech1_tpu_torch.train.trainstep import make_loss_fn
+
+    loss_ref, g_ref = _grads(make_loss_fn(config, stem, fold_lora=True),
+                             state, frozen, batch)
+    out = {}
+    for mode in ("fwd", "full"):
+        _reset_counts()
+        loss, g = _grads(make_loss_fn(config, stem, fold_lora=True,
+                                      int8_matmul=mode), state, frozen, batch)
+        check(_kernel_counts() == expect, f"int8 {mode}: launches "
+              f"{_kernel_counts()}, expected {expect}")
+        errs = _leaf_errs(g, g_ref)
+        dot = sum((g[k].float() * g_ref[k].float()).sum().item()
+                  for k in g_ref)
+        norms = [sum(t[k].float().pow(2).sum().item() for k in g_ref) ** 0.5
+                 for t in (g, g_ref)]
+        out[mode] = {"loss": loss, "loss_bf16": loss_ref,
+                     "grad_rel_err": {k: errs[k] for k in (
+                         "max", "leaf", "median", "top5")},
+                     "grad_cos": dot / (norms[0] * norms[1]),
+                     "grad_rel_tol": INT8_GRAD_REL_TOL}
+        check(errs["max"] <= INT8_GRAD_REL_TOL,
+              f"int8 {mode}: grads off the bf16 step: {errs['leaf']} "
+              f"{errs['max']}")
+        check(abs(loss - loss_ref) <= INT8_LOSS_REL_TOL * abs(loss_ref),
+              f"int8 {mode}: loss {loss}, bf16 {loss_ref}")
+    return out
+
+
+def _options_int8(config, stem, tx, state, frozen, batch, expect, grads,
+                  device: str = "cuda") -> dict:
+    """The step under int8 'fwd' and 'full' at batch 64: ms per step,
+    losses and launches (K1, K2, K3 as in the bf16 step) beside ``grads``,
+    `_int8_grad_check`'s record; and `_int_mm_exact`."""
+    from neuspeech1_tpu_torch.train.trainstep import make_train_step
+
+    out = {"int_mm": _int_mm_exact(
+        torch.Generator(device=device).manual_seed(13), device)}
+    emit({"phase": "options", "item": "int8_int_mm", **out["int_mm"]})
+    for mode in ("fwd", "full"):
+        rec = {**grads[mode],
+               **_timed_steps(make_train_step(config, stem, tx,
+                                              fold_lora=True,
+                                              int8_matmul=mode),
+                              state, frozen, batch, expect)}
+        out[mode] = rec
+        emit({"phase": "options", "item": "int8", "mode": mode, **rec})
+    return out
+
+
+def _binomial(hits: int, n: int, p: float) -> dict:
+    sd = (n * p * (1 - p)) ** 0.5
+    ok = abs(hits - n * p) <= Z_BINOMIAL * sd
+    return {"rate": hits / n, "p": p, "n": n, "ok": ok}
+
+
+def _options_augment(feats, device: str = "cuda") -> dict:
+    """The augmentation's draws on the card (OPT_DRAWS batches of them):
+    apply rates per section, taylor's n0 and n1, and what the apply does
+    with them on the bf16 batch at prob 1: each noisy (row, channel)'s
+    measured SNR against its drawn SNR (SNR_TOL_DB) and inside [min_snr,
+    max_snr] with that margin, and the share the block mask zeroes against
+    mask_prob."""
+    from neuspeech1_tpu_torch.ops.augment import apply_augment, draw_augment
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    shape = feats.shape
+    b = shape[0]
+    hits = {n: 0 for n in ("noise", "mask", "taylor")}
+    n_lo = n_hi = None
+    for _ in range(OPT_DRAWS):
+        d = draw_augment(gen, shape, OPT_AUGMENT)
+        for n in hits:
+            hits[n] += int(d[n]["apply"].sum())
+        lo = min(d["taylor"][k].min().item() for k in ("n0", "n1"))
+        hi = max(d["taylor"][k].max().item() for k in ("n0", "n1"))
+        n_lo = lo if n_lo is None else min(n_lo, lo)
+        n_hi = hi if n_hi is None else max(n_hi, hi)
+    rates = {n: _binomial(h, OPT_DRAWS * b, OPT_AUGMENT[n]["prob"])
+             for n, h in hits.items()}
+    # the noise and the mask at prob 1 on the batch
+    noise = {"noise": {**OPT_AUGMENT["noise"], "prob": 1.0}}
+    d = draw_augment(gen, shape, noise)
+    y = apply_augment(feats, d, noise)
+    x = feats.float()
+    snr = 10 * torch.log10(x.pow(2).mean(-1) / (y - x).pow(2).mean(-1))
+    drawn = d["noise"]["snr"][..., 0]
+    cfg = OPT_AUGMENT["noise"]
+    snr_rec = {"min": snr.min().item(), "max": snr.max().item(),
+               "max_abs_err_db": (snr - drawn).abs().max().item(),
+               "range": [cfg["min_snr_dB"], cfg["max_snr_dB"]],
+               "tol_db": SNR_TOL_DB}
+    mask = {"mask": {**OPT_AUGMENT["mask"], "prob": 1.0}}
+    d = draw_augment(gen, shape, mask)
+    zeroed = ((apply_augment(feats, d, mask) == 0) & (feats != 0)).sum()
+    n_cells = d["mask"]["keep"].numel()
+    cell_share = 1 - d["mask"]["keep"].float().mean().item()
+    share = zeroed.item() / (feats != 0).sum().item()
+    p = OPT_AUGMENT["mask"]["kwargs"]["mask_prob"]
+    out = {"apply_rates": rates, "taylor_n_range": [n_lo, n_hi],
+           "snr_db": snr_rec,
+           "masked": {"sample_share": share, "cell_share": cell_share,
+                      "mask_prob": p, "cells": n_cells,
+                      **{k: v for k, v in _binomial(
+                          round(cell_share * n_cells), n_cells, p).items()
+                         if k == "ok"}}}
+    emit({"phase": "options", "item": "augment_draws", **out})
+    for n, r in rates.items():
+        check(r["ok"], f"augment: {n} applied at {r['rate']}, prob {r['p']}")
+    check(n_lo == 1 and n_hi == 9, f"augment: taylor n in {n_lo}..{n_hi}")
+    check(snr_rec["max_abs_err_db"] <= SNR_TOL_DB
+          and cfg["min_snr_dB"] - SNR_TOL_DB <= snr_rec["min"]
+          and snr_rec["max"] <= cfg["max_snr_dB"] + SNR_TOL_DB,
+          f"augment: measured SNR {snr_rec}")
+    check(out["masked"]["ok"] and abs(share - cell_share) < 1e-3,
+          f"augment: masked share {share}, cells {cell_share}, prob {p}")
+    return out
+
+
+def _options_dropout(config, stem, tx, state, frozen, batch, expect,
+                     device: str = "cuda") -> dict:
+    """``use_dropout=True`` at stem.dropout OPT_DROPOUT: the frame mask's
+    keep rate over OPT_DRAWS draws on the card (binomial bound), then ms
+    per step and launches."""
+    import dataclasses
+
+    from neuspeech1_tpu_torch.models.whisper import draw_dropout
+    from neuspeech1_tpu_torch.train.trainstep import make_train_step
+
+    dstem = dataclasses.replace(stem, dropout=OPT_DROPOUT)
+    gen = torch.Generator(device=device).manual_seed(12)
+    kept = n = 0
+    for _ in range(OPT_DRAWS):
+        frames = draw_dropout(gen, config, dstem, TRAIN_BATCH)["frames"]
+        kept += int(frames.sum())
+        n += frames.numel()
+    keep = _binomial(kept, n, 1 - OPT_DROPOUT)
+    rec = {"rate": OPT_DROPOUT, "frame_keep": keep,
+           **_timed_steps(make_train_step(config, dstem, tx, fold_lora=True,
+                                          use_dropout=True),
+                          state, frozen, batch, expect)}
+    emit({"phase": "options", "item": "dropout", **rec})
+    check(keep["ok"], f"dropout: frames kept at {keep['rate']}")
+    return rec
+
+
+class _RecordingLoader:
+    """Records the ``native_signals`` flag of every DataLoader the CLI
+    builds (a stand-in for ``data.loader.DataLoader`` while open)."""
+
+    def __init__(self):
+        from neuspeech1_tpu_torch.data import loader
+
+        self.module, self.orig, self.native = loader, loader.DataLoader, []
+
+    def __enter__(self):
+        rec, orig = self.native, self.orig
+
+        class Loader(orig):
+            def __init__(self, *a, **k):
+                rec.append(bool(k.get("native_signals", False)))
+                super().__init__(*a, **k)
+
+        self.module.DataLoader = Loader
+        return self
+
+    def __exit__(self, *exc):
+        self.module.DataLoader = self.orig
+
+
+def _options_cli(tmp: str, expect_cli, device: str = "cuda") -> dict:
+    """``cli.finetune.main`` on the finetune phase's corpus (160 clips at
+    batch 64, FT_LABEL_LEN labels, seeded random whisper-base weights)
+    with --augment_config_path (shift, noise, mask and taylor at 0.5) and
+    --int8_matmul=fwd, then full, OPT_CLI_STEPS steps each: the loss at
+    every step, finite; K1/K2/K3 launches per step; and that shift turned
+    the device cache and the native clip loader off."""
+    corpus, tokenizer = _finetune_corpus(tmp, 50257)
+    aug = os.path.join(tmp, "augment.json")
+    with open(aug, "w") as f:
+        json.dump({"shift": {"prob": 0.5},
+                   **{k: OPT_AUGMENT[k] for k in ("noise", "mask",
+                                                  "taylor")}}, f)
+    out = {}
+    for mode in ("fwd", "full"):
+        argv = [f"--train_data={corpus}/train.jsonl", "--base_model=random",
+                f"--tokenizer={tokenizer}", "--eeg_ch=208",
+                f"--per_device_train_batch_size={FT_BATCH}",
+                f"--label_max_length={FT_LABEL_LEN}",
+                f"--max_steps={OPT_CLI_STEPS}", "--warmup_steps=1",
+                "--logging_steps=1", "--save_steps=1000", "--eval_steps=1000",
+                "--eval_wer=False", "--remat=False",
+                f"--augment_config_path={aug}", f"--int8_matmul={mode}",
+                f"--output_dir={os.path.join(tmp, 'cli_' + mode)}",
+                f"--device={device}"]
+        with _RecordingLoader() as rl:
+            run = _run_finetune(argv)
+        losses = [r["loss"] for r in run["records"] if "loss" in r]
+        rec = {"mode": mode, "augment": aug, "losses": losses,
+               "step_ms": [s["ms"] for s in run["steps"]],
+               "launches": [s["launches"] for s in run["steps"]],
+               "lines": run["lines"], "native_loader": rl.native,
+               "device_cache": any("staging" in ln or "rotating" in ln
+                                   for ln in run["lines"]),
+               "peak_mem_gb": run["peak_mem_gb"], "wall_s": run["wall_s"]}
+        out[mode] = rec
+        emit({"phase": "options", "item": "cli", **rec})
+        check(len(losses) == OPT_CLI_STEPS
+              and all(math.isfinite(x) for x in losses),
+              f"cli {mode}: losses {losses}")
+        check(all(s["launches"] == expect_cli for s in run["steps"]),
+              f"cli {mode}: launches {rec['launches']}, expected "
+              f"{expect_cli}")
+        check(rl.native == [False] and not rec["device_cache"],
+              f"cli {mode}: with shift on, native loader {rl.native}, "
+              f"device cache {rec['device_cache']}")
+    return out
+
+
+def phase_options(tr, device: str = "cuda") -> dict:
+    """The training step's options at the train phase's setup (whisper-base
+    with the 'base' stem over 208 channels, batch 64, 64 labels, LoRA r=32,
+    the fold), no cut in width or depth: every remat policy and no remat,
+    int8 'fwd' and 'full' beside the bf16 step, augmentation (noise, mask,
+    taylor at 0.5 and SpecAugment) beside the step without, dropout at
+    OPT_DROPOUT, each with its checks; then the fine-tune CLI with
+    augmentation and int8. One JSON line per item."""
+    import dataclasses
+
+    from neuspeech1_tpu_torch.cli import common
+    from neuspeech1_tpu_torch.train.trainstep import make_train_step
+
+    t0 = time.perf_counter()
+    config, tx, state, frozen, step, batch = _train_setup(TRAIN_BATCH,
+                                                          device)
+    stem = frozen.model.stem_config
+    n = config.encoder_layers
+    expect = {"K1": 2 * n, "K2": 2 * n, "K3": 2 * n, "K4": 0, "K4_bwd": 0,
+              "K6": 0, "K7": 0, "K8": 0}
+    # the adapters at a trained magnitude, so that every gradient moves
+    from neuspeech1_tpu_torch.models.lora import entries
+
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for _, e in entries(frozen.lora):
+            e["B"].copy_(TRAINED_B_STD * torch.randn(e["B"].shape,
+                                                     generator=gen))
+    # the gradient checks first, at the state just set: the timed steps
+    # below train the adapters and the stem on the one batch, and int8's
+    # distance from bf16 grows as they do (measured on one H100)
+    remat_grads = _remat_grad_check(config, stem, state, frozen, batch,
+                                    orth_reg_weight=0.0)
+    int8_grads = _int8_grad_check(config, stem, state, frozen, batch, expect)
+    remat = _options_remat(config, stem, tx, state, frozen, batch, expect,
+                           remat_grads)
+    int8 = _options_int8(config, stem, tx, state, frozen, batch, expect,
+                         int8_grads, device)
+    draws = _options_augment(batch["input_features"], device)
+    aug = _timed_steps(make_train_step(config, stem, tx, fold_lora=True,
+                                       augment_config=OPT_AUGMENT),
+                       state, frozen, batch, expect)
+    check(state.generator.device.type == torch.device(device).type,
+          f"the step's generator is on {state.generator.device}")
+    emit({"phase": "options", "item": "augment_step", **aug})
+    drop = _options_dropout(config, stem, tx, state, frozen, batch, expect,
+                            device)
+    del state, frozen, step, batch
+    torch.cuda.empty_cache()
+    cli_config, _ = common.preset_model("base", "base", in_channels=208)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = _options_cli(tmp, _step_launches(cli_config), device)
+    check(_jax_free(), "jax or the JAX package was imported")
+    base_ms = remat["none"]["step_ms"]
+    out = {
+        "phase": "options", "item": "summary", "model": "whisper-base",
+        "stem": "base/208", "batch_size": TRAIN_BATCH,
+        "label_len": TRAIN_LABEL_LEN, "lora_rank": 32,
+        "step_ms": {"bf16": base_ms,
+                    **{f"remat_{k}": v["step_ms"] for k, v in remat.items()
+                       if k != "none"},
+                    "int8_fwd": int8["fwd"]["step_ms"],
+                    "int8_full": int8["full"]["step_ms"],
+                    "augment": aug["step_ms"], "dropout": drop["step_ms"]},
+        "samples_per_s": {k: TRAIN_BATCH / (v / 1e3) for k, v in {
+            "bf16": base_ms, "int8_fwd": int8["fwd"]["step_ms"],
+            "int8_full": int8["full"]["step_ms"],
+            "augment": aug["step_ms"]}.items()},
+        "peak_mem_gb": {k: v["peak_mem_gb"] for k, v in remat.items()},
+        "train_phase_step_ms": tr["step_ms"],
+        "int8_grad_rel_err_max": {m: int8[m]["grad_rel_err"]["max"]
+                                  for m in ("fwd", "full")},
+        "int8_grad_cos": {m: int8[m]["grad_cos"] for m in ("fwd", "full")},
+        "cli_losses": {m: cli[m]["losses"] for m in cli},
+        "seconds": time.perf_counter() - t0,
+        "jax_imported": not _jax_free(), "card": card()}
+    emit(out)
+    return out
+
+
 def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft) -> dict:
     """One entry per kernel: launches on its path (training for K1, K2, K3;
     the sequence-parallel training step for K4; beam serving for K6, K7;
@@ -3847,6 +4278,7 @@ def main(argv) -> int:
         phase_lora(model)
         ev = phase_eval(model, bm)
     tr = phase_train()
+    phase_options(tr)
     ft = phase_finetune(tr, bm)
     rg = phase_ring(tr)
     pr = phase_probes()

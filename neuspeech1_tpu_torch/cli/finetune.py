@@ -17,10 +17,16 @@ Differences from the JAX CLI:
 - ``--device`` (default ``cuda``) picks the card or, when asked, the CPU;
   with ``cuda`` and no CUDA it raises, and it never falls back.
 - Refused before any model loads, each naming its ROADMAP.md item:
-  ``--augment_config_path`` and ``--int8_matmul`` other than ``off`` (queue
-  1 item 4), ``--modal=speech`` (item 7), ``--coordinator`` and
+  ``--modal=speech`` (queue 1 item 7), ``--coordinator`` and
   ``--mesh_{data,fsdp,tensor}`` above 1 (item 8); ``--mesh_data=-1`` means
   the one device.
+- ``--augment_config_path`` is split as in the JAX CLI: ``shift`` goes to
+  the train dataset (per item on the host; with its probability above 0
+  the device caches are off, and with any augment config the native
+  loader is: ``--native_loader=on`` raises), ``noise``, ``mask`` and
+  ``taylor`` to the train step, which draws them on the device from the
+  state's ``torch.Generator`` (``ops/augment.py``), not from
+  ``jax.random``.
 - ``--base_model=random`` draws the port's own seeded weights, and the
   adapters (and a stem re-initialized for ``--lora_eeg_ch``) come from a
   ``torch.Generator``: for the same seed they differ from the JAX
@@ -128,7 +134,8 @@ def build_parser() -> argparse.ArgumentParser:
             "merge the attention adapters into the weights once per step "
             "and run the fc adapters through the folded linear")
     add_arg("int8_matmul", str, "off",
-            "int8 training matmuls: off (fwd|full are not ported)")
+            "int8 training matmuls: off|fwd|full (fwd = forward dots "
+            "quantized; full = backward dots too)")
     add_arg("num_workers", int, 4, "loader threads")
     add_arg("device_cache", str, "auto",
             "stage the whole train set on the device and sample there: "
@@ -159,12 +166,6 @@ def build_parser() -> argparse.ArgumentParser:
 def refuse_unported(args) -> None:
     """Raise for a flag value the port does not have, before any model
     loads."""
-    if args.augment_config_path:
-        raise NotImplementedError(
-            f"--augment_config_path (train-time augmentation) {_REFUSED} 4")
-    if args.int8_matmul != "off":
-        raise NotImplementedError(
-            f"--int8_matmul={args.int8_matmul} {_REFUSED} 4")
     if args.modal == "speech":
         raise NotImplementedError(f"--modal=speech {_REFUSED} 7")
     if args.coordinator:
@@ -186,6 +187,25 @@ def parse_resume(resume):
             return True
         return int(resume)  # a specific saved step (0 is valid)
     return False if resume is None else resume
+
+
+def split_augment(path):
+    """(dataset config, step config) of the augment JSON at ``path``:
+    ``shift`` needs the transcript realigned per item on the host; noise,
+    mask and taylor run on the device inside the train step. Either is
+    None when empty."""
+    if not path:
+        return None, None
+    import json
+
+    with open(path) as f:
+        config = json.load(f)
+    if not config:
+        return None, None
+    host = {k: v for k, v in config.items() if k == "shift"}
+    device = {k: v for k, v in config.items()
+              if k in ("noise", "mask", "taylor")} or None
+    return host, device
 
 
 def main(argv=None):
@@ -220,6 +240,11 @@ def main(argv=None):
     stem = StemConfig(args.stem_kind, in_channels=args.eeg_ch)
     tokenizer = common.resolve_tokenizer(args.tokenizer, config)
     config = tokenizer.config
+    if args.int8_matmul not in ("off", "fwd", "full"):
+        raise ValueError(f"--int8_matmul={args.int8_matmul}: off|fwd|full")
+    host_augment, device_augment = split_augment(args.augment_config_path)
+    shift_on = bool(host_augment
+                    and host_augment.get("shift", {}).get("prob", 0))
 
     # ---- datasets ---------------------------------------------------
     def make_ds(path, mode):
@@ -231,6 +256,7 @@ def main(argv=None):
             max_duration=args.max_audio_len,
             combine_sentences=args.combine_sentences,
             split_sentences=args.split_sentences, subj=args.subj,
+            augment_config=host_augment if mode == "train" else None,
             seed=args.seed)
 
     train_ds = make_ds(args.train_data, "train")
@@ -267,7 +293,8 @@ def main(argv=None):
 
     # ---- remat: the fast no-remat step iff params + optimizer + cached
     # corpus + saved activations fit the device (train/memory.py) ----
-    eligible = not args.combine_sentences and not args.split_sentences
+    eligible = (not shift_on and not args.combine_sentences
+                and not args.split_sentences)
     cache_eligible = args.device_cache != "off" and eligible
     would_cache = cache_eligible and (
         corpus_bytes(train_ds) <= args.device_cache_budget_mb * 2**20)
@@ -300,7 +327,7 @@ def main(argv=None):
         if args.device_cache == "on":
             if not eligible:
                 raise ValueError("--device_cache=on needs per-item signal "
-                                 "transforms off (combine/split)")
+                                 "transforms off (shift/combine/split)")
             use_cache = True
         else:
             use_cache = eligible and fits
@@ -408,6 +435,8 @@ def main(argv=None):
                          if (lora is not None and args.use_adalora) else 0.0),
         adalora=adalora_cfg,
         fold_lora=args.fold_lora_in_step,
+        int8_matmul=args.int8_matmul,
+        augment_config=device_augment,
         generate_eval_tokenizer=tokenizer if args.eval_wer else None,
         generate_eval_language=args.language,
         generate_eval_task=args.task)

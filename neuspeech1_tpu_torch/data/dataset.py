@@ -8,9 +8,11 @@ upload. Divergence noted in SURVEY §7: train mode does NOT require an
 augment config (the reference unconditionally dereferences
 `augment_configs['shift']`, `utils/reader.py:457`).
 
-Train-time augmentation (``augment_config``: the shift, noise, mask and
-taylor transforms of ``neuspeech1_tpu/ops/augment.py``) is not ported yet
-and raises (ROADMAP.md queue 1 item 4). ``SpeechDataset`` waits for the speech modality (queue 1 item 7).
+Train-time augmentation (``augment_config``) runs per item on the host,
+as in the JAX package: the time shift with the transcript realigned, then
+``ops/augment.py::augment_sample`` (noise, mask, taylor), drawn from the
+dataset's ``np.random.Generator``, so the arrays equal the JAX package's
+for the same seed. ``SpeechDataset`` waits for the speech modality (ROADMAP.md queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -27,12 +29,8 @@ from neuspeech1_tpu_torch.config import (
     SIGNAL_SAMPLE_RATE,
 )
 from neuspeech1_tpu_torch.data import manifest as mf
+from neuspeech1_tpu_torch.ops import augment as aug
 from neuspeech1_tpu_torch.utils.tokenizer import Tokenizer
-
-_AUGMENT_UNPORTED = (
-    "train-time augmentation (augment_config: shift/noise/mask/taylor, "
-    "neuspeech1_tpu/ops/augment.py) is not ported yet: ROADMAP.md queue 1 "
-    "item 4")
 
 
 class EEGDataset:
@@ -82,8 +80,7 @@ class EEGDataset:
         self.max_duration = max_duration
         self.combine_sentences = combine_sentences
         self.split_sentences = split_sentences
-        if mode == "train" and augment_config:
-            raise NotImplementedError(_AUGMENT_UNPORTED)
+        self.augment_config = augment_config
         self.rng = np.random.default_rng(seed)
         if isinstance(channel_slice, str):
             channel_slice = DATASET_CHANNEL_SLICES[channel_slice]
@@ -185,6 +182,27 @@ class EEGDataset:
         transcript = [{"text": new_text, "start": 0.0, "end": dur, "words": []}]
         return sig, transcript, language
 
+    def _shift(self, sig: np.ndarray, transcript: list):
+        """Random time shift with transcript re-alignment
+        (`utils/reader.py:403-441`)."""
+        end = transcript[-1]["end"] if transcript else sig.shape[1] / self.sample_rate
+        length = max(int(end * self.sample_rate), sig.shape[1])
+        max_shift = int(
+            self.max_duration * self.sample_rate - length - 0.5 * self.sample_rate
+        )
+        if max_shift <= 0:
+            return sig, transcript
+        shift = int(self.rng.integers(0, max_shift))
+        sig = aug.shift_data(sig, shift)
+        dt = shift / self.sample_rate
+        for t in transcript:
+            t["start"] += dt
+            t["end"] += dt
+            for w in t.get("words", []):
+                w["start"] += dt
+                w["end"] += dt
+        return sig, transcript
+
     def __getitem__(self, idx: int) -> dict:
         if self.combine_sentences and self.mode == "train":
             sig, transcript, language = self._combine_random(idx)
@@ -192,6 +210,13 @@ class EEGDataset:
             sig, transcript, language = self._split_random(idx)
         else:
             sig, transcript, language = self._get_row_data(idx)
+
+        cfg = self.augment_config or {}
+        if self.mode == "train" and "shift" in cfg:
+            if self.rng.random() < cfg["shift"]["prob"]:
+                sig, transcript = self._shift(sig, transcript)
+        if self.mode == "train":
+            sig = aug.augment_sample(sig, cfg, rng=self.rng)
 
         sig = self._pad_time(sig)
 
@@ -217,10 +242,15 @@ class EEGDataset:
 
     # -- native fast path ---------------------------------------------
     def supports_native_signals(self) -> bool:
-        """The C++ batch loader handles slice/pad but not the train-time
-        sentence combining and splitting."""
-        return not (self.mode == "train"
-                    and (self.combine_sentences or self.split_sentences))
+        """The C++ batch loader handles slice/pad but not augmentation;
+        usable whenever per-item signal transforms are off (in train mode
+        an augment config, even one whose probabilities are 0, counts as
+        on, as in the JAX package)."""
+        return not (
+            self.mode == "train"
+            and (self.augment_config or self.combine_sentences
+                 or self.split_sentences)
+        )
 
     def signal_path(self, idx: int) -> str:
         return self.rows[idx]["eeg"]["path"]

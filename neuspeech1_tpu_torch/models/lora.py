@@ -24,6 +24,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from neuspeech1_tpu_torch.ops.int8_matmul import mode as int8_mode
+from neuspeech1_tpu_torch.ops.int8_matmul import qdot
 from neuspeech1_tpu_torch.ops.lora_bwd import lora_adapter_bwd
 
 Params = Dict[str, Any]
@@ -164,19 +166,25 @@ class FoldedLinear(torch.autograd.Function):
     """y = x W_eff^T + bias with W_eff = W + s A (E) B, and a low-rank-only
     backward: dA, dB (and dE) from one pass of the adapter-backward kernel
     over x and dy, dx from one matmul against W_eff. W and bias get no
-    gradient (the frozen-base contract, checked by ``folded_linear``)."""
+    gradient (the frozen-base contract, checked by ``folded_linear``).
+
+    ``i8``, the int8 mode when the forward ran (``ops/int8_matmul.py``):
+    under 'fwd' the W_eff product is an int8 matmul, under 'full' the dx
+    product too; dA, dB and dE stay on the kernel, on the exact x and dy."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, a, b, e, alpha):
+    def forward(ctx, x, weight, bias, a, b, e, alpha, i8: str = "off"):
         entry = {"A": a, "B": b, "alpha": alpha}
         if e is not None:
             entry["E"] = e
         w_eff = w_eff_of(weight.float(), entry).to(x.dtype)
-        y = x.reshape(-1, x.shape[-1]) @ w_eff.T
+        x2 = x.reshape(-1, x.shape[-1])
+        y = qdot(x2, w_eff, x.dtype) if i8 != "off" else x2 @ w_eff.T
         y = y.reshape(*x.shape[:-1], w_eff.shape[0])
         if bias is not None:
             y = y + bias.to(x.dtype)
         ctx.save_for_backward(x, w_eff, a, b, e, alpha)
+        ctx.i8 = i8
         return y
 
     @staticmethod
@@ -197,20 +205,27 @@ class FoldedLinear(torch.autograd.Function):
             db32 = ge[:, None] * db_raw * scale32
         else:
             db32 = db_raw * scale32
-        dx = (dy2 @ w_eff).reshape(x.shape).to(x.dtype)
-        return dx, None, None, da32.to(a.dtype), db32.to(b.dtype), de, None
+        if ctx.i8 == "full":
+            dx = qdot(dy2, w_eff.t().contiguous(), dy2.dtype)
+        else:
+            dx = dy2 @ w_eff
+        dx = dx.reshape(x.shape).to(x.dtype)
+        return (dx, None, None, da32.to(a.dtype), db32.to(b.dtype), de, None,
+                None)
 
 
 def folded_linear(x, p, entry: Params):
     """``x @ (W + s A (E) B)^T + bias`` for an ``nn.Linear`` ``p`` whose
     weight and bias are frozen; raises if either requires grad, because the
-    backward returns none for them."""
+    backward returns none for them. The active int8 mode
+    (``ops/int8_matmul.py``) is read here, when the forward runs."""
     if p.weight.requires_grad or (p.bias is not None and p.bias.requires_grad):
         raise ValueError(
             "folded_linear returns no gradient for the base weight and bias:"
             " freeze them (requires_grad=False) or use the delta path")
     return FoldedLinear.apply(x, p.weight, p.bias, entry["A"], entry["B"],
-                              entry.get("E"), entry["alpha"].detach())
+                              entry.get("E"), entry["alpha"].detach(),
+                              int8_mode())
 
 
 # ----------------------------------------------------------------------

@@ -20,7 +20,10 @@ tensors) where the JAX package takes its flash kernel: encoder
 self-attention, and teacher-forcing decoder cross- and self-attention from
 the ``decoder_flash_*_min_q`` lengths on. Under ``config.remat`` each
 encoder layer of a forward that records gradients runs under a checkpoint
-(`REMAT_POLICIES`). The cached decoder goes through
+(`REMAT_POLICIES`). Under ``ops.int8_matmul.int8_mode`` every `linear`
+runs its product as an int8 matmul (the LoRA delta stays exact), and a
+training forward given dropout draws (`draw_dropout`) applies the stem's
+channel dropout and the frame dropout. The cached decoder goes through
 the decode kernels: every cross-attention call on the bf16 cache through
 ``ops.decode_cross`` (K6), every width-1 self-attention step on a ``k_t``
 cache through ``ops.decode_step`` (K7) and every call on a ``k_tu`` cache
@@ -51,6 +54,7 @@ from torch.utils.checkpoint import (
 from neuspeech1_tpu_torch.config import StemConfig, WhisperConfig
 from neuspeech1_tpu_torch.models.lora import folded_linear, lora_delta
 from neuspeech1_tpu_torch.models.quantize import quantize_int8
+from neuspeech1_tpu_torch.ops import int8_matmul
 from neuspeech1_tpu_torch.ops.decode_cross import decode_cross, decode_cross_plain
 from neuspeech1_tpu_torch.ops.decode_step import (
     decode_step, decode_step_multi, decode_step_multi_plain, decode_step_plain)
@@ -153,7 +157,8 @@ class EEGStem(nn.Module):
     'replace': gelu(conv(x))                  k3 s2
     'premel':  gelu(conv1(pre_conv(x)))       pre: k5 s2 p2, conv1: k3 s1
 
-    Channel dropout of 'premel' is a training feature and is not ported yet.
+    'premel' takes a channel dropout between its two convs in training
+    (``keep``, see `forward`).
     """
 
     def __init__(self, config: WhisperConfig, stem: StemConfig):
@@ -174,15 +179,22 @@ class EEGStem(nn.Module):
         else:
             raise ValueError(stem.kind)
 
-    def forward(self, x):
-        """[B, T, ch] channels-last -> [B, T', d]."""
+    def forward(self, x, keep=None, rate: float = 0.0):
+        """[B, T, ch] channels-last -> [B, T', d]. ``keep`` (premel only):
+        a bool [B, 1, num_mel_bins] mask of the channels the dropout at
+        ``rate`` keeps after pre_conv, the kept ones scaled by 1 / (1 -
+        rate) (torch ``Dropout1d`` semantics; reference
+        `utils/load_model.py:1516-1521`)."""
         if self.kind == "speech":
             return gelu(conv1d_cl(x, self.conv1))
         if self.kind == "base":
             return gelu(conv1d_cl(gelu(conv1d_cl(x, self.conv_a)), self.conv_b))
         if self.kind == "replace":
             return gelu(conv1d_cl(x, self.conv))
-        return gelu(conv1d_cl(conv1d_cl(x, self.pre_conv), self.conv1))
+        h = conv1d_cl(x, self.pre_conv)
+        if keep is not None:
+            h = _dropout(h, keep, rate)
+        return gelu(conv1d_cl(h, self.conv1))
 
 
 class Encoder(nn.Module):
@@ -227,10 +239,10 @@ class Whisper(nn.Module):
         another (a training model's f32 masters)."""
         return getattr(torch, self.config.dtype)
 
-    def forward(self, features, decoder_input_ids, lora=None):
+    def forward(self, features, decoder_input_ids, lora=None, dropout=None):
         """``forward(self, ...)``: lets ``torch.func.functional_call`` run
         the model on substituted (merged) weights."""
-        return forward(self, features, decoder_input_ids, lora)
+        return forward(self, features, decoder_input_ids, lora, dropout)
 
 
 # --------------------------------------------------------------------------
@@ -254,9 +266,11 @@ def fold_at_linear():
         _FOLD_AT_LINEAR.reset(token)
 
 
-# A name for the product being computed, read by the 'flash_qkv' remat
-# policy (the JAX package's ``checkpoint_name``): set around the q, k and v
-# projections. A context variable, as ``_FOLD_AT_LINEAR``.
+# A name for the product being computed, read by the remat policies (the
+# JAX package's ``checkpoint_name``): set around the q, k and v projections
+# ('flash_q', 'flash_k', 'flash_v'), the encoder self-attention's out
+# projection ('attn_out') and fc1 ('mlp_h'). A context variable, as
+# ``_FOLD_AT_LINEAR``.
 _SAVE_NAME = contextvars.ContextVar("save_name", default=None)
 
 
@@ -277,10 +291,19 @@ def _cast(t, dtype):
 
 def linear(x, p: nn.Linear, lora=None):
     """x W^T + b, plus the low-rank delta of a LoRA ``lora`` entry: folded
-    into the weight under `fold_at_linear`, per token otherwise."""
+    into the weight under `fold_at_linear`, per token otherwise. Under
+    ``int8_matmul.int8_mode`` the product x W^T runs as an int8 matmul with
+    straight-through gradients (`int8_matmul.quantized_dot`; the folded
+    path quantizes inside `folded_linear`); the bias and the per-token
+    delta stay exact."""
     if lora is not None and _FOLD_AT_LINEAR.get():
         return folded_linear(x, p, lora)
-    y = F.linear(x, _cast(p.weight, x.dtype), _cast(p.bias, x.dtype))
+    if int8_matmul.mode() != "off":
+        y = int8_matmul.quantized_dot(x, _cast(p.weight, x.dtype))
+        if p.bias is not None:
+            y = y + _cast(p.bias, x.dtype)
+    else:
+        y = F.linear(x, _cast(p.weight, x.dtype), _cast(p.bias, x.dtype))
     if lora is not None:
         y = y + lora_delta(x, lora)
     return y
@@ -306,14 +329,46 @@ def conv1d_cl(x, p: nn.Conv1d):
 
 def mlp(x, layer, lora=None):
     lora = lora or {}
-    h = gelu(linear(x, layer.fc1, lora.get("fc1")))
-    return linear(h, layer.fc2, lora.get("fc2"))
+    # 'mlp_h', the fc1 pre-activation: from it the backward recomputes only
+    # the gelu under remat policy 'flash_mlp'
+    with _named("mlp_h"):
+        h = linear(x, layer.fc1, lora.get("fc1"))
+    return linear(gelu(h), layer.fc2, lora.get("fc2"))
 
 
-def apply_stem(model: Whisper, features):
-    """[B, ch, T] -> [B, T', d]: the projection stem, then whisper's conv2
-    (k3 s2) under gelu."""
-    h = model.encoder.stem(features.transpose(1, 2))
+def _dropout(h, keep, rate: float):
+    """``h`` where ``keep`` holds, scaled by 1 / (1 - rate); 0 elsewhere."""
+    return torch.where(keep, h / (1.0 - rate), 0.0)
+
+
+def draw_dropout(gen: torch.Generator, config: WhisperConfig,
+                 stem: StemConfig, batch_size: int):
+    """The training forward's dropout masks at ``stem.dropout``, drawn from
+    ``gen`` on its device, or None at rate 0 (no draw): for a 'premel' stem
+    first ``stem``, the channels its dropout keeps (bool [B, 1,
+    num_mel_bins]), then ``frames``, the frames the dropout after the
+    position embedding keeps (bool [B, max_source_positions, 1]). Each is
+    ``uniform < 1 - rate`` (``jax.random.bernoulli``'s rule)."""
+    if stem.dropout <= 0:
+        return None
+    keep = 1.0 - stem.dropout
+    draws = {"rate": stem.dropout}
+    if stem.kind == "premel":
+        draws["stem"] = torch.rand((batch_size, 1, config.num_mel_bins),
+                                   generator=gen, device=gen.device) < keep
+    draws["frames"] = torch.rand(
+        (batch_size, config.max_source_positions, 1), generator=gen,
+        device=gen.device) < keep
+    return draws
+
+
+def apply_stem(model: Whisper, features, dropout=None):
+    """[B, ch, T] -> [B, T', d]: the projection stem (with its channel
+    dropout under ``dropout``'s ``stem`` mask), then whisper's conv2 (k3
+    s2) under gelu."""
+    dropout = dropout or {}
+    h = model.encoder.stem(features.transpose(1, 2), dropout.get("stem"),
+                           dropout.get("rate", 0.0))
     return gelu(conv1d_cl(h, model.encoder.conv2))
 
 
@@ -359,7 +414,9 @@ def self_attention(x, p: Attention, n_heads: int, use_flash: bool,
         out = flash_attention_bthd(q, k, v, causal=causal)
     else:
         out = attention(q, k, v, mask)
-    return linear(_merge_heads(out), p.out, lora.get("out"))
+    # 'attn_out', the block's output: kept under remat policy 'attn'
+    with _named("attn_out"):
+        return linear(_merge_heads(out), p.out, lora.get("out"))
 
 
 def cross_attention(x, enc_out, p: Attention, n_heads: int,
@@ -462,35 +519,71 @@ def resolve_flash(model: Whisper) -> bool:
     return model.config.flash_attention != "off"
 
 
-# The remat policies the port has (``config.remat_policy``): None, full
-# recompute (the backward runs the layer's forward again, K1 included), and
-# 'flash_qkv', which keeps q, k, v and the flash forward's o and lse, so the
-# backward runs neither K1 nor the q/k/v projections again.
-REMAT_POLICIES = (None, "flash_qkv")
+# The remat policies (``config.remat_policy``), the JAX package's
+# ``_remat_policy``. Under a checkpoint the backward runs the layer's forward
+# again; an op a policy keeps returns its saved output there instead of
+# running (``torch.utils.checkpoint``'s selective checkpoint), so a policy
+# that keeps a named tensor keeps every op inside its name's region
+# (`_named`: the projection's casts and products, under int8 its
+# quantization too).
+#   None         full recompute: K1 runs again in the backward.
+#   'flash'      the flash forward's o and lse (``neuspeech::flash_fwd``).
+#   'flash_qkv'  'flash' plus the q, k and v projections.
+#   'flash_mlp'  'flash_qkv' plus the fc1 pre-activation ('mlp_h'): the
+#                backward recomputes only layer norms and the gelu.
+#   'dots'       every matrix product (mm, addmm, bmm, _int_mm), not the
+#                flash forward: K1 runs again.
+#   'attn'       only 'attn_out', the self-attention block's output after
+#                its out projection: K1 runs again.
+#   'everything' every tensor the backward reads, nothing recomputed: the
+#                layer runs without a checkpoint (the JAX package's
+#                ``everything_saveable``, whose backward also reads only
+#                what it saved).
+REMAT_POLICIES = (None, "flash", "flash_qkv", "flash_mlp", "dots", "attn",
+                  "everything")
+_QKV = ("flash_q", "flash_k", "flash_v")
+_SAVED_NAMES = {"flash": (), "flash_qkv": _QKV,
+                "flash_mlp": _QKV + ("mlp_h",), "attn": ("attn_out",)}
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.bmm.default, torch.ops.aten._int_mm.default)
 
 
 def check_remat(config: WhisperConfig) -> None:
-    """Raises for a remat setting the port does not have."""
+    """Raises for a remat setting the port does not have: a policy name
+    outside `REMAT_POLICIES` (``ValueError``; the JAX package's
+    ``_remat_policy`` runs full recompute for a name it does not know, such
+    as ``perf/ablate.py``'s 'full', where the port refuses it), and remat
+    under sequence parallelism (not ported)."""
     if not config.remat:
         return
     if config.remat_policy not in REMAT_POLICIES:
-        raise NotImplementedError(
-            f"remat policy {config.remat_policy!r} is not ported: the port "
-            f"has {REMAT_POLICIES}; ROADMAP.md queue 1 item 4 lists the rest")
+        raise ValueError(
+            f"unknown remat policy {config.remat_policy!r}: one of "
+            f"{REMAT_POLICIES}")
     if config.seq_parallel_axis is not None:
         raise NotImplementedError(
             "remat under sequence parallelism is not ported yet; ROADMAP.md "
             "queue 1 item 8 lists it")
 
 
-def _flash_qkv_policy(ctx, op, *args, **kwargs):
-    """Keep the flash forward's outputs and every non-view result inside a
-    q/k/v projection; recompute the rest."""
-    del ctx, args, kwargs
-    if op is torch.ops.neuspeech.flash_fwd.default or (
-            _SAVE_NAME.get() is not None and not op.is_view):
-        return CheckpointPolicy.MUST_SAVE
-    return CheckpointPolicy.PREFER_RECOMPUTE
+def _policy_fn(policy: str):
+    """The selective checkpoint's rule for ``policy``: which ops keep their
+    outputs (MUST_SAVE) and which run again (PREFER_RECOMPUTE)."""
+    if policy == "dots":
+        def rule(ctx, op, *args, **kwargs):
+            return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+                    else CheckpointPolicy.PREFER_RECOMPUTE)
+        return rule
+    names = _SAVED_NAMES[policy]
+    flash = policy != "attn"
+
+    def rule(ctx, op, *args, **kwargs):
+        if flash and op is torch.ops.neuspeech.flash_fwd.default:
+            return CheckpointPolicy.MUST_SAVE
+        if _SAVE_NAME.get() in names and not op.is_view:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return rule
 
 
 def _remat_layer(layer: nn.Module, h, flash: bool, lora, policy):
@@ -499,24 +592,28 @@ def _remat_layer(layer: nn.Module, h, flash: bool, lora, policy):
     them now (the training step's merged weights, which it substitutes with
     ``functional_call``) and substituted again when the backward runs the
     layer's forward anew, by which time the step's substitution has ended;
-    so is the fold regime (`fold_at_linear`), whose context has closed by
-    then too."""
+    so are the fold regime (`fold_at_linear`) and the int8 mode, whose
+    contexts have closed by then too."""
+    if policy == "everything":
+        return layer(h, flash, lora)
     names = [n for n, _ in layer.named_parameters()]
     weights = [functools.reduce(getattr, n.split("."), layer) for n in names]
     fold = _FOLD_AT_LINEAR.get()
+    i8 = int8_matmul.mode()
 
     def run(h, *weights):
         token = _FOLD_AT_LINEAR.set(fold)
         try:
-            return torch.func.functional_call(
-                layer, dict(zip(names, weights)), (h, flash, lora))
+            with int8_matmul.int8_mode(i8):
+                return torch.func.functional_call(
+                    layer, dict(zip(names, weights)), (h, flash, lora))
         finally:
             _FOLD_AT_LINEAR.reset(token)
 
     kw = {}
-    if policy == "flash_qkv":
+    if policy is not None:
         kw["context_fn"] = functools.partial(
-            create_selective_checkpoint_contexts, _flash_qkv_policy)
+            create_selective_checkpoint_contexts, _policy_fn(policy))
     return checkpoint(run, h, *weights, use_reentrant=False, **kw)
 
 
@@ -525,9 +622,11 @@ def _layer_lora(lora, part: str):
     return ((lora or {}).get(part) or {}).get("layers")
 
 
-def encoder_apply(model: Whisper, features, lora=None):
+def encoder_apply(model: Whisper, features, lora=None, dropout=None):
     """[B, ch, T] -> [B, T', d] encoder states, T' == max_source_positions;
-    ``lora`` is an adapter tree (``models/lora.py``).
+    ``lora`` is an adapter tree (``models/lora.py``). ``dropout``
+    (`draw_dropout`'s masks, training only) drops the premel stem's
+    channels and, after the position embedding, whole frames.
 
     T' runs unpadded: the flash kernel masks the ragged last tile itself
     (the JAX package pads to a 128-row multiple for its TPU tiling).
@@ -548,13 +647,15 @@ def encoder_apply(model: Whisper, features, lora=None):
             "ROADMAP.md queue 1 item 8 lists it")
     check_remat(config)
     remat = config.remat and torch.is_grad_enabled()
-    h = apply_stem(model, _cast(features, model.dtype))
+    h = apply_stem(model, _cast(features, model.dtype), dropout)
     t = h.shape[1]
     if t != config.max_source_positions:
         raise ValueError(
             f"stem produced {t} frames, expected {config.max_source_positions}"
             " — input length must be 4x the source positions (stride 2 x 2)")
     h = h + _cast(model.encoder.pos_embed[:t], h.dtype)
+    if dropout is not None:
+        h = _dropout(h, dropout["frames"], dropout["rate"])
     flash = resolve_flash(model)
     ring, kv_valid_len = None, None
     if config.seq_parallel_axis is not None:
@@ -701,10 +802,13 @@ def init_cache(model: Whisper, enc_out, max_len: int, int8_cross: bool = False,
     return {"self": selfc, "cross": cross}
 
 
-def forward(model: Whisper, features, decoder_input_ids, lora=None):
-    """Teacher-forcing forward: logits [B, T, vocab]."""
+def forward(model: Whisper, features, decoder_input_ids, lora=None,
+            dropout=None):
+    """Teacher-forcing forward: logits [B, T, vocab]; ``dropout`` as in
+    `encoder_apply`."""
     return decoder_apply(model, decoder_input_ids,
-                         encoder_apply(model, features, lora), lora=lora)
+                         encoder_apply(model, features, lora, dropout),
+                         lora=lora)
 
 
 class CrossEntropy(torch.autograd.Function):

@@ -5,7 +5,10 @@ package writes orbax).
 One directory per step, ``<directory>/<step>/state.pt``: a ``torch.save`` of
 the step count, the trainable tensors by path, the optimizer state (AdamW's
 count and moments, and the accumulation's micro-step and running mean) and
-the state's ``torch.Generator``, all on the CPU. As in the JAX package:
+the state of the state's ``torch.Generator`` (a CPU byte tensor, also for
+a generator on the card: its seed and offset), all on the CPU, so that a
+resume continues the step's augmentation and dropout draws exactly. As in
+the JAX package:
   * ``max_to_keep`` newest steps are kept (`finetune.py:244-246`);
   * saving is gated on the latest eval loss being the best so far
     (`utils/callback.py:12-32`), recorded in ``gating.json``; ``force`` saves

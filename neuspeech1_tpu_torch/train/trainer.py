@@ -3,7 +3,9 @@
 checkpoints, logging; the reference's HF ``Seq2SeqTrainer`` use,
 `finetune.py:269-282`).
 
-The loop calls the train step (``train/trainstep.py``) on batches from any
+The loop calls the train step (``train/trainstep.py``, with the on-device
+augmentation of ``augment_config`` and the int8 mode ``int8_matmul``) on
+batches from any
 iterable of collated batches (host numpy from ``data/loader.py``, or device
 tensors from the device caches). Evaluation every ``eval_steps``: the
 token-weighted eval loss and, with a tokenizer, greedy decoding with the
@@ -56,9 +58,11 @@ class Trainer:
         save_steps: int = 1000,
         logging_steps: int = 100,
         max_to_keep: int = 5,
+        augment_config: Optional[dict] = None,
         orth_reg_weight: float = 0.0,
         adalora: Optional[dict] = None,
         fold_lora: bool = False,
+        int8_matmul: str = "off",
         generate_eval_tokenizer=None,
         generate_eval_max_new: int = 48,
         generate_eval_language: Optional[str] = "english",
@@ -86,7 +90,9 @@ class Trainer:
         adalora_total = (adalora or {}).get("total_steps", max_steps or 10_000)
         self.train_step = ts.make_train_step(
             config, stem, tx, orth_reg_weight=orth_reg_weight,
+            augment_config=augment_config,
             track_adalora_importance=bool(adalora), fold_lora=fold_lora,
+            int8_matmul=int8_matmul,
             adalora_ipt_stop_step=(
                 adalora_total - (adalora or {}).get("tfinal", 1000)
                 if adalora else None))

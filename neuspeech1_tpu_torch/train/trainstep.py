@@ -1,8 +1,10 @@
 """The training step of the PyTorch port: the port of
 ``neuspeech1_tpu/train/trainstep.py`` for the path ``bench.py`` times.
 
-One step: bf16 forward through the EEG-Whisper with LoRA or AdaLoRA
-adapters -> masked cross entropy with its custom backward (+ AdaLoRA's
+One step: on-device augmentation of the batch's signals (noise, mask,
+taylor, SpecAugment; ``ops/augment.py``) -> bf16 forward through the
+EEG-Whisper with LoRA or AdaLoRA adapters (with the stem's dropout, and
+under ``int8_matmul`` int8 matmuls in every linear) -> masked cross entropy with its custom backward (+ AdaLoRA's
 orthogonality loss over the whole adapter tree) -> backward -> clip by
 global norm -> AdamW on the trainable leaves (-> AdaLoRA's importance EMAs
 on the updated adapters and the raw gradients). With ``fold_lora`` (the 'fc' regime
@@ -25,9 +27,16 @@ on every rank already. Data parallelism (a mesh ``data`` axis larger than
 The step makes no host sync: its metrics stay 0-d device tensors, and the
 importance EMAs' stop test reads the host's step count.
 
-Not ported yet, and raising with a pointer to ROADMAP.md: augmentation,
-dropout, int8 matmuls, the 'merge' and 'linear' fold regimes, and remat
-policies other than full recompute and 'flash_qkv'.
+The step's random draws come from the state's ``torch.Generator``, on the
+state's device: first the augmentation's (`ops/augment.py::draw_augment`),
+then the dropout's (`models/whisper.py::draw_dropout`). The JAX step splits
+its key three ways every step; here an option that is off draws nothing,
+so the draws a step takes depend on the options and the batch's shape.
+The checkpoint saves the generator's state, so a resume continues its
+sequence exactly.
+
+The 'merge' and 'linear' fold regimes are not ported (ROADMAP.md "Not to
+port") and raise.
 """
 
 from __future__ import annotations
@@ -43,6 +52,8 @@ from neuspeech1_tpu_torch.models import whisper as tw
 from neuspeech1_tpu_torch.models.lora import (
     IPT_NAMES, adalora_entries, adalora_ipt_init, adalora_ipt_update,
     adalora_orth_loss, has_entries, merge_lora, split_lora_fc)
+from neuspeech1_tpu_torch.ops import int8_matmul as i8
+from neuspeech1_tpu_torch.ops.augment import augment_batch
 from neuspeech1_tpu_torch.parallel import mesh as pmesh
 from neuspeech1_tpu_torch.train.optimizer import (
     AdamState, Optimizer, PathPred, default_trainable_pred, global_norm,
@@ -50,8 +61,6 @@ from neuspeech1_tpu_torch.train.optimizer import (
 
 Params = Dict[str, Any]
 Batch = Dict[str, torch.Tensor]
-
-_ROADMAP = "is not ported yet; ROADMAP.md queue 1 lists it"
 
 # the leaves the encoder's layer stack reads: under sequence parallelism a
 # rank's gradients for them cover its own tokens only
@@ -68,8 +77,9 @@ class Frozen(NamedTuple):
 
 @dataclasses.dataclass
 class TrainState:
-    """step count, trainable leaves by path, optimizer state, generator,
-    and AdaLoRA's importance EMAs ({} without AdaLoRA entries; not
+    """step count, trainable leaves by path, optimizer state, generator (on
+    the state's device: the step's augmentation and dropout draws), and
+    AdaLoRA's importance EMAs ({} without AdaLoRA entries; not
     checkpointed, as PEFT's allocator state is not)."""
 
     step: int
@@ -84,15 +94,17 @@ def init_train_state(model: tw.Whisper, lora: Optional[Params],
                      seed: int = 2):
     """(state, frozen) for a model holding f32 masters and an adapter tree.
     Sets ``requires_grad`` on exactly the leaves ``pred`` selects (default:
-    adapters, stem and conv2) and clears it everywhere else."""
+    adapters, stem and conv2) and clears it everywhere else. The generator
+    is seeded with ``seed`` on the model's device."""
     pred = pred or default_trainable_pred()
+    device = next(model.parameters()).device
     leaves = named_leaves(model, lora)
     trainable = {p: t for p, t in leaves.items() if pred(p)}
     for path, t in leaves.items():
         t.requires_grad_(path in trainable)
     state = TrainState(step=0, trainable=trainable,
                        opt_state=tx.init(trainable),
-                       generator=torch.Generator().manual_seed(seed),
+                       generator=torch.Generator(device).manual_seed(seed),
                        ipt=adalora_ipt_init(lora or {}))
     return state, Frozen(model, lora)
 
@@ -100,26 +112,29 @@ def init_train_state(model: tw.Whisper, lora: Optional[Params],
 def make_loss_fn(config: WhisperConfig, stem: StemConfig,
                  orth_reg_weight: float = 0.0, fold_lora: bool = False,
                  int8_matmul: str = "off", fold_impl: str = "fc"
-                 ) -> Callable[[Frozen, Batch], tuple]:
-    """``loss_fn(frozen, batch) -> (loss, aux)``. With ``fold_lora`` the
-    'fc' regime (attention adapters merged, fc adapters folded); without,
-    the per-token delta path in every adapted linear.
+                 ) -> Callable[..., tuple]:
+    """``loss_fn(frozen, batch, dropout=None) -> (loss, aux)``. With
+    ``fold_lora`` the 'fc' regime (attention adapters merged, fc adapters
+    folded); without, the per-token delta path in every adapted linear.
+    ``dropout``: `models/whisper.py::draw_dropout`'s masks, or None for the
+    deterministic forward. ``int8_matmul`` ('off', 'fwd' or 'full'): the
+    forward runs under ``ops.int8_matmul.int8_mode``.
 
     The model runs its own stem; ``stem`` must name the same kind. The JAX
     forward reads the stem's weights by ``stem.kind``, so another kind
     fails there, and the loss raises here too rather than run the model's.
     Its other fields are inert in this loss: ``in_channels`` is read by
-    neither forward (the weights fix it), and ``dropout`` only under
-    dropout, which the port refuses."""
-    if int8_matmul != "off":
-        raise NotImplementedError(f"int8 training matmuls {_ROADMAP}")
+    neither forward (the weights fix it), and ``dropout`` only through the
+    masks the train step draws at that rate."""
+    if int8_matmul not in i8.MODES:
+        raise ValueError(f"int8_matmul={int8_matmul!r}: one of {i8.MODES}")
     if fold_impl != "fc":
         raise NotImplementedError(
             f"fold regime {fold_impl!r} is not ported: the port keeps the 'fc' "
             "regime (ROADMAP.md 'Not to port')")
     tw.check_remat(config)
 
-    def loss_fn(frozen: Frozen, batch: Batch):
+    def loss_fn(frozen: Frozen, batch: Batch, dropout=None):
         model, lora = frozen
         if model.stem_config.kind != stem.kind:
             raise ValueError(
@@ -129,16 +144,18 @@ def make_loss_fn(config: WhisperConfig, stem: StemConfig,
             lora = None
         reg_lora = lora
         feats, ids = batch["input_features"], batch["decoder_input_ids"]
-        if fold_lora and lora is not None:
-            merge_tree, fc_tree = split_lora_fc(lora)
-            merged = merge_lora(model, merge_tree)
-            fc = fc_tree if has_entries(fc_tree) else None
-            with (tw.fold_at_linear() if fc is not None
-                  else contextlib.nullcontext()):
-                logits = torch.func.functional_call(
-                    model, merged, (feats, ids), {"lora": fc})
-        else:
-            logits = tw.forward(model, feats, ids, lora)
+        with i8.int8_mode(int8_matmul):
+            if fold_lora and lora is not None:
+                merge_tree, fc_tree = split_lora_fc(lora)
+                merged = merge_lora(model, merge_tree)
+                fc = fc_tree if has_entries(fc_tree) else None
+                with (tw.fold_at_linear() if fc is not None
+                      else contextlib.nullcontext()):
+                    logits = torch.func.functional_call(
+                        model, merged, (feats, ids),
+                        {"lora": fc, "dropout": dropout})
+            else:
+                logits = tw.forward(model, feats, ids, lora, dropout)
         loss = tw.ce_loss(logits, batch["labels"])
         aux = {"ce_loss": loss.detach()}
         if orth_reg_weight > 0.0 and reg_lora is not None:
@@ -169,19 +186,28 @@ def make_train_step(config: WhisperConfig, stem: StemConfig, tx: Optimizer,
     PEFT ``update_ipt`` step after the update: on the updated adapters and
     the raw (pre-clip) gradients, the reference's order ``optimizer.step();
     update_and_allocate()``, until the step count before the increment
-    reaches ``adalora_ipt_stop_step`` (PEFT: total_step - tfinal)."""
-    if augment_config:
-        raise NotImplementedError(f"on-device augmentation {_ROADMAP}")
-    if use_dropout:
-        raise NotImplementedError(f"dropout {_ROADMAP}")
+    reaches ``adalora_ipt_stop_step`` (PEFT: total_step - tfinal).
+
+    ``augment_config`` (``ops/augment.py``'s schema: noise, mask, taylor,
+    spec_augment) augments the batch's signals on its device before the
+    forward; ``use_dropout`` drops at ``stem.dropout`` (`models/whisper.py::
+    draw_dropout`); both draw from ``state.generator``, in that order.
+    ``int8_matmul`` as in `make_loss_fn`."""
     loss_fn = make_loss_fn(config, stem, orth_reg_weight,
                            fold_lora=fold_lora, int8_matmul=int8_matmul)
 
     def step(state: TrainState, frozen: Frozen, batch: Batch):
         ring = _seq_ring(config)
+        gen = state.generator
+        if augment_config:
+            batch = {**batch, "input_features": augment_batch(
+                gen, batch["input_features"], augment_config)}
+        dropout = (tw.draw_dropout(gen, config, stem,
+                                   batch["input_features"].shape[0])
+                   if use_dropout else None)
         for t in state.trainable.values():
             t.grad = None
-        loss, aux = loss_fn(frozen, batch)
+        loss, aux = loss_fn(frozen, batch, dropout)
         loss.backward()
         grads = {k: t.grad for k, t in state.trainable.items()
                  if t.grad is not None}

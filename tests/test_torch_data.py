@@ -2,8 +2,8 @@
 package's: the synthetic corpora are the same files, manifests filter and
 split alike, `EEGDataset` items and `Collator` batches are bit-equal, the
 `DataLoader` gives the same batches in the same order with threads, the
-port's native clip loader is byte-exact against the Python path, and
-train-time augmentation (not ported yet) raises."""
+port's native clip loader is byte-exact against the Python path
+(train-time augmentation: tests/test_torch_augment.py)."""
 
 import json
 import os
@@ -153,18 +153,6 @@ def test_eeg_dataset_items_equal(corpus, case, spec):
         assert dj.signal_path(i) == dt.signal_path(i)
         if kw["mode"] == "test":
             assert list(dj.get_labels(i)) == list(dt.get_labels(i))
-
-
-def test_train_augmentation_raises(corpus):
-    root, vocab = corpus
-    _, tt = _tokenizers(vocab, "byte")
-    cfg = {"shift": {"prob": 1.0}}
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tds.EEGDataset(os.path.join(root, "mixed.jsonl"), tt, mode="train",
-                       modal_ch=6, augment_config=cfg)
-    # outside train mode the JAX package ignores the config too
-    tds.EEGDataset(os.path.join(root, "mixed.jsonl"), tt, mode="test",
-                   modal_ch=6, augment_config=cfg)
 
 
 COLLATOR_CASES = {

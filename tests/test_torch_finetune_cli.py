@@ -212,8 +212,6 @@ def test_resume_from_checkpoint(runs, tmp_path, resume, first, capsys):
 
 
 REFUSED = {
-    "augment": ["--augment_config_path=configs/augmentation1.json"],
-    "int8": ["--int8_matmul=fwd"],
     "speech": ["--modal=speech"],
     "coordinator": ["--coordinator=localhost:1234"],
     "mesh_data": ["--mesh_data=2"],

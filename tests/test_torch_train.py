@@ -268,17 +268,12 @@ def test_eval_step_matches_jax():
 
 
 UNPORTED = {
-    "augment": lambda c, tx: tts.make_train_step(
-        c, TSTEM, tx, augment_config={"noise": 0.1}),
-    "dropout": lambda c, tx: tts.make_train_step(c, TSTEM, tx,
-                                                 use_dropout=True),
-    "int8": lambda c, tx: tts.make_train_step(c, TSTEM, tx,
-                                              int8_matmul="fwd"),
     "fold_merge": lambda c, tx: tts.make_loss_fn(c, TSTEM, fold_lora=True,
                                                  fold_impl="merge"),
-    # the port's remat policies are None and 'flash_qkv'
-    "remat_policy_dots": lambda c, tx: tts.make_train_step(
-        port(tiny(remat=True, remat_policy="dots")), TSTEM, tx),
+    # remat under sequence parallelism (ROADMAP queue 1 item 8)
+    "remat_seq_parallel": lambda c, tx: tts.make_train_step(
+        port(tiny(remat=True, remat_policy="flash_qkv",
+                  seq_parallel_axis="seq")), TSTEM, tx),
 }
 
 
