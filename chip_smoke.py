@@ -97,7 +97,21 @@ each printing JSON lines:
             the three unbiased runs'), and that ``sequence_bias`` gives the
             same bits on the card as on the CPU at the beam step's shape
             (timed beside the beam step).
-11. probes  the perf entry points (``neuspeech1_tpu_torch/perf``): every
+11. modes   every other decode mode of serving on the same model, 16
+            clips and 128 new tokens a request, each request timed (median
+            of 3) with K1/K6/K7 launches held against the model calls:
+            sampling (temperature 0.7, top-k 50, top-p 0.9; one seed gives
+            one set of tokens, top-k 1 gives greedy's up to ties, tokens
+            against the plain versions on one noise source), beam-sample
+            at the eval CLI's settings (one seed, one set of tokens; zero
+            noise gives beam search's), contrastive search (alpha 1, k 5:
+            K6 at 5 query rows, K7 at 80 rows; tokens against the plain
+            versions), int8 weights (the round trip's error, tokens against
+            bf16 weights) and token timestamps on 4 clips (the grammar in
+            greedy and beam decoding, starts and ends, the cross-attention
+            maps against an f32 computation); then the eval CLI in process
+            with --do_sample, --penalty_alpha=1 --top_k=5 and --timestamps.
+12. probes  the perf entry points (``neuspeech1_tpu_torch/perf``): every
             variant of the TPU probes' sweeps (kernel_probe, mxu_probe,
             btc_probe, bwd_probe) held against its plain version at full
             TK and 8 heads, then at the probe's shape (B*H = 512, TK =
@@ -106,7 +120,7 @@ each printing JSON lines:
             and a library call (SDPA, its backward, ``torch.bmm``), each a
             line tagged as the JAX probe tags it; launches of probe_fwd,
             probe_bwd and probe_dot over the full-shape sweep.
-12. bench   ``neuspeech1_tpu_torch.bench`` once in process: its JSON line
+13. bench   ``neuspeech1_tpu_torch.bench`` once in process: its JSON line
             (samples/s, step ms, mfu, greedy decode tokens/s with adapters).
 
 Then it prints the kernel summary (with each kernel's bound: the least time
@@ -371,6 +385,30 @@ EVAL_DURATION_S = (2.0, 10.0)
 EVAL_BIAS_ROWS = 80
 EVAL_BIAS_CUR_LEN = 40
 EVAL_BIAS_WEIGHTS = (-1.0, 0.1)
+# The other decode modes of serving (the `modes` phase), on the serving
+# model at the beam phase's batch and budget: sampling at the warpers' usual
+# settings; beam-sample at the eval CLI's defaults (beam 5, rp 5.0, ngram 2);
+# contrastive search at the reference's strategy (utils/process_str.py:64-65:
+# penalty_alpha 1, top_k 5); int8 weights greedily; token timestamps on
+# MODES_TS_CLIPS clips
+MODES_BATCH = 16
+MODES_NEW_TOKENS = 128
+MODES_REPEATS = 3
+SAMPLE_SETTINGS = dict(do_sample=True, temperature=0.7, top_k=50, top_p=0.9,
+                       sample_seed=0)
+CONTRASTIVE_SETTINGS = dict(penalty_alpha=1.0, top_k=5)
+MODES_TS_CLIPS = 4
+# cross-attention probabilities (6 layers x 8 heads over 1500 frames per
+# token) from the bf16 serving model against the same maps computed in f32
+# on the same weights, tokens and encoder states: bf16 rounds the decoder's
+# hidden states and the scores at 2^-8 relative, which moves a probability
+# p by p times its score's error. Bounds relative to the f32 maps: the
+# largest error within 2^-4 of the largest p, the mean error within 2^-6 of
+# the mean p (1 / 1500). (They measured 0.55% and 0.09%, max p 1.6e-3, on
+# an H100; the first bounds, 0.1 and 1e-4 absolute, were set before that
+# reading and were far looser.)
+MAPS_MAX_REL_TOL = 2.0 ** -4
+MAPS_MEAN_REL_TOL = 2.0 ** -6
 # Greedy serving with unmerged adapters (the `lora` phase)
 LORA_RANK = 32
 LORA_FORCED_STEPS = 8
@@ -1249,7 +1287,8 @@ def count_model_calls():
         return encoder_apply(*args, **kw)
 
     def counted_decoder(model, tokens, enc_out, cache=None, cache_index=None,
-                        lora=None, pos_ids=None, self_attn_mask=None):
+                        lora=None, pos_ids=None, self_attn_mask=None,
+                        return_hidden=False):
         if cache is not None:
             calls["cached_decoder"] += 1
             if "k_tu" in cache["self"][0]:
@@ -1263,7 +1302,7 @@ def count_model_calls():
                 rows = tokens.shape[0] // enc_out.shape[0] * tokens.shape[1]
                 calls["cross_chunks"] += -(-rows // MAX_TQ)
         return decoder_apply(model, tokens, enc_out, cache, cache_index, lora,
-                             pos_ids, self_attn_mask)
+                             pos_ids, self_attn_mask, return_hidden)
 
     tw.encoder_apply, tw.decoder_apply = counted_encoder, counted_decoder
     try:
@@ -2198,6 +2237,342 @@ def phase_eval(model, bm, device: str = "cuda") -> dict:
         "preds_equal_generate": True, "sequence_bias": bias,
         "sample_pred": rows[0]["pred"][:80], "card": card(),
     }
+    emit(out)
+    return out
+
+
+def _request(tr, signals, gen, generator=None):
+    """One request as ``Transcriber.transcribe`` serves it, in the mode of
+    ``gen`` (contrastive search has no Transcriber argument: the eval CLI
+    and ``generate`` run it): the tokens [B, max_length] on the card."""
+    from neuspeech1_tpu_torch.cli import common
+    from neuspeech1_tpu_torch.decode.generate import generate
+
+    feats = common.upload_features(tr._prepare(signals), tr.model.dtype,
+                                   tr.device)
+    prompt = torch.as_tensor(np.repeat(tr.prompt, feats.shape[0], axis=0),
+                             device=tr.device)
+    return generate(tr.model, feats, prompt, gen, generator=generator)
+
+
+def _timed_requests(name, config, fn, steps_of) -> dict:
+    """``fn`` once to warm up, then MODES_REPEATS timed calls (host clock
+    after ``synchronize``) with the kernels' launches counted from 0 and
+    held against the model calls; ``steps_of(calls)`` gives the decode steps
+    of one request from the calls of all of them."""
+    fn()
+    torch.cuda.synchronize()
+    _reset_counts()
+    lat = []
+    with count_model_calls() as calls:
+        for _ in range(MODES_REPEATS):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+    launches = _kernel_counts()
+    _check_serving_launches(name, config, calls, launches)
+    med = statistics.median(lat)
+    steps = steps_of(calls) / MODES_REPEATS
+    return {"out": out, "launches": launches, "model_calls": calls,
+            "request_latency_s": med, "request_latency_all_s": lat,
+            "utterances_per_s": MODES_BATCH / med,
+            "utterances_per_s_all": [MODES_BATCH / x for x in lat],
+            "steps_per_request": steps, "ms_per_step": 1e3 * med / steps,
+            "launches_per_request": {k: v / MODES_REPEATS
+                                     for k, v in launches.items() if v}}
+
+
+def _first_diffs_tied(model, feats, prompt, ref, other, p: int) -> dict:
+    """Where two decodes of the same requests part, is the first differing
+    token a tie of ``ref``'s logits? The cached decoder's logits along
+    ``ref`` (prefill, then width-1 steps on a cache of ``ref``'s length:
+    the greedy decode's own computation), compared at each row's first
+    difference between ``ref``'s token and ``other``'s."""
+    from neuspeech1_tpu_torch.models import whisper as tw
+
+    eq = (ref[:, p:] == other[:, p:])
+    rows = [i for i in range(ref.shape[0]) if not bool(eq[i].all())]
+    if not rows:
+        return {"rows_differing": 0, "all_ties": True}
+    first = {i: p + int(eq[i].logical_not().nonzero()[0]) for i in rows}
+    with torch.no_grad():
+        enc = tw.encoder_apply(model, feats)
+        cache = tw.init_cache(model, enc, max_len=ref.shape[1])
+        step, cache = tw.decoder_apply(model, ref[:, :p], enc, cache=cache,
+                                       cache_index=0)
+        logits = [step]
+        for j in range(p, max(first.values())):
+            step, cache = tw.decoder_apply(model, ref[:, j:j + 1], enc,
+                                           cache=cache, cache_index=j)
+            logits.append(step)
+        logits = torch.cat(logits, dim=1)
+    ties = [bool(logits[i, j - 1, ref[i, j]] == logits[i, j - 1, other[i, j]])
+            for i, j in first.items()]
+    return {"rows_differing": len(rows), "first_diff": list(first.values()),
+            "ties": ties, "all_ties": all(ties)}
+
+
+def _grammar_violations(tokens, p: int, config) -> list:
+    """The generated part of each row (up to its first eot) against the
+    timestamp grammar's fixed rules (``decode/timestamps.py``): no
+    <|notimestamps|>; a first token that is a timestamp no later than
+    begin + 50; after two timestamps no third; after a timestamp that
+    follows text (or the prompt) a timestamp or eot; each timestamp past the
+    largest before it, or equal to it where it follows such a lone
+    timestamp. Returns (row, position, rule) for each break."""
+    ts = config.timestamp_begin
+    bad = []
+    for i, row in enumerate(tokens.tolist()):
+        gen = row[p:]
+        if config.eot_id in gen:
+            gen = gen[:gen.index(config.eot_id)]
+        if gen and not ts <= gen[0] <= ts + 50:
+            bad.append((i, p, "first"))
+        top = ts - 1
+        for j, t in enumerate(gen):
+            if t == config.notimestamps_id:
+                bad.append((i, p + j, "notimestamps"))
+            prev = gen[j - 1] >= ts if j >= 1 else False
+            prev2 = gen[j - 2] >= ts if j >= 2 else False
+            if prev and prev2 and t >= ts:
+                bad.append((i, p + j, "third timestamp"))
+            if prev and not prev2 and t < config.eot_id:
+                bad.append((i, p + j, "text after a lone timestamp"))
+            if t >= ts:
+                if t < (top if prev and not prev2 else top + 1):
+                    bad.append((i, p + j, "decreasing"))
+                top = max(top, t)
+    return bad
+
+
+def _modes_eval(model, device: str = "cuda") -> dict:
+    """The eval CLI in process on the eval phase's corpus in the other
+    modes: beam-sample (``--do_sample`` at the CLI's beam 5), contrastive
+    search (``--penalty_alpha=1 --top_k=5``) and the timestamp grammar
+    (``--timestamps``): launches against the model calls, the tag and files
+    of each, its ``--timing`` phases and utterances/s."""
+    config, model_dir, _ = model
+    tmp = os.path.dirname(model_dir)
+    corpus, tokenizer = _eval_corpus(tmp, config.eot_id)
+    base = [f"--test_data={os.path.join(corpus, 'all.jsonl')}",
+            f"--model_path={model_dir}", f"--tokenizer={tokenizer}",
+            "--eeg_ch=208", f"--batch_size={EVAL_BATCH}",
+            f"--max_new_tokens={EVAL_NEW_TOKENS}", "--per_sentence=True",
+            "--timing=True", f"--device={device}"]
+    runs = {"beam_sample5": ["--do_sample=True"],
+            "contrastive5": ["--penalty_alpha=1", "--top_k=5"],
+            "beam5": ["--timestamps=True"]}
+    out = {}
+    for tag, flags in runs.items():
+        out_dir = os.path.join(tmp, f"eval_modes_{tag}")
+        _reset_counts()
+        with count_model_calls() as calls:
+            run = _run_eval(base + flags + [f"--output_dir={out_dir}"])
+        launches = _kernel_counts()
+        _check_serving_launches(f"modes eval {tag}", config, calls, launches)
+        files = _result_files(out_dir)
+        names = {f"all_{tag}{ext}" for ext in
+                 (".txt", ".jsonl", ".json", "_per_sentence.jsonl")}
+        check(set(files) == names, f"modes eval {tag}: files {sorted(files)}")
+        rows = files[f"all_{tag}.jsonl"].decode().splitlines()
+        check(len(rows) == EVAL_CLIPS, f"modes eval {tag}: {len(rows)} rows")
+        check(all(math.isfinite(float(v)) for v in run["metrics"].values()),
+              f"modes eval {tag}: non-finite metric {run['metrics']}")
+        timing = run["timing"]
+        out[" ".join(flags)] = {
+            "tag": tag, "timing_s": timing, "wall_s": run["wall_s"],
+            "utterances_per_s_decode": EVAL_CLIPS / timing["decode"],
+            "utterances_per_s_end_to_end": EVAL_CLIPS / timing["total"],
+            "launches": launches, "model_calls": calls,
+            "metrics": {k: float(v) for k, v in run["metrics"].items()}}
+    return out
+
+
+def phase_modes(model, device: str = "cuda") -> dict:
+    """Every other decode mode of serving on the serving model, each request
+    of MODES_BATCH clips and MODES_NEW_TOKENS new tokens timed (median of
+    MODES_REPEATS) with K1/K6/K7 launches held against the model calls:
+    sampling, beam-sample, contrastive search, int8 weights and token
+    timestamps, then the eval CLI in those modes."""
+    import dataclasses
+
+    from neuspeech1_tpu_torch.cli import common
+    from neuspeech1_tpu_torch.decode import generate as dg
+    from neuspeech1_tpu_torch.decode.timestamps import cross_attention_maps
+    from neuspeech1_tpu_torch.models import whisper as tw
+    from neuspeech1_tpu_torch.models.quantize import quantization_error
+    from neuspeech1_tpu_torch.serve import Transcriber
+
+    config, model_dir, tokenizer = model
+    kw = dict(tokenizer=tokenizer, batch_size=MODES_BATCH,
+              max_new_tokens=MODES_NEW_TOKENS, device=device)
+    signals = _signals(208, 4 * config.max_source_positions)[:MODES_BATCH]
+    out = {"phase": "modes", "model": "whisper-base", "stem": "base/208",
+           "batch_size": MODES_BATCH, "max_new_tokens": MODES_NEW_TOKENS}
+
+    def width1(calls):
+        return calls["width1"]
+
+    # ---- sampling
+    tr = Transcriber(model_dir, **kw, **SAMPLE_SETTINGS)
+    gen = tr.gen
+    p = tr.prompt.shape[1]
+    req = _timed_requests("modes sample", config,
+                          lambda: tr.transcribe(signals), width1)
+    feats = common.upload_features(tr._prepare(signals), tr.model.dtype,
+                                   tr.device)
+    prompt = torch.as_tensor(np.repeat(tr.prompt, MODES_BATCH, axis=0),
+                             device=tr.device)
+
+    def seeded(g, seed=0):
+        return dg.generate(tr.model, feats, prompt, g,
+                           generator=torch.Generator(device=device)
+                           .manual_seed(seed))
+
+    with torch.no_grad():
+        a, b = seeded(gen), seeded(gen)
+        check(torch.equal(a, b), "modes sample: one seed, other tokens")
+        top1 = seeded(dataclasses.replace(gen, top_k=1))
+        greedy = dg.greedy_decode(tr.model, feats, prompt,
+                                  dataclasses.replace(gen, do_sample=False))
+        ties = _first_diffs_tied(tr.model, feats, prompt, greedy, top1, p)
+        check(ties["all_ties"], f"modes sample: top_k=1 parts from greedy "
+              f"where greedy's logits hold no tie: {ties}")
+        noise = [dg.gumbel_noise(torch.Generator(device=device).manual_seed(7))
+                 for _ in range(2)]
+        tok_k = dg.sample_decode(tr.model, feats, prompt, gen,
+                                 sample_noise=noise[0])
+        with _plain_kernels():
+            tok_p = dg.sample_decode(tr.model, feats, prompt, gen,
+                                     sample_noise=noise[1])
+    prof = _profile_request(lambda: tr.transcribe(signals))
+    req.pop("out")
+    out["sample"] = {
+        **{k: v for k, v in SAMPLE_SETTINGS.items()}, **req,
+        "same_seed_same_tokens": True, "top_k_1_vs_greedy": ties,
+        "token_agreement_kernels_vs_plain": _agreement(tok_k, tok_p, p),
+        "kernels_per_step": prof["kernel_launches"] / req["steps_per_request"],
+        "device_idle_share": prof["device_idle_share"],
+        "device_busy_ms": prof["device_busy_ms"]}
+
+    # ---- beam-sample at the eval CLI's settings
+    tr = Transcriber(model_dir, **kw, **BEAM_SETTINGS, do_sample=True)
+    req = _timed_requests("modes beam_sample", config,
+                          lambda: tr.transcribe(signals), width1)
+    with torch.no_grad():
+        a, b = seeded(tr.gen), seeded(tr.gen)
+        check(torch.equal(a, b), "modes beam_sample: one seed, other tokens")
+        zero = dg.beam_search(tr.model, feats, prompt, tr.gen,
+                              sample_noise=lambda c, shape: torch.zeros(
+                                  shape, device=device))[0]
+        beam = dg.beam_search(tr.model, feats, prompt, dataclasses.replace(
+            tr.gen, do_sample=False))[0]
+    check(torch.equal(zero, beam), "modes beam_sample: zero noise and "
+          "identity warpers part from beam search")
+    req.pop("out")
+    out["beam_sample"] = {**BEAM_SETTINGS, **req,
+                          "same_seed_same_tokens": True,
+                          "zero_noise_equals_beam_search": True}
+
+    # ---- contrastive search (the reference's strategy)
+    tr = Transcriber(model_dir, **kw)
+    gen_c = dataclasses.replace(tr.gen, **CONTRASTIVE_SETTINGS)
+    req = _timed_requests("modes contrastive", config,
+                          lambda: _request(tr, signals, gen_c), width1)
+    calls = req["model_calls"]
+    check(calls["width1"] == calls["cached_decoder"] - MODES_REPEATS,
+          f"modes contrastive: calls {calls}")
+    with torch.no_grad():
+        tok_k = req.pop("out")
+        with _plain_kernels():
+            tok_p = _request(tr, signals, gen_c)
+    prof = _profile_request(lambda: _request(tr, signals, gen_c))
+    out["contrastive"] = {
+        **CONTRASTIVE_SETTINGS, **req,
+        "k6_query_rows": CONTRASTIVE_SETTINGS["top_k"],
+        "k7_rows": MODES_BATCH * CONTRASTIVE_SETTINGS["top_k"],
+        "token_agreement_kernels_vs_plain": _agreement(tok_k, tok_p, p),
+        "kernels_per_step": prof["kernel_launches"] / req["steps_per_request"],
+        "device_idle_share": prof["device_idle_share"],
+        "device_busy_ms": prof["device_busy_ms"]}
+
+    # ---- int8 weights, greedily, beside the bf16 weights
+    with torch.no_grad():
+        bf16 = _request(tr, signals, tr.gen)
+    tr8 = Transcriber(model_dir, **kw, int8_weights=True)
+    req = _timed_requests("modes int8_weights", config,
+                          lambda: tr8.transcribe(signals), width1)
+    with torch.no_grad():
+        i8 = _request(tr8, signals, tr8.gen)
+    params, _, _ = common.load_full_model(model_dir)
+    req.pop("out")
+    out["int8_weights"] = {
+        **req, "quantization_error": quantization_error(params),
+        "token_agreement_with_bf16": _agreement(i8, bf16, p)}
+
+    # ---- token timestamps, and the grammar in greedy and beam decoding
+    trt = Transcriber(model_dir, **dict(kw, batch_size=MODES_TS_CLIPS))
+    clips = signals[:MODES_TS_CLIPS]
+    trt.transcribe_with_timestamps(clips[:1])    # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    with count_model_calls() as calls:
+        t0 = time.perf_counter()
+        rows = trt.transcribe_with_timestamps(clips)
+        torch.cuda.synchronize()
+        ts_s = time.perf_counter() - t0
+    launches = _kernel_counts()
+    _check_serving_launches("modes timestamps", config, calls, launches)
+    check(calls["encoder"] == 2 * MODES_TS_CLIPS,
+          f"modes timestamps: {calls['encoder']} encoder calls")
+    check(len(rows) == MODES_TS_CLIPS and all(rows),
+          f"modes timestamps: rows {[len(r) for r in rows]}")
+    check(all(0.0 <= r["start"] <= r["end"] <= 30.0 for row in rows
+              for r in row), "modes timestamps: a start past its end or 30 s")
+    ts_prompt = torch.as_tensor(np.repeat(np.asarray(
+        [tr.tokenizer.prefix_tokens(tr.language, tr.task, True)]),
+        MODES_BATCH, axis=0), device=device)
+    pt = ts_prompt.shape[1]
+    grammar = {}
+    with torch.no_grad():
+        for name, g in (("greedy", dataclasses.replace(
+                tr.gen, timestamps=True, max_length=pt + MODES_NEW_TOKENS)),
+                        ("beam5", dataclasses.replace(
+                            tr.gen, timestamps=True, **BEAM_SETTINGS,
+                            max_length=pt + MODES_NEW_TOKENS))):
+            toks = dg.generate(tr.model, feats, ts_prompt, g)
+            bad = _grammar_violations(toks.cpu(), pt, config)
+            check(not bad, f"modes timestamps: {name} breaks the grammar: "
+                  f"{bad[:5]}")
+            n_ts = int((toks[:, pt:] >= config.timestamp_begin).sum())
+            check(n_ts >= MODES_BATCH, f"modes timestamps: {name} wrote "
+                  f"{n_ts} timestamps")
+            grammar[name] = {"timestamps": n_ts, "violations": 0}
+        maps_toks = toks[:MODES_TS_CLIPS]
+        enc = tw.encoder_apply(tr.model, feats[:MODES_TS_CLIPS])
+        maps = cross_attention_maps(tr.model, maps_toks, enc)
+        with _f32_compute(tr.model):
+            maps32 = cross_attention_maps(tr.model, maps_toks, enc)
+    diff = (maps - maps32).abs()
+    maps_max, maps_mean = diff.max().item(), diff.mean().item()
+    p_max, p_mean = maps32.max().item(), maps32.mean().item()
+    check(bool(torch.isfinite(maps).all()), "modes timestamps: non-finite maps")
+    check(maps_max <= MAPS_MAX_REL_TOL * p_max
+          and maps_mean <= MAPS_MEAN_REL_TOL * p_mean,
+          f"modes timestamps: maps off f32 by max {maps_max} (largest p "
+          f"{p_max}), mean {maps_mean} (mean p {p_mean})")
+    out["timestamps"] = {
+        "clips": MODES_TS_CLIPS, "wall_s": ts_s, "launches": launches,
+        "model_calls": calls, "tokens_per_clip": [len(r) for r in rows],
+        "sample_row": rows[0][:4], "grammar": grammar,
+        "maps_max_abs_err": maps_max, "maps_mean_abs_err": maps_mean,
+        "maps_max_p": p_max, "maps_mean_p": p_mean,
+        "maps_rel_tol": [MAPS_MAX_REL_TOL, MAPS_MEAN_REL_TOL]}
+
+    out["eval"] = _modes_eval(model, device)
+    check(_jax_free(), "jax or the JAX package was imported")
+    out["card"] = card()
     emit(out)
     return out
 
@@ -4113,15 +4488,17 @@ def phase_options(tr, device: str = "cuda") -> dict:
     return out
 
 
-def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft) -> dict:
+def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md) -> dict:
     """One entry per kernel: launches on its path (training for K1, K2, K3;
     the sequence-parallel training step for K4; beam serving for K6, K7;
     speculative serving with the self-prefix drafter for K8; the perf
     probes' full-shape sweep for the probe kernels; greedy serving, and for
     K1, K6 and K7 the eval CLI's run (``eval_launches``), and for K1, K2,
     K3, K6 and K7 the finetune CLI's first run (``finetune_launches``, its
-    eval-WER decode's K6 and K7 included) beside them), the error and the
-    times of its case at that path's shape, its
+    eval-WER decode's K6 and K7 included) beside them, and for K1, K6 and
+    K7 the launches per request of each mode of the modes phase
+    (``modes_launches_per_request``)), the error and the times of its case
+    at that path's shape, its
     bound and the library call's time (for a probe kernel, of one variant
     named in ``case``, with every variant's ms beside)."""
     def first(kernel, case):
@@ -4152,6 +4529,16 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft) -> dict:
                      for n, r in sp["requests"].items()}
     launches = tr["launches_per_step"]
     src = "neuspeech1_tpu_torch/csrc/"
+
+    def modes(kernel):
+        per = {name: md[name]["launches_per_request"].get(kernel, 0)
+               for name in ("sample", "beam_sample", "contrastive",
+                            "int8_weights")}
+        per["timestamps_4_clips"] = md["timestamps"]["launches"][kernel]
+        per.update({f"eval {r['tag']} {flags}": r["launches"][kernel]
+                    for flags, r in md["eval"].items()})
+        return per
+
     fa_py = "neuspeech1_tpu/ops/flash_attention.py"
     k5_bwd = {"ms": k5["bwd_ms"], "plain_ms": k5["bwd_plain_ms"],
               "bound_ms": k5["bwd_bound_ms"], "bound_by": k5["bwd_bound_by"],
@@ -4185,6 +4572,7 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft) -> dict:
          "beam_launches": bm["launches"]["K1"],
          "eval_launches": ev["launches"]["K1"],
          "finetune_launches": ft["launches"]["K1"],
+         "modes_launches_per_request": modes("K1"),
          "max_abs_err": k1["o_max_abs_err"], **timing(k1)},
         {"name": "flash_bwd_btc (K2)", "route": "cuda",
          "source": src + "flash_bwd_btc.cu", "replaces": fa_py + ":599",
@@ -4224,6 +4612,7 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft) -> dict:
          "greedy_launches": sl["launches"]["K6"],
          "eval_launches": ev["launches"]["K6"],
          "finetune_launches": ft["launches"]["K6"],
+         "modes_launches_per_request": modes("K6"),
          "max_abs_err": k6["max_abs_err"], **timing(k6),
          **device(k6)},
         # the [B, T, H*D] cache entry: no serving path holds that layout,
@@ -4240,6 +4629,7 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft) -> dict:
          "greedy_launches": sl["launches"]["K7"],
          "eval_launches": ev["launches"]["K7"],
          "finetune_launches": ft["launches"]["K7"],
+         "modes_launches_per_request": modes("K7"),
          "max_abs_err": k7["max_abs_err"], **timing(k7), **device(k7)},
         {"name": "decode_step_multi (K8)", "route": "cuda",
          "source": src + "decode_step_multi.cu",
@@ -4277,13 +4667,14 @@ def main(argv) -> int:
         sp = phase_spec(model)
         phase_lora(model)
         ev = phase_eval(model, bm)
+        md = phase_modes(model)
     tr = phase_train()
     phase_options(tr)
     ft = phase_finetune(tr, bm)
     rg = phase_ring(tr)
     pr = phase_probes()
     phase_bench()
-    emit(summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft))
+    emit(summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md))
     print(card(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

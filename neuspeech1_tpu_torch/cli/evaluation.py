@@ -6,18 +6,24 @@
 
 Decodes a test manifest with beam search (num_beams=5,
 repetition_penalty=5.0, no_repeat_ngram_size=2 defaults, mirroring
-`evaluation.py:369-386`), scores with the metric battery, and writes the
-reference's result files; on the same manifest, weights and flags, in f32 on
-the CPU, they are the JAX CLI's byte for byte. The scientific controls are
-the JAX CLI's: noise input (--noise), random-choice baseline
-(--random_choice), teacher forcing (--teacher_forcing).
+`evaluation.py:369-386`), or in the JAX CLI's other modes: sampling and
+beam-sample (--do_sample with --temperature, --top_k, --top_p), contrastive
+search (--penalty_alpha with --top_k > 1, at one beam), self-speculative
+greedy (--spec_gamma) and whisper's timestamp grammar (--timestamps); scores
+with the metric battery and writes the reference's result files, tagged as
+the JAX CLI tags them. On the same manifest, weights and flags, in f32 on
+the CPU, they are the JAX CLI's byte for byte (for sampling, where no noise
+decides). The scientific controls are the JAX CLI's: noise input (--noise),
+random-choice baseline (--random_choice), teacher forcing
+(--teacher_forcing).
 
 Differences from the JAX CLI:
 - ``--device`` (default ``cuda``) picks the card or, when asked, the CPU;
   with ``cuda`` and no CUDA it raises, and it never falls back.
-- ``--do_sample``, ``--penalty_alpha`` > 0 (sampling, beam-sample,
-  contrastive search: ROADMAP.md queue 1 item 5) and ``--timestamps``
-  (item 6) are not ported yet and exit before any model loads.
+- ``--do_sample`` draws from a ``torch.Generator`` on the device seeded
+  with ``--sample_seed`` once per run, whose draws go on from batch to
+  batch (the JAX CLI hands every batch the same ``jax.random`` key): a
+  seed gives the same files from run to run, not the JAX CLI's draws.
 - ``--decode_buckets`` is absent: length buckets only bound the fixed buffer
   shapes of XLA's decode loops and leave the tokens unchanged; the port's
   eager loops have no such buffers (ROADMAP.md "Not to port").
@@ -40,16 +46,6 @@ from collections import deque
 
 import numpy as np
 
-_UNPORTED = {
-    "do_sample": "sampling and beam-sample (--do_sample) are not ported "
-                 "yet: ROADMAP.md queue 1 item 5",
-    "penalty_alpha": "contrastive search (--penalty_alpha > 0) is not "
-                     "ported yet: ROADMAP.md queue 1 item 5",
-    "timestamps": "timestamped decoding (--timestamps) is not ported yet: "
-                  "ROADMAP.md queue 1 item 6",
-}
-
-
 def build_parser() -> argparse.ArgumentParser:
     from neuspeech1_tpu_torch.utils.args import add_arguments
 
@@ -67,7 +63,7 @@ def build_parser() -> argparse.ArgumentParser:
     add_arg("language", str, "English", "decode language")
     add_arg("task", str, "transcribe",
             "decode-prefix task token: transcribe|translate")
-    add_arg("timestamps", bool, False, "timestamped labels (not ported yet)")
+    add_arg("timestamps", bool, False, "timestamped labels")
     add_arg("filter_dataset", bool, False, "ZINNEN filter")
     add_arg("subj", int, None, "subject filter")
     add_arg("batch_size", int, 16, "decode batch size")
@@ -81,14 +77,19 @@ def build_parser() -> argparse.ArgumentParser:
     add_arg("no_repeat_ngram_size", int, 2, "ngram ban size")
     add_arg("max_new_tokens", int, 128, "decode budget after the prompt")
     add_arg("do_sample", bool, False,
-            "multinomial sampling / beam-sample (not ported yet)")
-    add_arg("temperature", float, 1.0, "sampling temperature (--do_sample)")
-    add_arg("top_k", int, 0, "sampling top-k; contrastive search's "
-            "candidate count")
-    add_arg("top_p", float, 1.0, "sampling top-p (--do_sample)")
-    add_arg("sample_seed", int, 0, "PRNG seed for --do_sample")
+            "multinomial sampling (reference process_str.py strategies); "
+            "with --num_beams>1 this is HF beam-sample — the reference "
+            "runs its sampling strategies at num_beams=20; use "
+            "--num_beams=1 for single-sequence sampling")
+    add_arg("temperature", float, 1.0, "sampling temperature")
+    add_arg("top_k", int, 0, "sampling top-k (0 = off); contrastive "
+            "search's candidate count")
+    add_arg("top_p", float, 1.0, "sampling top-p (1.0 = off)")
+    add_arg("sample_seed", int, 0, "generator seed for --do_sample")
     add_arg("penalty_alpha", float, 0.0,
-            "contrastive search degeneration penalty (not ported yet)")
+            "contrastive search degeneration penalty (reference "
+            "contrastiveSearch strategy: alpha=1 with --top_k=5; active "
+            "when > 0 and top_k > 1, HF mode-selection semantics)")
     add_arg("spec_gamma", int, 0,
             "self-speculative multi-token greedy decode: gamma-token "
             "draft-verify steps, token-exact vs plain greedy (>=2 "
@@ -152,8 +153,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse(args) -> None:
-    """The JAX CLI's contradiction checks, then the modes not ported yet;
-    all before any model loads."""
+    """The JAX CLI's contradiction checks, all before any model loads."""
     if args.penalty_alpha > 0:
         if args.do_sample:
             raise SystemExit(
@@ -174,13 +174,8 @@ def _refuse(args) -> None:
             "greedy: set --num_beams=1 --repetition_penalty=1.0 "
             "--no_repeat_ngram_size=0 (the eval defaults are beams=5, "
             "rp=5.0, ngram=2) and drop --do_sample/--penalty_alpha/"
-            "--teacher_forcing")
-    if args.do_sample:
-        raise SystemExit(_UNPORTED["do_sample"])
-    if args.penalty_alpha > 0:
-        raise SystemExit(_UNPORTED["penalty_alpha"])
-    if args.timestamps:
-        raise SystemExit(_UNPORTED["timestamps"])
+            "--teacher_forcing (spec._check_supported would otherwise "
+            "refuse mid-run)")
     if args.prompt_text and args.prompt_from_labels:
         raise SystemExit(
             "--prompt_text and --prompt_from_labels are mutually exclusive: "
@@ -288,13 +283,21 @@ def main(argv=None):
     gen = GenerationConfig.for_model(
         config,
         max_length=prompt.shape[1] + args.max_new_tokens,
-        num_beams=args.num_beams,
+        # contrastive is single-sequence by construction; sampling keeps
+        # the requested beam count (HF beam-sample when > 1)
+        num_beams=1 if args.penalty_alpha > 0 else args.num_beams,
+        penalty_alpha=args.penalty_alpha,
         repetition_penalty=args.repetition_penalty,
         no_repeat_ngram_size=args.no_repeat_ngram_size,
+        timestamps=args.timestamps,  # whisper timestamp grammar
+        do_sample=args.do_sample, temperature=args.temperature,
+        top_k=args.top_k, top_p=args.top_p,
         spec_gamma=args.spec_gamma,
         int8_kv_cache=args.int8_kv_cache,
         **common.suppress_kwargs(args.suppress_tokens, tokenizer),
     )
+    generator = (torch.Generator(device=device).manual_seed(args.sample_seed)
+                 if args.do_sample else None)
     draft_table = None
     if args.spec_gamma >= 2 and args.spec_draft_from:
         from neuspeech1_tpu_torch.data.manifest import read_jsonlines
@@ -363,7 +366,7 @@ def main(argv=None):
                                torch.as_tensor(bp, dtype=torch.long,
                                                device=device),
                                gen, bias_spec=bias_spec,
-                               draft_table=draft_table)
+                               draft_table=draft_table, generator=generator)
         return batch, b, out_dev
 
     def _batches():
@@ -436,7 +439,15 @@ def main(argv=None):
     )
     timing["metrics"] = time.perf_counter() - t_phase
     base = os.path.splitext(os.path.basename(args.test_data))[0]
-    tag = "tf" if args.teacher_forcing else f"beam{gen.num_beams}"
+    if args.teacher_forcing:
+        tag = "tf"
+    elif args.penalty_alpha > 0 and args.top_k > 1 and not args.do_sample:
+        tag = f"contrastive{args.top_k}"
+    elif args.do_sample:
+        tag = (f"beam_sample{gen.num_beams}" if gen.num_beams > 1
+               else "sample")
+    else:
+        tag = f"beam{gen.num_beams}"
     if args.noise:
         tag += "_noise"
     if args.random_choice:

@@ -1,7 +1,8 @@
-"""Logits processors for greedy and beam decoding: the port of the dense
-forms in ``neuspeech1_tpu/decode/logits_process.py`` (HF's SuppressTokens,
+"""Logits processors and warpers for decoding: the port of the dense forms
+in ``neuspeech1_tpu/decode/logits_process.py`` (HF's SuppressTokens,
 SuppressTokensAtBegin, MinNewTokens, RepetitionPenalty, NoRepeatNGram and
-SequenceBias processors).
+SequenceBias processors, and the Temperature, TopK and TopP warpers that
+sampling and beam-sample apply after them).
 
 Each takes scores [B, V] (greedy's logits, or beam search's log-probs) and,
 where it needs them, the token buffer ``tokens`` [B, L] and the current
@@ -274,3 +275,43 @@ def sequence_bias(logits, tokens, cur_len: int,
     else:
         delta[:, plan[0]] = _run_plan(plan, w)
     return logits + delta
+
+
+def temperature_warp(logits, temperature: float):
+    """HF TemperatureLogitsWarper: scores / temperature (an f32 divisor, as
+    the JAX package's)."""
+    if temperature == 1.0:
+        return logits
+    return logits / torch.tensor(temperature, dtype=torch.float32)
+
+
+def top_k_warp(logits, k: int, min_tokens_to_keep: int = 1):
+    """HF TopKLogitsWarper: every score strictly below the k-th largest is
+    banned; ties with it stay. k <= 0 disables; ``min_tokens_to_keep``
+    floors k (beam-sample passes 2, so that a non-eos continuation always
+    survives)."""
+    if k <= 0:
+        return logits
+    k = max(k, min_tokens_to_keep)
+    if k >= logits.shape[-1]:
+        return logits
+    kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+    return torch.where(logits < kth, NEG_INF, logits)
+
+
+def top_p_warp(logits, p: float, min_tokens_to_keep: int = 1):
+    """HF TopPLogitsWarper as the JAX package computes it: sort ascending,
+    take the cumulative softmax, mark ``cum <= 1 - p`` as removed except the
+    ``min_tokens_to_keep`` largest, then ban by value every score at or
+    below the largest removed one (ties share a fate)."""
+    if p >= 1.0:
+        return logits
+    v = logits.shape[-1]
+    sorted_logits = torch.sort(logits, dim=-1).values
+    e = torch.exp(sorted_logits - sorted_logits[..., -1:])
+    cum = torch.cumsum(e / e.sum(dim=-1, keepdim=True), dim=-1)
+    remove = cum <= (1.0 - p)
+    remove[..., v - min_tokens_to_keep:] = False
+    thresh = torch.where(remove, sorted_logits, -math.inf).amax(
+        dim=-1, keepdim=True)
+    return torch.where(logits <= thresh, NEG_INF, logits)

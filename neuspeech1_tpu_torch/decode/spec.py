@@ -66,6 +66,8 @@ def _check_supported(gen: GenerationConfig) -> None:
         bad.append("no_repeat_ngram_size")
     if gen.min_new_tokens:
         bad.append("min_new_tokens")
+    if gen.timestamps:
+        bad.append("timestamps")
     if gen.do_sample:
         bad.append("do_sample")
     if gen.num_beams != 1:

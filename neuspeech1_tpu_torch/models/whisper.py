@@ -526,7 +526,8 @@ def resolve_flash(model: Whisper) -> bool:
 # that keeps a named tensor keeps every op inside its name's region
 # (`_named`: the projection's casts and products, under int8 its
 # quantization too).
-#   None         full recompute: K1 runs again in the backward.
+#   None         full recompute: K1 runs again in the backward. So does a
+#                name not listed here (`remat_policy`).
 #   'flash'      the flash forward's o and lse (``neuspeech::flash_fwd``).
 #   'flash_qkv'  'flash' plus the q, k and v projections.
 #   'flash_mlp'  'flash_qkv' plus the fc1 pre-activation ('mlp_h'): the
@@ -549,21 +550,21 @@ _DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
 
 
 def check_remat(config: WhisperConfig) -> None:
-    """Raises for a remat setting the port does not have: a policy name
-    outside `REMAT_POLICIES` (``ValueError``; the JAX package's
-    ``_remat_policy`` runs full recompute for a name it does not know, such
-    as ``perf/ablate.py``'s 'full', where the port refuses it), and remat
-    under sequence parallelism (not ported)."""
-    if not config.remat:
-        return
-    if config.remat_policy not in REMAT_POLICIES:
-        raise ValueError(
-            f"unknown remat policy {config.remat_policy!r}: one of "
-            f"{REMAT_POLICIES}")
-    if config.seq_parallel_axis is not None:
+    """Raises for remat under sequence parallelism (not ported). A policy
+    name outside `REMAT_POLICIES` is full recompute, as policy None
+    (`remat_policy`), as the JAX package's ``_remat_policy`` runs it for a
+    name it does not know (such as ``perf/ablate.py``'s 'full')."""
+    if config.remat and config.seq_parallel_axis is not None:
         raise NotImplementedError(
             "remat under sequence parallelism is not ported yet; ROADMAP.md "
             "queue 1 item 8 lists it")
+
+
+def remat_policy(config: WhisperConfig):
+    """The policy the checkpoint runs: ``config.remat_policy``, or None
+    (full recompute) for a name outside `REMAT_POLICIES`."""
+    name = config.remat_policy
+    return name if name in REMAT_POLICIES else None
 
 
 def _policy_fn(policy: str):
@@ -670,7 +671,8 @@ def encoder_apply(model: Whisper, features, lora=None, dropout=None):
     for i, layer in enumerate(model.encoder.layers):
         layer_lora = None if layers_lora is None else layers_lora[i]
         if remat:
-            h = _remat_layer(layer, h, flash, layer_lora, config.remat_policy)
+            h = _remat_layer(layer, h, flash, layer_lora,
+                              remat_policy(config))
         else:
             h = layer(h, flash, layer_lora, ring=ring,
                       kv_valid_len=kv_valid_len)
@@ -681,7 +683,7 @@ def encoder_apply(model: Whisper, features, lora=None, dropout=None):
 
 def decoder_apply(model: Whisper, tokens, enc_out, cache=None,
                   cache_index: Optional[int] = None, lora=None, pos_ids=None,
-                  self_attn_mask=None):
+                  self_attn_mask=None, return_hidden: bool = False):
     """Token ids [B, T] -> logits [B, T, vocab].
 
     Without ``cache``: causal teacher forcing over ``enc_out``, with the
@@ -699,7 +701,12 @@ def decoder_apply(model: Whisper, tokens, enc_out, cache=None,
     ``position <= cache_index + i`` rule. Speculative decoding needs both:
     accepted tokens sit at non-contiguous cache columns (rejected drafts
     leave holes) while their logical positions stay dense
-    (``decode/spec.py``)."""
+    (``decode/spec.py``).
+
+    ``return_hidden`` (cached decode only): also return the final-LN hidden
+    states [B, T, d] that feed the logits, HF's ``last_hidden_state``, which
+    contrastive search's degeneration penalty reads: (logits, cache,
+    hidden)."""
     dec = model.decoder
     config = model.config
     t = tokens.shape[1]
@@ -746,7 +753,9 @@ def decoder_apply(model: Whisper, tokens, enc_out, cache=None,
                       kernels=kernels)
     h = layer_norm(h, dec.ln)
     logits = F.linear(h, _cast(dec.token_embed.weight, h.dtype))
-    return logits if cache is None else (logits, cache)
+    if cache is None:
+        return logits
+    return (logits, cache, h) if return_hidden else (logits, cache)
 
 
 def init_cache(model: Whisper, enc_out, max_len: int, int8_cross: bool = False,

@@ -2,6 +2,7 @@
 neuspeech1_tpu_torch/serve.py) against the JAX package, token for token, in
 f32 on the CPU with the JAX encoder through its Pallas kernel."""
 
+import dataclasses
 import json
 
 import jax
@@ -143,11 +144,26 @@ def test_logits_processors_match_jax():
                                 dict(penalty_alpha=0.6, top_k=4),
                                 dict(do_sample=True, top_k=5)])
 def test_generate_raises_for_unported_modes(setup, kw):
+    """These modes raised until they were ported: `generate` now sends each
+    to its loop (beam-sample, sampling, contrastive search; the draws from
+    the generator it is given), and only speculative decoding still
+    refuses them."""
     config, stem, params, model, feats, prompt, tok = setup
     gen = tg.GenerationConfig.for_model(port(config), max_length=8, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tg.generate(model, torch.from_numpy(feats),
-                    torch.from_numpy(prompt.astype(np.int64)), gen)
+    args = (model, torch.from_numpy(feats),
+            torch.from_numpy(prompt.astype(np.int64)), gen)
+    out = tg.generate(*args, generator=torch.Generator().manual_seed(1))
+    if kw.get("num_beams", 1) > 1:
+        ref = tg.beam_search(*args, generator=torch.Generator().manual_seed(
+            1))[0]
+    elif kw.get("penalty_alpha"):
+        ref = tg.contrastive_search(*args)
+    else:
+        ref = tg.sample_decode(*args,
+                               generator=torch.Generator().manual_seed(1))
+    assert torch.equal(out, ref) and out.shape == (3, 8)
+    with pytest.raises(NotImplementedError, match="spec_gamma"):
+        tg.generate(model, *args[1:3], dataclasses.replace(gen, spec_gamma=2))
 
 
 @pytest.fixture(scope="module")
@@ -185,14 +201,39 @@ def test_transcriber_texts_equal_jax(model_dir, kw):
     dict(int8_weights=True, int8_kv_cache=True),
     dict(do_sample=True), dict(do_sample=True, spec_gamma=2)])
 def test_transcriber_raises_for_unported_options(model_dir, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Transcriber(model_dir, device="cpu", **kw)
+    """These options raised until they were ported. Now each serves
+    (beam-sample and sampling the same texts twice at one seed, int8
+    weights the JAX Transcriber's texts), and only the combination the JAX
+    Transcriber refuses, sampling with speculative decoding, raises its
+    ``ValueError``."""
+    if kw.get("spec_gamma"):
+        with pytest.raises(ValueError, match="spec_gamma"):
+            Transcriber(model_dir, device="cpu", **kw)
+        with pytest.raises(ValueError, match="spec_gamma"):
+            JaxTranscriber(model_dir, **kw)
+        return
+    signals = np.random.default_rng(5).standard_normal(
+        (3, 8, 400)).astype(np.float32)
+    kw = dict(kw, batch_size=2, max_new_tokens=6)
+    tr = Transcriber(model_dir, device="cpu", **kw)
+    texts = tr.transcribe(signals)
+    assert len(texts) == 3 and texts == tr.transcribe(signals)
+    if not kw.get("do_sample"):
+        assert texts == JaxTranscriber(model_dir, **kw).transcribe(signals)
 
 
 def test_transcriber_timestamps_not_ported(model_dir):
-    t = Transcriber(model_dir, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.transcribe_with_timestamps(np.zeros((1, 8, 400), np.float32))
+    """Token timestamps raised until they were ported; now the JAX
+    Transcriber's rows come back (tests/test_torch_timestamps.py holds them
+    on more clips)."""
+    t = Transcriber(model_dir, device="cpu", max_new_tokens=6)
+    signals = np.random.default_rng(2).standard_normal(
+        (1, 8, 400)).astype(np.float32)
+    rows = t.transcribe_with_timestamps(signals)
+    assert rows == JaxTranscriber(
+        model_dir, max_new_tokens=6).transcribe_with_timestamps(signals)
+    assert len(rows) == 1 and all(0 <= r["start"] <= r["end"]
+                                  for r in rows[0])
 
 
 def test_upload_features_restores_the_cropped_tail():

@@ -2,9 +2,10 @@
 result files byte for byte, metrics exactly): the scientific controls
 (teacher forcing, noise input with the random-choice baseline), the text
 post-processing, the speculative greedy decode and the pipeline depth;
-then the flags the port refuses: sampling, contrastive search and
-timestamps exit before any model loads, and --decode_buckets is not a
-flag of the port."""
+then the flag combinations the JAX CLI refuses exit before any model loads,
+and --decode_buckets is not a flag of the port. (Sampling, contrastive
+search and timestamps, refused until they were ported, are held against
+the JAX CLI in tests/test_torch_eval_modes.py.)"""
 
 import dataclasses
 import json
@@ -78,12 +79,16 @@ def _no_model_load(monkeypatch):
 
 
 REFUSED = {
-    "do_sample": (["--do_sample=True"], "queue 1 item 5"),
-    "beam_sample": (["--do_sample=True", "--num_beams=5"], "queue 1 item 5"),
-    "penalty_alpha": (["--penalty_alpha=0.6", "--top_k=4",
-                       "--num_beams=1"], "queue 1 item 5"),
-    "timestamps": (["--timestamps=True"], "queue 1 item 6"),
-    # the JAX CLI's contradiction checks come first
+    # the modes of these cases are ported; what stays refused is each one
+    # combined with a flag that contradicts it, as in the JAX CLI
+    "do_sample": (["--do_sample=True", "--penalty_alpha=0.6", "--top_k=4"],
+                  "requires --do_sample=False"),
+    "beam_sample": (["--do_sample=True", "--num_beams=5", "--spec_gamma=4"],
+                    "plain greedy"),
+    "penalty_alpha": (["--penalty_alpha=0.6", "--top_k=1",
+                       "--num_beams=1"], "top_k > 1"),
+    "timestamps": (["--timestamps=True", "--prompt_text=the",
+                    "--prompt_from_labels=True"], "mutually exclusive"),
     "alpha_needs_top_k": (["--penalty_alpha=0.6"], "top_k"),
     "spec_needs_greedy": (["--spec_gamma=4"], "plain greedy"),
 }
@@ -91,6 +96,8 @@ REFUSED = {
 
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_unported_modes_exit_before_loading(setup, monkeypatch, case):
+    """Each refused combination exits with its message before any model
+    loads."""
     flags, msg = REFUSED[case]
     _no_model_load(monkeypatch)
     with pytest.raises(SystemExit, match=msg):

@@ -130,8 +130,10 @@ def _port_grads(frozen, state, tconfig, batch, policy):
     return loss.item(), grads, calls[0]
 
 
-@pytest.mark.parametrize("policy", [p for p in tw.REMAT_POLICIES])
+@pytest.mark.parametrize("policy", [p for p in tw.REMAT_POLICIES] + ["full"])
 def test_remat_policy_matches_jax_and_no_remat(remat_setup, policy):
+    """'full', a name outside REMAT_POLICIES, is full recompute in both
+    packages: the same numbers as policy None."""
     jconfig, tconfig, params, lora, batch, state, frozen, ref = remat_setup
     loss, grads, calls = _port_grads(frozen, state, tconfig, batch, policy)
     # against the port without remat: the same numbers
@@ -142,7 +144,8 @@ def test_remat_policy_matches_jax_and_no_remat(remat_setup, policy):
             assert torch.equal(g, ref[1][k]), k
     extra = calls - ref[2]
     layers = tconfig.encoder_layers
-    assert extra == (layers if policy in (None, "dots", "attn") else 0)
+    assert extra == (layers if policy in (None, "dots", "attn", "full")
+                     else 0)
     # against the JAX step under the same policy
     jc = dataclasses.replace(jconfig, remat=True, remat_policy=policy)
     jtx, _ = _optimizers()
@@ -171,14 +174,21 @@ def test_remat_policy_matches_jax_and_no_remat(remat_setup, policy):
 
 def test_unknown_remat_policy_raises():
     """The JAX package runs full recompute for a policy name it does not
-    know (perf/ablate.py's 'full'); the port refuses it."""
+    know (perf/ablate.py's 'full'), and so does the port: such a name
+    builds the loss and resolves to policy None. What still raises is remat
+    under sequence parallelism, whatever the policy's name."""
     _, tconfig = _configs(remat=True, remat_policy="full")
-    with pytest.raises(ValueError, match="unknown remat policy 'full'"):
-        tts.make_loss_fn(tconfig, port(STEM))
-    with pytest.raises(ValueError, match="unknown remat policy"):
-        tw.check_remat(dataclasses.replace(tconfig, remat_policy="dot"))
+    tts.make_loss_fn(tconfig, port(STEM))
+    for name in ("full", "dot", None, "flash"):
+        config = dataclasses.replace(tconfig, remat_policy=name)
+        tw.check_remat(config)
+        assert tw.remat_policy(config) == (
+            "flash" if name == "flash" else None)
+        with pytest.raises(NotImplementedError, match="sequence parallel"):
+            tw.check_remat(dataclasses.replace(config,
+                                               seq_parallel_axis="seq"))
     tw.check_remat(dataclasses.replace(tconfig, remat=False,
-                                       remat_policy="full"))
+                                       seq_parallel_axis="seq"))
 
 
 def test_remat_restores_the_int8_mode_in_the_backward(remat_setup):
