@@ -65,7 +65,23 @@ each printing JSON lines:
             (with and without remat; kernels against the plain versions
             and f32); merge_lora and the eval CLI on the merged model
             against the eval CLI on the adapter.
-8. ring     sequence-parallel (ring) attention: a LocalRing of 4 threads on
+8. speech   the speech modality at whisper-base width with the 'speech' stem
+            (80 mel bins, 3000 frames -> 1500), bf16, weights from a seed:
+            the eval phase's 48 clips with their 16 kHz wavs, split 8:1:1 by
+            ``cli.manifest_tools``; the log-mel on the card
+            (``ops/audio.py::log_mel_spectrogram_torch``) against the numpy
+            one; the speech eval CLI (``cli.evaluation_speech.main``) at its
+            defaults (batch 8, beam 5, 128 new tokens): decode and end-to-end
+            seconds, K1/K6/K7 launches against the model calls, predictions
+            against ``generate`` on the same batches, the encoder on speech
+            features through K1 against the plain path; then
+            ``cli.finetune.main --modal=speech`` at its defaults (AdaLoRA
+            12 -> 4, batch 64, 128 labels) on the finetune phase's 160 + 32
+            clips with wavs, 6 steps and one eval: K1/K2/K3 launches per
+            step against the finetune phase's, finite losses, the adapter,
+            and the step's rate (CUDA events) beside the CLI's (the host's
+            log-mel loader lies between them).
+9. ring     sequence-parallel (ring) attention: a LocalRing of 4 threads on
             the card at whisper-base widths (B=8, T=1536) through K4's
             forward and backward bodies, against K1/K2 on the whole
             sequence at kv_valid_len 1500 and 1000; then the training step
@@ -73,7 +89,7 @@ each printing JSON lines:
             ``parallel/mesh.py`` (whisper-base, batch 64): K4 launches per
             step, ms per step and samples/s beside the train phase's, and
             one step's loss and gradients against the non-SP kernel step.
-9. lora     greedy serving (batch 8, 32 new tokens) through ``generate(...,
+10. lora    greedy serving (batch 8, 32 new tokens) through ``generate(...,
             lora=)`` with unmerged rank-32 adapters on encoder and decoder
             (self-attention q/k/v/out, cross-attention q/out, fc1/fc2):
             K1/K6/K7 launches against the model calls and the request
@@ -81,7 +97,7 @@ each printing JSON lines:
             steps against the plain versions, tokens equal to the plain
             versions' up to near-ties, and that the adapters move the
             logits.
-10. eval    the eval CLI (``neuspeech1_tpu_torch.cli.evaluation.main``) in
+11. eval    the eval CLI (``neuspeech1_tpu_torch.cli.evaluation.main``) in
             process on the same model: a manifest of 48 synthetic 2-10 s
             clips over 208 channels (``data/synthetic.py``), a word
             vocabulary whose first entries are the corpus's words, the
@@ -97,7 +113,7 @@ each printing JSON lines:
             the three unbiased runs'), and that ``sequence_bias`` gives the
             same bits on the card as on the CPU at the beam step's shape
             (timed beside the beam step).
-11. modes   every other decode mode of serving on the same model, 16
+12. modes   every other decode mode of serving on the same model, 16
             clips and 128 new tokens a request, each request timed (median
             of 3) with K1/K6/K7 launches held against the model calls:
             sampling (temperature 0.7, top-k 50, top-p 0.9; one seed gives
@@ -111,7 +127,7 @@ each printing JSON lines:
             greedy and beam decoding, starts and ends, the cross-attention
             maps against an f32 computation); then the eval CLI in process
             with --do_sample, --penalty_alpha=1 --top_k=5 and --timestamps.
-12. probes  the perf entry points (``neuspeech1_tpu_torch/perf``): every
+13. probes  the perf entry points (``neuspeech1_tpu_torch/perf``): every
             variant of the TPU probes' sweeps (kernel_probe, mxu_probe,
             btc_probe, bwd_probe) held against its plain version at full
             TK and 8 heads, then at the probe's shape (B*H = 512, TK =
@@ -120,7 +136,7 @@ each printing JSON lines:
             and a library call (SDPA, its backward, ``torch.bmm``), each a
             line tagged as the JAX probe tags it; launches of probe_fwd,
             probe_bwd and probe_dot over the full-shape sweep.
-13. bench   ``neuspeech1_tpu_torch.bench`` once in process: its JSON line
+14. bench   ``neuspeech1_tpu_torch.bench`` once in process: its JSON line
             (samples/s, step ms, mfu, greedy decode tokens/s with adapters).
 
 Then it prints the kernel summary (with each kernel's bound: the least time
@@ -446,6 +462,23 @@ TRAINED_E_STD = 0.1
 FT_SCHEDULE = ("--adalora_tinit=2", "--adalora_tfinal=4",
                "--adalora_deltaT=2", "--warmup_steps=2", "--eval_steps=7",
                "--save_steps=7", "--logging_steps=1", "--eval_wer=True")
+# speech: whisper-base with the 'speech' stem (80 mel bins, 3000 frames ->
+# 1500), the speech eval CLI at its defaults (batch 8, beam 5, 128 new
+# tokens) on the eval phase's EVAL_CLIPS clips with their wavs, and the
+# fine-tune CLI with --modal=speech at its defaults on the finetune phase's
+# clips with their wavs, SPEECH_FT_STEPS steps on a schedule that runs every
+# phase of the rank allocator (an allocation at step 4, the pattern frozen
+# from step 5) and one eval (loss and eval-WER) at the last step. The
+# log-mel on the card against the numpy one: the bound the JAX package
+# holds between its jnp and numpy versions (tests/test_signal_ops.py:80)
+SPEECH_EVAL_BATCH = 8
+SPEECH_FT_STEPS = 6
+SPEECH_FT_SCHEDULE = ("--adalora_tinit=2", "--adalora_tfinal=2",
+                      "--adalora_deltaT=2", "--warmup_steps=2",
+                      f"--eval_steps={SPEECH_FT_STEPS}",
+                      f"--save_steps={SPEECH_FT_STEPS}", "--logging_steps=1",
+                      "--eval_wer=True")
+MEL_RTOL, MEL_ATOL = 1e-3, 1e-4
 # options: the training step's options at the train phase's setup
 # (whisper-base, batch 64, 64 labels, LoRA r=32, the fold). Each timed
 # setting runs OPT_WARM steps, then OPT_TIMED timed ones (median).
@@ -2005,18 +2038,19 @@ def phase_lora(model) -> dict:
     return out
 
 
-def _eval_corpus(tmp: str, vocab_size: int):
+def _eval_corpus(tmp: str, vocab_size: int, with_audio: bool = False):
     """The eval phase's corpus (``data/synthetic.py``, EVAL_CLIPS clips of
-    2-10 s over 208 channels) and a word vocabulary of ``vocab_size``
-    words whose first entries are the corpus's words, so that its labels
-    tokenize: (corpus dir, tokenizer spec)."""
+    2-10 s over 208 channels, with their 16 kHz wavs when ``with_audio``)
+    and a word vocabulary of ``vocab_size`` words whose first entries are
+    the corpus's words, so that its labels tokenize: (corpus dir,
+    tokenizer spec)."""
     from neuspeech1_tpu_torch.data.synthetic import _WORDS, make_synthetic_corpus
 
     root = os.path.join(tmp, "eval_corpus")
     make_synthetic_corpus(root, n_clips=EVAL_CLIPS, n_channels=208,
                           min_dur=EVAL_DURATION_S[0],
                           max_dur=EVAL_DURATION_S[1], seed=0,
-                          with_audio=False)
+                          with_audio=with_audio)
     vocab = os.path.join(tmp, "eval_vocab.txt")
     words = list(_WORDS) + [f"w{i}" for i in range(len(_WORDS), vocab_size)]
     with open(vocab, "w") as f:
@@ -3450,11 +3484,12 @@ def phase_ring(tr) -> dict:
 # finetune: the fine-tune CLI at its defaults, resume, remat, merge
 # --------------------------------------------------------------------------
 
-def _finetune_corpus(tmp: str, vocab_size: int):
+def _finetune_corpus(tmp: str, vocab_size: int, with_audio: bool = False):
     """FT_TRAIN + FT_VAL synthetic 2-10 s clips over 208 channels
-    (``data/synthetic.py``), written as their own train and val manifests,
-    the first FT_EVAL val clips as a third, and the eval phase's word
-    vocabulary: (corpus dir, tokenizer spec)."""
+    (``data/synthetic.py``; with their 16 kHz wavs when ``with_audio``),
+    written as their own train and val manifests, the first FT_EVAL val
+    clips as a third, and the eval phase's word vocabulary: (corpus dir,
+    tokenizer spec)."""
     from neuspeech1_tpu_torch.data.manifest import write_jsonlines
     from neuspeech1_tpu_torch.data.synthetic import (_WORDS,
                                                      make_synthetic_corpus)
@@ -3463,7 +3498,7 @@ def _finetune_corpus(tmp: str, vocab_size: int):
     rows = make_synthetic_corpus(root, n_clips=FT_TRAIN + FT_VAL,
                                  n_channels=208, min_dur=EVAL_DURATION_S[0],
                                  max_dur=EVAL_DURATION_S[1], seed=1,
-                                 with_audio=False)
+                                 with_audio=with_audio)
     write_jsonlines(os.path.join(root, "train.jsonl"), rows[:FT_TRAIN])
     write_jsonlines(os.path.join(root, "val.jsonl"), rows[FT_TRAIN:])
     write_jsonlines(os.path.join(root, "eval.jsonl"),
@@ -4105,6 +4140,351 @@ def phase_finetune(tr, bm, device: str = "cuda") -> dict:
 
 
 # --------------------------------------------------------------------------
+# speech: the log-mel front end, the speech eval CLI and --modal=speech
+# fine-tuning
+# --------------------------------------------------------------------------
+
+def speech_model(tmp: str):
+    """whisper-base (bf16 compute) with the 'speech' stem over 80 mel bins,
+    weights from seed 1, written as a full-model directory under ``tmp``:
+    (config, model_dir)."""
+    from neuspeech1_tpu_torch.cli import common
+    from neuspeech1_tpu_torch.config import StemConfig
+    from neuspeech1_tpu_torch.models.init import init_params
+
+    config, _ = common.preset_model("base")
+    stem = StemConfig("speech")
+    model_dir = common.save_full_model(
+        os.path.join(tmp, "speech_model"), init_params(config, stem, seed=1),
+        config, stem)
+    return config, model_dir
+
+
+def _check_log_mel(manifest, device) -> dict:
+    """``log_mel_spectrogram_torch`` on the card against the numpy
+    ``log_mel_spectrogram`` on the manifest's clips (padded to 30 s), and
+    the time of each: the batch on the card (CUDA events), one clip on the
+    host (the median over the clips)."""
+    from neuspeech1_tpu_torch.data.manifest import read_jsonlines
+    from neuspeech1_tpu_torch.data.synthetic import read_wav
+    from neuspeech1_tpu_torch.ops import audio
+
+    clips = [read_wav(r["speech"]["path"])[0]
+             for r in read_jsonlines(manifest)]
+    host_ms, ref = [], []
+    for a in clips:
+        t0 = time.perf_counter()
+        ref.append(audio.log_mel_spectrogram(a))
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+    ref = torch.from_numpy(np.stack(ref))
+    batch = torch.from_numpy(np.stack([audio.pad_or_trim(a) for a in clips])
+                             ).to(device)
+    got = audio.log_mel_spectrogram_torch(batch).cpu()
+    check(tuple(got.shape) == (len(clips), audio.N_MELS, audio.N_FRAMES),
+          f"speech: log-mel shape {tuple(got.shape)}")
+    err = (got - ref).abs()
+    within = bool((err <= MEL_ATOL + MEL_RTOL * ref.abs()).all())
+    check(within, f"speech: the card's log-mel is off the numpy one by "
+          f"{err.max().item()} (rtol {MEL_RTOL}, atol {MEL_ATOL})")
+    return {"clips": len(clips), "max_abs_err": err.max().item(),
+            "tol": [MEL_RTOL, MEL_ATOL],
+            "card_ms_per_batch": cuda_ms(
+                lambda: audio.log_mel_spectrogram_torch(batch)),
+            "host_ms_per_clip": statistics.median(host_ms),
+            "host_ms_per_clip_all": [min(host_ms), max(host_ms)]}
+
+
+@contextlib.contextmanager
+def _timed_generate(spans: list):
+    """``decode.generate.generate`` (read by a CLI when its ``main`` runs)
+    with each call's host seconds appended to ``spans``, up to a
+    synchronize after it."""
+    from neuspeech1_tpu_torch.decode import generate as gmod
+
+    real = gmod.generate
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        spans.append(time.perf_counter() - t0)
+        return out
+
+    gmod.generate = timed
+    try:
+        yield spans
+    finally:
+        gmod.generate = real
+
+
+def _run_speech_eval(argv) -> dict:
+    """``cli.evaluation_speech.main(argv)`` in process: its metrics, the
+    seconds of its decode calls, its wall time and its output lines."""
+    import io
+
+    from neuspeech1_tpu_torch.cli import evaluation_speech
+
+    buf, spans = io.StringIO(), []
+    t0 = time.perf_counter()
+    with _timed_generate(spans), contextlib.redirect_stdout(buf):
+        metrics = evaluation_speech.main(argv)
+    torch.cuda.synchronize()
+    return {"metrics": metrics, "decode_s": sum(spans),
+            "wall_s": time.perf_counter() - t0,
+            "lines": [ln for ln in buf.getvalue().splitlines()
+                      if ln.startswith("[evaluation_speech]")]}
+
+
+def _direct_speech_preds(model_dir, tokenizer_spec, manifest, device):
+    """The speech eval CLI's decode without the CLI: the same dataset,
+    collator and loader, ``generate`` at the CLI's defaults, then
+    ``batch_decode`` and the punctuation removal. Returns the predictions
+    and the first batch's features on the device, with the model."""
+    from neuspeech1_tpu_torch.cli import common
+    from neuspeech1_tpu_torch.data.collate import Collator
+    from neuspeech1_tpu_torch.data.dataset import SpeechDataset
+    from neuspeech1_tpu_torch.data.loader import DataLoader
+    from neuspeech1_tpu_torch.decode.generate import (GenerationConfig,
+                                                      generate)
+    from neuspeech1_tpu_torch.utils import text as tx
+
+    params, config, stem = common.load_full_model(model_dir)
+    tok = common.resolve_tokenizer(tokenizer_spec, config)
+    model = common.commit_params(params, config, stem, device)
+    ds = SpeechDataset(manifest, tok, language="English")
+    loader = DataLoader(ds, Collator(pad_id=tok.pad_id,
+                                     decoder_start_id=config.sot_id,
+                                     max_label_len=128),
+                        SPEECH_EVAL_BATCH, shuffle=False, drop_last=False)
+    prompt = np.asarray([tok.prefix_tokens("English", "transcribe")])
+    gen = GenerationConfig.for_model(
+        config, max_length=prompt.shape[1] + EVAL_NEW_TOKENS, num_beams=5,
+        **common.suppress_kwargs("default", tok))
+    preds, first = [], None
+    for batch in loader:
+        feats = common.upload_features(batch["input_features"], model.dtype,
+                                       device, compact=False)
+        first = feats if first is None else first
+        out = generate(model, feats,
+                       torch.as_tensor(np.repeat(prompt, feats.shape[0], 0),
+                                       device=device), gen)
+        preds.extend(tok.batch_decode(out.cpu().numpy()))
+    return tx.remove_punctuation(preds), first, model
+
+
+def _speech_encoder_check(model, feats, config) -> dict:
+    """The encoder on one batch of speech features through K1 against the
+    plain attention path (the slice phase's bound)."""
+    from neuspeech1_tpu_torch.models import whisper as tw
+    from neuspeech1_tpu_torch.ops import flash_attention as fa
+
+    before = _kernel_counts()["K1"]
+    with torch.no_grad():
+        enc_k = tw.encoder_apply(model, feats)
+        launched = _kernel_counts()["K1"] - before
+        kernel_fn = tw.flash_attention_bthd
+        tw.flash_attention_bthd = fa.flash_attention_bthd_plain
+        try:
+            enc_p = tw.encoder_apply(model, feats)
+        finally:
+            tw.flash_attention_bthd = kernel_fn
+    torch.cuda.synchronize()
+    diff = (enc_k.float() - enc_p.float()).abs()
+    enc_max, enc_mean = diff.max().item(), diff.mean().item()
+    check(tuple(enc_k.shape) == (feats.shape[0], config.max_source_positions,
+                                 config.d_model),
+          f"speech: encoder states shape {tuple(enc_k.shape)}")
+    check(bool(torch.isfinite(enc_k.float()).all()),
+          "speech: non-finite encoder states")
+    check(enc_max <= ENC_MAX_TOL and enc_mean <= ENC_MEAN_TOL,
+          f"speech: encoder states off the plain path by max {enc_max}, "
+          f"mean {enc_mean}")
+    return {"max_abs_err": enc_max, "mean_abs_err": enc_mean,
+            "tol": [ENC_MAX_TOL, ENC_MEAN_TOL], "k1_launches": launched}
+
+
+def _speech_loader_rate(manifest, tokenizer_spec, config) -> dict:
+    """The fine-tune CLI's train loader for --modal=speech alone (the same
+    dataset, collator and threaded loader, no step): samples/s over one
+    epoch (host clock)."""
+    from neuspeech1_tpu_torch.cli import common
+    from neuspeech1_tpu_torch.data.collate import Collator
+    from neuspeech1_tpu_torch.data.dataset import SpeechDataset
+    from neuspeech1_tpu_torch.data.loader import DataLoader
+
+    tok = common.resolve_tokenizer(tokenizer_spec, config)
+    loader = DataLoader(
+        SpeechDataset(manifest, tok, language="English", mode="train"),
+        Collator(pad_id=tok.pad_id, decoder_start_id=config.sot_id,
+                 max_label_len=FT_LABEL_LEN, feature_dtype="bfloat16",
+                 eot_id=config.eot_id),
+        FT_BATCH, shuffle=True, seed=0, num_threads=4, prefetch=2)
+    t0 = time.perf_counter()
+    n = sum(len(b["labels"]) for b in loader)
+    return {"samples": n, "threads": 4,
+            "samples_per_s": n / (time.perf_counter() - t0)}
+
+
+def phase_speech(device: str = "cuda") -> dict:
+    """The speech modality at whisper-base width: the log-mel on the card
+    against the numpy one, the speech eval CLI
+    (``cli.evaluation_speech.main``) at its defaults on EVAL_CLIPS clips
+    with their wavs (K1/K6/K7 launches against the model calls, the
+    predictions against ``generate`` on the same batches, the encoder on
+    speech features against the plain path), the manifest split of
+    ``cli.manifest_tools``, and ``cli.finetune.main --modal=speech`` at its
+    defaults (K1/K2/K3 launches per step against the finetune phase's EEG
+    step, finite losses, the adapter written, the step's rate beside the
+    CLI's)."""
+    from neuspeech1_tpu_torch.cli import manifest_tools
+    from neuspeech1_tpu_torch.data.manifest import read_jsonlines
+
+    with tempfile.TemporaryDirectory() as tmp:
+        config, model_dir = speech_model(tmp)
+        corpus, tokenizer = _eval_corpus(tmp, config.eot_id, with_audio=True)
+        manifest = os.path.join(corpus, "all.jsonl")
+
+        # 1. the manifest split (train/val/test 8:1:1)
+        split_dir = os.path.join(tmp, "speech_split")
+        manifest_tools.main(["split", manifest, "-o", split_dir])
+        parts = {n: read_jsonlines(os.path.join(split_dir, f"{n}.jsonl"))
+                 for n in ("train", "val", "test")}
+        paths = sorted(r["speech"]["path"] for rows in parts.values()
+                       for r in rows)
+        check(paths == sorted(r["speech"]["path"]
+                              for r in read_jsonlines(manifest)),
+              "speech: the split does not partition the manifest")
+
+        # 2. the log-mel on the card
+        mel = _check_log_mel(manifest, device)
+
+        # 3. the speech eval CLI at its defaults
+        out_dir = os.path.join(tmp, "speech_eval")
+        _reset_counts()
+        with count_model_calls() as calls:
+            run = _run_speech_eval([
+                f"--test_data={manifest}", f"--model_path={model_dir}",
+                f"--tokenizer={tokenizer}", f"--device={device}",
+                f"--max_new_tokens={EVAL_NEW_TOKENS}",
+                f"--output_dir={out_dir}"])
+        launches = _kernel_counts()
+        _check_serving_launches("speech eval", config, calls, launches)
+        files = _result_files(out_dir)
+        check(set(files) == {"all_speech.txt", "all_speech.jsonl",
+                             "all_speech.json"},
+              f"speech eval: result files {sorted(files)}")
+        rows = [json.loads(ln) for ln in
+                files["all_speech.jsonl"].decode().splitlines()]
+        check(len(rows) == EVAL_CLIPS, f"speech eval: {len(rows)} rows for "
+              f"{EVAL_CLIPS} clips")
+        metrics = run["metrics"]
+        check(all(math.isfinite(float(v)) for v in metrics.values()),
+              f"speech eval: non-finite metric {metrics}")
+        direct, feats, model = _direct_speech_preds(model_dir, tokenizer,
+                                                    manifest, device)
+        check([r["pred"] for r in rows] == direct,
+              "speech eval: the CLI's predictions differ from generate's on "
+              "the same batches")
+        encoder = _speech_encoder_check(model, feats, config)
+        del model, feats
+        torch.cuda.empty_cache()
+
+        # 4. --modal=speech fine-tuning at the CLI's defaults
+        ft_corpus, _ = _finetune_corpus(tmp, config.eot_id, with_audio=True)
+        run_dir = os.path.join(tmp, "speech_ft")
+        expect = _step_launches(config)
+        _reset_counts()
+        with count_model_calls() as ft_calls:
+            ft = _run_finetune([
+                f"--train_data={ft_corpus}/train.jsonl",
+                f"--val_data={ft_corpus}/val.jsonl",
+                f"--base_model={os.path.join(model_dir, 'params.npz')}",
+                f"--tokenizer={tokenizer}", "--modal=speech",
+                f"--per_device_train_batch_size={FT_BATCH}",
+                f"--label_max_length={FT_LABEL_LEN}",
+                f"--max_steps={SPEECH_FT_STEPS}", f"--output_dir={run_dir}",
+                f"--device={device}", *SPEECH_FT_SCHEDULE])
+        ft_launches = _kernel_counts()
+        check(len(ft["steps"]) == SPEECH_FT_STEPS,
+              f"speech finetune: {len(ft['steps'])} steps")
+        for s in ft["steps"]:
+            check(s["launches"] == expect, f"speech finetune step "
+                  f"{s['step']}: launches {s['launches']}, expected {expect}")
+        # the eval-WER decode: K6 and K7 against its cached decoder calls
+        # (it stops when every row has emitted eot, so K7 may not run)
+        decode_want = _expected_launches(config, ft_calls)
+        check(all(ft_launches[k] == decode_want[k] for k in ("K6", "K7")),
+              f"speech finetune: eval-WER decode launches {ft_launches}, "
+              f"expected {decode_want} from the model calls {ft_calls}")
+        check(all(ft_launches[k] > 0 for k in ("K1", "K2", "K3", "K6")),
+              f"speech finetune: a kernel of the path never launched: "
+              f"{ft_launches}")
+        losses = [r["loss"] for r in ft["records"] if "loss" in r]
+        check(len(losses) == SPEECH_FT_STEPS
+              and all(math.isfinite(x) for x in losses),
+              f"speech finetune: losses {losses}")
+        evals = [r for r in ft["records"] if "eval_loss" in r]
+        check(len(evals) == 1 and math.isfinite(evals[0]["eval_loss"])
+              and 0 <= evals[0]["eval_wer"],
+              f"speech finetune: evals {evals}")
+        adapter = os.path.join(run_dir, "adapter_final.npz")
+        check(os.path.exists(adapter), "speech finetune: no adapter written")
+        with np.load(adapter) as z:
+            adapter_keys = len(z.files)
+            check("model/encoder/stem/conv1/w" in z.files,
+                  "speech finetune: the speech stem is not in the adapter")
+        check(any("remat=" in ln for ln in ft["lines"]) and not any(
+            "staging" in ln or "rotating" in ln for ln in ft["lines"]),
+            f"speech finetune: {ft['lines']}")
+        loader_alone = _speech_loader_rate(
+            os.path.join(ft_corpus, "train.jsonl"), tokenizer, config)
+        check(_jax_free(), "jax or the JAX package was imported")
+
+    timed = [s["ms"] for s in ft["steps"][2:]]
+    step_ms = statistics.median(timed)
+    cli_rate = {r["step"]: r["samples_per_sec"] for r in ft["records"]
+                if "samples_per_sec" in r}
+    loop_rate = statistics.median(v for k, v in cli_rate.items()
+                                  if 2 < k < SPEECH_FT_STEPS)
+    step_rate = FT_BATCH / (step_ms / 1e3)
+    out = {
+        "phase": "speech", "model": "whisper-base", "stem": "speech/80",
+        "dtype": config.dtype, "split": {n: len(r) for n, r in parts.items()},
+        "log_mel": mel,
+        "eval": {"clips": EVAL_CLIPS, "batch_size": SPEECH_EVAL_BATCH,
+                 "num_beams": 5, "max_new_tokens": EVAL_NEW_TOKENS,
+                 "decode_s": run["decode_s"], "wall_s": run["wall_s"],
+                 "utterances_per_s_decode": EVAL_CLIPS / run["decode_s"],
+                 "utterances_per_s_end_to_end": EVAL_CLIPS / run["wall_s"],
+                 "metrics": metrics, "launches": launches,
+                 "model_calls": calls, "preds_equal_generate": True,
+                 "encoder": encoder, "sample_pred": rows[0]["pred"][:80]},
+        "finetune": {
+            "batch_size": FT_BATCH, "label_len": FT_LABEL_LEN,
+            "train_clips": FT_TRAIN, "val_clips": FT_VAL,
+            "steps": SPEECH_FT_STEPS, "schedule": SPEECH_FT_SCHEDULE,
+            "cli_lines": ft["lines"], "step_ms": step_ms,
+            "step_ms_all": [s["ms"] for s in ft["steps"]],
+            "step_samples_per_s": step_rate,
+            "cli_samples_per_s": loop_rate,
+            "cli_samples_per_s_by_step": cli_rate,
+            # the share of the loop's time the step's device span does not
+            # cover: the host's log-mel loader and the loop around the step
+            "loader_share": 1.0 - loop_rate / step_rate,
+            "loader_alone": loader_alone,
+            "launches_per_step": ft["steps"][-1]["launches"],
+            "launches_per_step_expected": expect, "launches": ft_launches,
+            "eval_decode_model_calls": {k: ft_calls[k] for k in (
+                "cached_decoder", "width1", "cross_chunks")},
+            "losses": losses, "evals": evals, "adapter_keys": adapter_keys,
+            "peak_mem_gb": ft["peak_mem_gb"], "wall_s": ft["wall_s"]},
+        "jax_imported": not _jax_free(), "card": card(),
+    }
+    emit(out)
+    return out
+
+
+# --------------------------------------------------------------------------
 # options: remat policies, int8 matmuls, augmentation, dropout, and the
 # fine-tune CLI with them
 # --------------------------------------------------------------------------
@@ -4488,7 +4868,7 @@ def phase_options(tr, device: str = "cuda") -> dict:
     return out
 
 
-def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md) -> dict:
+def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph) -> dict:
     """One entry per kernel: launches on its path (training for K1, K2, K3;
     the sequence-parallel training step for K4; beam serving for K6, K7;
     speculative serving with the self-prefix drafter for K8; the perf
@@ -4497,7 +4877,10 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md) -> dict:
     K3, K6 and K7 the finetune CLI's first run (``finetune_launches``, its
     eval-WER decode's K6 and K7 included) beside them, and for K1, K6 and
     K7 the launches per request of each mode of the modes phase
-    (``modes_launches_per_request``)), the error and the times of its case
+    (``modes_launches_per_request``), and the speech phase's eval CLI run
+    (K1, K6, K7: ``speech_eval_launches``) and fine-tune CLI run (K1, K2,
+    K3, K6, K7: ``speech_finetune_launches``)), the error and the times of
+    its case
     at that path's shape, its
     bound and the library call's time (for a probe kernel, of one variant
     named in ``case``, with every variant's ms beside)."""
@@ -4539,6 +4922,14 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md) -> dict:
                     for flags, r in md["eval"].items()})
         return per
 
+    def speech(kernel):
+        """The kernel's launches in the speech phase's two CLI runs."""
+        out = {}
+        if kernel in ("K1", "K6", "K7"):
+            out["speech_eval_launches"] = sph["eval"]["launches"][kernel]
+        out["speech_finetune_launches"] = sph["finetune"]["launches"][kernel]
+        return out
+
     fa_py = "neuspeech1_tpu/ops/flash_attention.py"
     k5_bwd = {"ms": k5["bwd_ms"], "plain_ms": k5["bwd_plain_ms"],
               "bound_ms": k5["bwd_bound_ms"], "bound_by": k5["bwd_bound_by"],
@@ -4573,11 +4964,12 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md) -> dict:
          "eval_launches": ev["launches"]["K1"],
          "finetune_launches": ft["launches"]["K1"],
          "modes_launches_per_request": modes("K1"),
+         **speech("K1"),
          "max_abs_err": k1["o_max_abs_err"], **timing(k1)},
         {"name": "flash_bwd_btc (K2)", "route": "cuda",
          "source": src + "flash_bwd_btc.cu", "replaces": fa_py + ":599",
          "launches": launches["K2"],
-         "finetune_launches": ft["launches"]["K2"],
+         "finetune_launches": ft["launches"]["K2"], **speech("K2"),
          "max_abs_err": k2["max_abs_err"], **timing(k2)},
         # K5: the same two kernels on [B, H, T, D] strides. No path of the
         # port calls that entry; its launches are those of its own run in
@@ -4594,7 +4986,7 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md) -> dict:
          "source": src + "lora_bwd.cu",
          "replaces": "neuspeech1_tpu/ops/lora_bwd.py:47",
          "launches": launches["K3"],
-         "finetune_launches": ft["launches"]["K3"],
+         "finetune_launches": ft["launches"]["K3"], **speech("K3"),
          "max_abs_err": k3["max_abs_err"], **timing(k3), **device(k3)},
         {"name": "flash_fwd_btc_bias (K4 forward)", "route": "cuda",
          "source": src + "flash_fwd_btc.cu", "replaces": fa_py + ":742",
@@ -4612,7 +5004,7 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md) -> dict:
          "greedy_launches": sl["launches"]["K6"],
          "eval_launches": ev["launches"]["K6"],
          "finetune_launches": ft["launches"]["K6"],
-         "modes_launches_per_request": modes("K6"),
+         "modes_launches_per_request": modes("K6"), **speech("K6"),
          "max_abs_err": k6["max_abs_err"], **timing(k6),
          **device(k6)},
         # the [B, T, H*D] cache entry: no serving path holds that layout,
@@ -4629,7 +5021,7 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md) -> dict:
          "greedy_launches": sl["launches"]["K7"],
          "eval_launches": ev["launches"]["K7"],
          "finetune_launches": ft["launches"]["K7"],
-         "modes_launches_per_request": modes("K7"),
+         "modes_launches_per_request": modes("K7"), **speech("K7"),
          "max_abs_err": k7["max_abs_err"], **timing(k7), **device(k7)},
         {"name": "decode_step_multi (K8)", "route": "cuda",
          "source": src + "decode_step_multi.cu",
@@ -4671,10 +5063,11 @@ def main(argv) -> int:
     tr = phase_train()
     phase_options(tr)
     ft = phase_finetune(tr, bm)
+    sph = phase_speech()
     rg = phase_ring(tr)
     pr = phase_probes()
     phase_bench()
-    emit(summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md))
+    emit(summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph))
     print(card(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,10 @@ cached decoder through the decode kernels in ``csrc/decode_cross.cu``,
 backward kernels). Evaluation: ``cli.evaluation`` (manifest ->
 ``data.dataset``/``collate``/``loader`` -> ``decode.generate`` with the
 sequence bias of ``decode.sequence_bias`` -> ``metrics.battery`` -> result
-files). The package imports ``torch`` and never ``jax``, and nothing of
+files); ``cli.evaluation_speech`` does the same on the manifests' wavs
+(``data.dataset.SpeechDataset``, the log-mel of ``ops.audio``). Data
+preparation on the host: ``cli.prepare_data`` (``data.preprocess``) and
+``cli.manifest_tools``. The package imports ``torch`` and never ``jax``, and nothing of
 the JAX package ``neuspeech1_tpu``: it keeps its own copies of the modules
 it needs (``config``, ``utils.{tokenizer,args,text,zh_t2s}``,
 ``models.convert.load_npz``, ``models.quantize.quantize_int8``, ``data``,

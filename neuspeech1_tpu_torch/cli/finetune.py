@@ -17,9 +17,13 @@ Differences from the JAX CLI:
 - ``--device`` (default ``cuda``) picks the card or, when asked, the CPU;
   with ``cuda`` and no CUDA it raises, and it never falls back.
 - Refused before any model loads, each naming its ROADMAP.md item:
-  ``--modal=speech`` (queue 1 item 7), ``--coordinator`` and
-  ``--mesh_{data,fsdp,tensor}`` above 1 (item 8); ``--mesh_data=-1`` means
-  the one device.
+  ``--coordinator`` and ``--mesh_{data,fsdp,tensor}`` above 1 (queue 1
+  item 8); ``--mesh_data=-1`` means the one device.
+- ``--modal=speech`` trains the ``speech`` stem (in place of
+  ``--stem_kind``) on ``SpeechDataset``'s log-mel features [80, 3000],
+  computed per item on the host; as in the JAX CLI the native loader and
+  the device caches are off, and of ``--augment_config_path`` only the
+  train step's part (noise, mask, taylor) applies.
 - ``--augment_config_path`` is split as in the JAX CLI: ``shift`` goes to
   the train dataset (per item on the host; with its probability above 0
   the device caches are off, and with any augment config the native
@@ -166,8 +170,6 @@ def build_parser() -> argparse.ArgumentParser:
 def refuse_unported(args) -> None:
     """Raise for a flag value the port does not have, before any model
     loads."""
-    if args.modal == "speech":
-        raise NotImplementedError(f"--modal=speech {_REFUSED} 7")
     if args.coordinator:
         raise NotImplementedError(
             f"--coordinator (multi-host training) {_REFUSED} 8")
@@ -226,7 +228,7 @@ def main(argv=None):
     from neuspeech1_tpu_torch.cli import common
     from neuspeech1_tpu_torch.config import StemConfig
     from neuspeech1_tpu_torch.data.collate import Collator
-    from neuspeech1_tpu_torch.data.dataset import EEGDataset
+    from neuspeech1_tpu_torch.data.dataset import EEGDataset, SpeechDataset
     from neuspeech1_tpu_torch.data.loader import DataLoader
     from neuspeech1_tpu_torch.models.convert import module_from_params
     from neuspeech1_tpu_torch.models.init import init_stem
@@ -237,7 +239,10 @@ def main(argv=None):
     from neuspeech1_tpu_torch.train.trainer import Trainer
 
     config = common.parse_config_overrides(args)
-    stem = StemConfig(args.stem_kind, in_channels=args.eeg_ch)
+    if args.modal == "speech":
+        stem = StemConfig("speech")
+    else:
+        stem = StemConfig(args.stem_kind, in_channels=args.eeg_ch)
     tokenizer = common.resolve_tokenizer(args.tokenizer, config)
     config = tokenizer.config
     if args.int8_matmul not in ("off", "fwd", "full"):
@@ -248,6 +253,11 @@ def main(argv=None):
 
     # ---- datasets ---------------------------------------------------
     def make_ds(path, mode):
+        if args.modal == "speech":
+            # no per-item augmentation: the shift realigns EEG transcripts
+            return SpeechDataset(path, tokenizer, language=args.language,
+                                 task=args.task,
+                                 n_mels=config.num_mel_bins, mode=mode)
         return EEGDataset(
             path, tokenizer, mode=mode, modal_ch=args.eeg_ch,
             channel_slice=args.channel_slice, language=args.language,
@@ -272,7 +282,7 @@ def main(argv=None):
         eot_id=config.eot_id)
 
     def use_native(ds) -> bool:
-        if args.native_loader == "off":
+        if args.native_loader == "off" or args.modal == "speech":
             return False
         if not ds.supports_native_signals():
             if args.native_loader == "on":
@@ -293,8 +303,9 @@ def main(argv=None):
 
     # ---- remat: the fast no-remat step iff params + optimizer + cached
     # corpus + saved activations fit the device (train/memory.py) ----
-    eligible = (not shift_on and not args.combine_sentences
-                and not args.split_sentences)
+    # the device caches hold EEG clips only
+    eligible = (args.modal == "eeg" and not shift_on
+                and not args.combine_sentences and not args.split_sentences)
     cache_eligible = args.device_cache != "off" and eligible
     would_cache = cache_eligible and (
         corpus_bytes(train_ds) <= args.device_cache_budget_mb * 2**20)
@@ -313,7 +324,7 @@ def main(argv=None):
     use_cache = False
     use_rotating = False
     budget_mb = args.device_cache_budget_mb
-    if args.device_cache != "off":
+    if args.modal == "eeg" and args.device_cache != "off":
         if not remat and budget_mb > 1536:
             # without remat the saved activations claim most of the
             # device's memory: cap the AUTO cache budget

@@ -1,5 +1,6 @@
-"""Manifest-backed dataset for the eeg modality: the port's copy of
-``EEGDataset`` from ``neuspeech1_tpu/data/dataset.py``.
+"""Manifest-backed datasets: the port's copy of ``EEGDataset`` (the eeg
+modality) and ``SpeechDataset`` (the speech modality) from
+``neuspeech1_tpu/data/dataset.py``.
 
 Capability parity with reference `utils/reader.py`: `EEGDataset` ≙
 `CustomDataset` (`utils/reader.py:128-661`). Pure numpy on the host;
@@ -12,7 +13,8 @@ Train-time augmentation (``augment_config``) runs per item on the host,
 as in the JAX package: the time shift with the transcript realigned, then
 ``ops/augment.py::augment_sample`` (noise, mask, taylor), drawn from the
 dataset's ``np.random.Generator``, so the arrays equal the JAX package's
-for the same seed. ``SpeechDataset`` waits for the speech modality (ROADMAP.md queue 1 item 7).
+for the same seed. ``SpeechDataset`` computes the numpy log-mel of each
+wav on the host (``ops/audio.py``), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -271,3 +273,47 @@ class EEGDataset:
                 text, language=language, task=self.task)
         c = self.tokenizer.config
         return [c.sot_id, c.nocaptions_id, c.eot_id]
+
+
+class SpeechDataset:
+    """Audio-modality dataset: wav -> log-mel [80, 3000] + labels.
+
+    Parity with reference `utils/reader.py:54-124` (used by
+    `evaluation_speech.py` as the pipeline sanity check).
+    """
+
+    def __init__(
+        self,
+        data_list_path: str,
+        tokenizer: Tokenizer,
+        language: Optional[str] = None,
+        task: str = "transcribe",
+        n_mels: int = 80,
+        mode: str = "test",
+    ):
+        self.rows = mf.read_jsonlines(data_list_path)
+        self.tokenizer = tokenizer
+        self.language = language
+        self.task = task
+        self.n_mels = n_mels
+        self.mode = mode
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, idx: int) -> dict:
+        from neuspeech1_tpu_torch.data.synthetic import read_wav
+        from neuspeech1_tpu_torch.ops.audio import log_mel_spectrogram
+
+        row = self.rows[idx]
+        audio, sr = read_wav(row["speech"]["path"])
+        if sr != row["speech"].get("sr", sr):
+            sr = row["speech"]["sr"]
+        feats = log_mel_spectrogram(audio, n_mels=self.n_mels)
+        language = row.get("language") or self.language
+        labels = self.tokenizer.build_labels(
+            row.get("sentence", ""), language=language, task=self.task)
+        return {"input_features": feats, "labels": labels}
+
+    def text(self, idx: int) -> str:
+        return self.rows[idx].get("sentence", "")

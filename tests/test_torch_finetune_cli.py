@@ -212,7 +212,6 @@ def test_resume_from_checkpoint(runs, tmp_path, resume, first, capsys):
 
 
 REFUSED = {
-    "speech": ["--modal=speech"],
     "coordinator": ["--coordinator=localhost:1234"],
     "mesh_data": ["--mesh_data=2"],
     "mesh_fsdp": ["--mesh_fsdp=2"],
