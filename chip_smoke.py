@@ -510,6 +510,21 @@ INT8_GRAD_REL_TOL = 0.2
 INT8_LOSS_REL_TOL = 1e-2
 # the fine-tune CLI with augmentation and int8: steps per run
 OPT_CLI_STEPS = 3
+# parallel: the train phase's step with the data axis on DP_N LocalRing
+# threads of the card (64 / DP_N rows a rank), DP_STEPS steps, its loss
+# within DP_LOSS_RTOL of the one-rank step's (bf16); GPipe on PIPE_N
+# LocalRing threads at PIPE_BATCH rows in PIPE_M microbatches, outputs and
+# input gradients within PIPE_O_TOL (relative) of the plain loop's; remat
+# under SP for REMAT_SP_POLICIES; the fine-tune CLI under a torchrun
+# environment for PAR_CLI_STEPS steps then two more after a resume; and the
+# names the profiler's trace must hold
+DP_N, DP_STEPS, DP_LOSS_RTOL = 2, 2, 2e-2
+PIPE_N, PIPE_M, PIPE_BATCH = 2, 4, 64
+PIPE_O_TOL = 2e-2
+REMAT_SP_POLICIES = (None, "flash_qkv")
+PAR_CLI_STEPS = 4
+PROFILE_NAMES = ("train_step", "flash_fwd_kernel", "flash_bwd_dkdv_kernel",
+                 "lora_bwd_kernel")
 RING_N = 4
 RING_BATCH = 8
 RING_T = 1536
@@ -4868,7 +4883,436 @@ def phase_options(tr, device: str = "cuda") -> dict:
     return out
 
 
-def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph) -> dict:
+# --------------------------------------------------------------------------
+# parallel: data parallelism, GPipe, remat under SP, the CLI under a
+# torchrun environment, the profiler
+# --------------------------------------------------------------------------
+
+def _dp_step(device: str = "cuda") -> dict:
+    """The train phase's step (whisper-base, batch 64, LoRA 'fc') with the
+    data axis on DP_N LocalRing threads of one card, 64 / DP_N rows a
+    rank, DP_STEPS steps against the one-rank step on the same 64 rows:
+    the losses within DP_LOSS_RTOL, the ranks' parameters bit for bit
+    equal, the updated leaves' relative errors against the one-rank step,
+    K1/K2/K3 launches per rank and step, and each step's ms with both
+    ranks sharing the card (not a speed figure)."""
+    from neuspeech1_tpu_torch.parallel import mesh as pmesh
+    from neuspeech1_tpu_torch.parallel.ring_attention import LocalRing
+
+    config, _, state, frozen, step, batch = _train_setup(TRAIN_BATCH, device)
+    n_layers = config.encoder_layers
+    expect = {"K1": 2 * n_layers, "K2": 2 * n_layers, "K3": 2 * n_layers,
+              "K4": 0, "K4_bwd": 0, "K6": 0, "K7": 0, "K8": 0}
+    one = []
+    for _ in range(DP_STEPS):
+        _reset_counts()
+        one.append(float(step(state, frozen, batch)["loss"]))
+        check(_kernel_counts() == expect, f"one-rank step launches "
+              f"{_kernel_counts()}, expected {expect}")
+    ref = {k: t.detach().clone() for k, t in state.trainable.items()}
+    del state, frozen, step
+    _empty_cache(device)
+
+    def rank(mesh):
+        with pmesh.set_mesh(mesh):
+            _, _, st, fz, stp, full = _train_setup(TRAIN_BATCH, device)
+            shard = pmesh.batch_sharding()
+            rows = {k: shard.shard(v) for k, v in full.items()}
+            ring = mesh["data"]
+            losses, ms = [], []
+            for _ in range(DP_STEPS):
+                ring.barrier()
+                t0 = time.perf_counter()
+                losses.append(float(stp(st, fz, rows)["loss"]))
+                ring.barrier()
+                ms.append(1e3 * (time.perf_counter() - t0))
+            return {"losses": losses, "ms": ms,
+                    "rows": rows["labels"].shape[0],
+                    "trainable": {k: t.detach().clone()
+                                  for k, t in st.trainable.items()}}
+
+    _sync(device)
+    _reset_peak(device)
+    _reset_counts()
+    runs = LocalRing.run_mesh(rank, data=DP_N)
+    counts = _kernel_counts()
+    peak = _peak_gb(device)
+    per_rank = {k: counts[k] // (DP_N * DP_STEPS) for k in ("K1", "K2", "K3")}
+    errs = _leaf_errs(runs[0]["trainable"], ref)
+    out = {"ranks": DP_N, "rows_per_rank": runs[0]["rows"],
+           "batch_size": TRAIN_BATCH, "steps": DP_STEPS,
+           "losses": {"one_rank": one, "dp": runs[0]["losses"]},
+           "loss_rtol": DP_LOSS_RTOL,
+           "updated_leaves_vs_one_rank": errs,
+           "launches_per_rank_per_step": per_rank,
+           "step_ms_both_ranks_one_card": runs[0]["ms"],
+           "peak_mem_gb": peak}
+    emit({"phase": "parallel", "part": "dp_step", **out})
+    for a, b in zip(out["losses"]["dp"], one):
+        check(abs(a - b) <= DP_LOSS_RTOL * abs(b),
+              f"DP loss {a}, one-rank {b}")
+    for r in runs[1:]:
+        check(r["losses"] == runs[0]["losses"], "DP ranks' losses differ")
+        for k, t in runs[0]["trainable"].items():
+            check(torch.equal(r["trainable"][k], t),
+                  f"DP ranks' parameters differ at {k}")
+    check(counts == {k: DP_N * DP_STEPS * v for k, v in expect.items()},
+          f"DP launches {counts}, expected {DP_N * DP_STEPS} x {expect}")
+    return out
+
+
+def _gpipe_stack(part: str, model, gen, device: str) -> dict:
+    """One stack of the model through ``pipeline_fwd``/``pipeline_bwd`` on
+    PIPE_N LocalRing threads (the bodies, called directly: the ranks share
+    one CUDA device's autograd worker) at PIPE_BATCH rows in PIPE_M
+    microbatches, against the plain loop on the same inputs: the output,
+    the input's gradient (and the encoder states' for the decoder) and
+    every stage weight's gradient; K1/K2 launches, ms of each and the peak
+    memory of the pipelined pass."""
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+
+    from neuspeech1_tpu_torch.models import whisper as tw
+    from neuspeech1_tpu_torch.parallel.pipeline import (
+        pipeline_bwd, pipeline_fwd, stage_layers)
+    from neuspeech1_tpu_torch.parallel.ring_attention import LocalRing
+
+    config = model.config
+    d, dt = config.d_model, model.dtype
+    t_src = config.max_source_positions
+    if part == "encoder":
+        body, xs = tw.encoder_stack(model)
+        t, consts = t_src, ()
+        sample = ()
+    else:
+        t = TRAIN_LABEL_LEN
+        body, xs = tw.decoder_stack(model, t)
+        consts = (torch.ones((t, t), dtype=torch.bool,
+                             device=device).tril()[None, None],)
+        # the encoder's states take gradients, as in the model
+        sample = (torch.randn((PIPE_BATCH, t_src, d), generator=gen,
+                              device=device).to(dt).requires_grad_(),)
+    h = torch.randn((PIPE_BATCH, t, d), generator=gen, device=device).to(dt)
+    g = torch.randn((PIPE_BATCH, t, d), generator=gen, device=device).to(dt)
+    params = [p for x in xs for p in x["w"].values()]
+    for p in params:
+        p.grad = None
+
+    _sync(device)
+    t0 = time.perf_counter()
+    h0 = h.detach().clone().requires_grad_()
+    s0 = [c.detach().clone().requires_grad_() for c in sample]
+    y = h0
+    for x in xs:
+        y = body(y, x, *s0, *consts)
+    y.backward(g)
+    _sync(device)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    ref_out, ref_dh = y.detach(), h0.grad
+    ref_ds = [c.grad for c in s0]
+    ref_w = {id(p): p.grad for p in params}
+    for p in params:
+        p.grad = None
+
+    def rank(ring):
+        mine = stage_layers(xs, ring)
+        out, saved = pipeline_fwd(body, mine, h, ring, PIPE_M, consts,
+                                  sample)
+        dh, ds, dleaves = pipeline_bwd(saved, g)
+        flat, spec = tree_flatten(mine)
+        grads = {id(p): dg for p, dg in zip(flat, dleaves)
+                 if isinstance(p, torch.Tensor) and p.requires_grad}
+        return out, dh, ds, grads
+
+    del y, h0, s0
+    _empty_cache(device)
+    # a first pass warms the threads' libraries; the second is timed and
+    # counted
+    LocalRing.run(rank, PIPE_N)
+    _sync(device)
+    _reset_peak(device)
+    _reset_counts()
+    t0 = time.perf_counter()
+    runs = LocalRing.run(rank, PIPE_N)
+    _sync(device)
+    pipe_ms = 1e3 * (time.perf_counter() - t0)
+    counts = _kernel_counts()
+    grads = {}
+    for r in runs:
+        grads.update(r[3])
+    check(set(grads) == set(ref_w), f"GPipe {part}: stage gradients "
+          f"cover {len(grads)} of {len(ref_w)} weights")
+    w_err = max(_rel_err(grads[k], ref_w[k]) for k in ref_w)
+    out = {"stack": part, "stages": PIPE_N, "microbatches": PIPE_M,
+           "batch_size": PIPE_BATCH, "layers": len(xs),
+           "out_rel_err": max(_rel_err(r[0], ref_out) for r in runs),
+           "dh_rel_err": max(_rel_err(r[1], ref_dh) for r in runs),
+           "weight_grad_rel_err_max": w_err,
+           "launches": {k: counts[k] for k in ("K1", "K2", "K3")},
+           "plain_ms": plain_ms, "pipeline_ms_both_stages_one_card": pipe_ms,
+           "peak_mem_gb": _peak_gb(device)}
+    if sample:
+        out["d_enc_out_rel_err"] = max(_rel_err(r[2][0], ref_ds[0])
+                                       for r in runs)
+    emit({"phase": "parallel", "part": "gpipe", **out})
+    flags = tw.decoder_flags(model, t)
+    blocks = 1 if part == "encoder" else (int(flags["flash_self"])
+                                          + int(flags["flash_cross"]))
+    want = len(xs) * PIPE_M * blocks
+    check(counts["K1"] == counts["K2"] == want and counts["K3"] == 0,
+          f"GPipe {part}: launches {counts}, expected K1 = K2 = {want}")
+    for key in ("out_rel_err", "dh_rel_err", "d_enc_out_rel_err"):
+        if key in out:
+            check(out[key] <= PIPE_O_TOL, f"GPipe {part}: {key} "
+                  f"{out[key]} > {PIPE_O_TOL}")
+    check(w_err <= GRAD_REL_TOL, f"GPipe {part}: stage weight gradients "
+          f"{w_err} off the plain loop's")
+    return out
+
+
+def _gpipe(device: str = "cuda") -> list:
+    """GPipe on the encoder stack (whisper-base's 6 layers, 3 a stage) and
+    the decoder's teacher-forcing stack, with each layer's weights taking
+    gradients."""
+    config, _, state, frozen, _, _ = _train_setup(1, device)
+    model = frozen.model
+    model.requires_grad_(False)
+    for layers in (model.encoder.layers, model.decoder.layers):
+        layers.requires_grad_(True)
+    gen = torch.Generator(device=device).manual_seed(11)
+    out = [_gpipe_stack(part, model, gen, device)
+           for part in ("encoder", "decoder")]
+    del state, frozen, model
+    _empty_cache(device)
+    return out
+
+
+def _remat_sp(device: str = "cuda") -> dict:
+    """The SP step (``seq_parallel_axis`` over a one-rank NCCL group) with
+    each encoder layer under remat, policies REMAT_SP_POLICIES, beside the
+    step without: one step's loss and gradients against no remat's at one
+    state (every LoRA B refilled at a trained magnitude, as the ring
+    phase's check: with B at 0 the A gradients are 0), K4's launches in it
+    (the ring's forward runs again in the backward under both policies:
+    nothing of it is kept), then ms per step and peak memory of each."""
+    from neuspeech1_tpu_torch.models.lora import entries
+    from neuspeech1_tpu_torch.train.trainstep import make_loss_fn
+
+    out = {}
+    with _one_rank_mesh():
+        config, _, state, frozen, step, batch = _train_setup(
+            TRAIN_BATCH, device, seq_parallel_axis="seq")
+        stem = frozen.model.stem_config
+        n_layers = config.encoder_layers
+        gen = torch.Generator().manual_seed(3)
+        with torch.no_grad():
+            for _, e in entries(frozen.lora):
+                e["B"].copy_(TRAINED_B_STD * torch.randn(e["B"].shape,
+                                                         generator=gen))
+        loss_fn = make_loss_fn(config, stem, fold_lora=True)
+        settings = [("none", {})] + [
+            (p or "full", {"remat": True, "remat_policy": p})
+            for p in REMAT_SP_POLICIES]
+        ref = None
+        for name, changes in settings:
+            with _replaced_config(frozen.model, **changes):
+                _reset_counts()
+                loss, grads = _grads(loss_fn, state, frozen, batch)
+                counts = _kernel_counts()
+            rec = {"loss": loss, "K4": counts["K4"],
+                   "K4_bwd": counts["K4_bwd"]}
+            want_k4 = n_layers * (1 if name == "none" else 2)
+            check(counts["K4"] == want_k4 and counts["K4_bwd"] == n_layers,
+                  f"remat under SP {name}: K4 {counts['K4']} / "
+                  f"{counts['K4_bwd']}, expected {want_k4} / {n_layers}")
+            if ref is None:
+                ref = (loss, grads)
+            else:
+                errs = _leaf_errs(grads, ref[1])
+                rec.update(grad_rel_err=errs["max"], leaf=errs["leaf"],
+                           bit_equal=all(torch.equal(grads[k], ref[1][k])
+                                         for k in ref[1]))
+                check(errs["max"] <= GRAD_REL_TOL,
+                      f"remat under SP {name}: grads off no remat's: "
+                      f"{errs['leaf']} {errs['max']}")
+                check(abs(loss - ref[0]) <= LOSS_TOL * abs(ref[0]),
+                      f"remat under SP {name}: loss {loss}, no remat "
+                      f"{ref[0]}")
+            out[name] = rec
+        for name, changes in settings:
+            with _replaced_config(frozen.model, **changes):
+                timed = _timed_steps(step, state, frozen, batch)
+            out[name].update({k: timed[k] for k in (
+                "step_ms", "step_ms_all", "peak_mem_gb")})
+            emit({"phase": "parallel", "part": "remat_sp", "policy": name,
+                  **out[name]})
+        del state, frozen, step
+    _empty_cache(device)
+    return out
+
+
+def _torchrun_cli(tmp: str, device: str = "cuda") -> dict:
+    """The fine-tune CLI with --mesh_data=-1 started as torchrun starts a
+    one-process world (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and
+    MASTER_PORT in the environment): PAR_CLI_STEPS steps with a save every
+    two, then a resume to two more; the process group it starts (NCCL on
+    the card, world size 1) and that it ends it."""
+    import socket
+
+    import torch.distributed as dist
+
+    from neuspeech1_tpu_torch.parallel import mesh as pmesh
+
+    corpus, tokenizer = _finetune_corpus(tmp, 50257)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    saved_env = {k: os.environ.get(k) for k in env}
+    groups = []
+    init = pmesh.initialize_distributed
+
+    def recorded(backend="nccl", *a, **k):
+        up = init(backend, *a, **k)
+        groups.append({"backend": backend, "up": up,
+                       "world_size": dist.get_world_size() if up else None})
+        return up
+
+    out_dir = os.path.join(tmp, "cli_torchrun")
+    argv = [f"--train_data={corpus}/train.jsonl", "--base_model=random",
+            f"--tokenizer={tokenizer}", "--eeg_ch=208",
+            f"--per_device_train_batch_size={FT_BATCH}",
+            f"--label_max_length={FT_LABEL_LEN}", "--warmup_steps=1",
+            "--logging_steps=1", "--save_steps=2", "--eval_steps=1000",
+            "--eval_wer=False", "--remat=False", "--mesh_data=-1",
+            f"--output_dir={out_dir}", f"--device={device}"]
+    os.environ.update(env)
+    pmesh.initialize_distributed = recorded
+    try:
+        first = _run_finetune(argv + [f"--max_steps={PAR_CLI_STEPS}"])
+        resumed = _run_finetune(argv + [f"--max_steps={PAR_CLI_STEPS + 2}",
+                                        "--resume_from_checkpoint=latest"])
+    finally:
+        pmesh.initialize_distributed = init
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    losses = [r["loss"] for r in first["records"] if "loss" in r]
+    after = [r for r in resumed["records"] if "loss" in r]
+    out = {"env": sorted(env), "groups": groups,
+           "group_ended": not dist.is_initialized(),
+           "losses": losses, "resumed_steps": [r["step"] for r in after],
+           "resumed_lines": resumed["lines"],
+           "restored_step": (resumed["restored"] or {}).get("step"),
+           "checkpoints": sorted(os.listdir(os.path.join(out_dir,
+                                                         "checkpoints"))),
+           "step_ms": [s["ms"] for s in first["steps"]],
+           "launches": first["steps"][-1]["launches"],
+           "wall_s": [first["wall_s"], resumed["wall_s"]],
+           "peak_mem_gb": first["peak_mem_gb"]}
+    emit({"phase": "parallel", "part": "torchrun_cli", **out})
+    backend = "nccl" if device == "cuda" else "gloo"
+    check(len(groups) == 2 and all(
+        g["up"] and g["backend"] == backend and g["world_size"] == 1
+        for g in groups), f"CLI process groups {groups}")
+    check(out["group_ended"], "the CLI left its process group up")
+    check(len(losses) == PAR_CLI_STEPS
+          and all(math.isfinite(x) for x in losses), f"CLI losses {losses}")
+    check(out["restored_step"] == PAR_CLI_STEPS
+          and out["resumed_steps"][-2:] == [PAR_CLI_STEPS + 1,
+                                            PAR_CLI_STEPS + 2]
+          and os.path.exists(os.path.join(out_dir, "adapter_final.npz")),
+          f"CLI resume: restored {out['restored_step']}, steps "
+          f"{out['resumed_steps']}")
+    return out
+
+
+def _profiled_steps(tmp: str, device: str = "cuda") -> dict:
+    """``train/profiling.py``'s Profiler around two of three train steps
+    (annotated 'train_step', timed by StepTimer): the chrome trace it
+    writes holds both annotations and the names of K1's, K2's and K3's
+    kernels."""
+    from neuspeech1_tpu_torch.train.profiling import (Profiler, StepTimer,
+                                                      annotate)
+
+    _, _, state, frozen, step, batch = _train_setup(TRAIN_BATCH, device)
+    prof = Profiler(os.path.join(tmp, "profile"), start_step=0, num_steps=1)
+    timer = StepTimer()
+    for i in range(3):
+        prof.maybe_start(i)
+        with timer.measure():
+            with annotate("train_step"):
+                m = step(state, frozen, batch)
+            timer.block(m)
+        prof.maybe_stop(i)
+    prof.close()
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    # the host's annotation events (the card's copies have their own
+    # category), and the kernels by name
+    found = {"train_step": sum(e.get("cat") == "user_annotation"
+                               and e.get("name") == "train_step"
+                               for e in events)}
+    found.update({k: sum(e.get("cat") == "kernel" and k in e.get("name", "")
+                         for e in events) for k in PROFILE_NAMES[1:]})
+    out = {"trace_bytes": os.path.getsize(prof.trace_path),
+           "events": len(events), "found": found,
+           "step_ms": [1e3 * t for t in timer.times],
+           "mean_ms": timer.mean_ms}
+    emit({"phase": "parallel", "part": "profiler", **out})
+    check(found["train_step"] == 2, f"profiler: {found['train_step']} "
+          "train_step annotations in the trace, expected 2")
+    check(all(found[k] > 0 for k in PROFILE_NAMES),
+          f"profiler: the trace misses a kernel: {found}")
+    del state, frozen, step
+    _empty_cache(device)
+    return out
+
+
+def _sync(device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _reset_peak(device):
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gb(device):
+    return (torch.cuda.max_memory_allocated() / 2**30 if device == "cuda"
+            else None)
+
+
+def _empty_cache(device):
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_parallel(device: str = "cuda") -> dict:
+    """Multi-device training at whisper-base width on one card: the data
+    parallel step on LocalRing threads against the one-rank step, GPipe on
+    both stacks against the plain loops, remat under sequence parallelism
+    against no remat, the fine-tune CLI under a torchrun environment
+    (train, save, resume) and the profiler's trace."""
+    dp = _dp_step(device)
+    gp = _gpipe(device)
+    rs = _remat_sp(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = _torchrun_cli(tmp, device)
+        pf = _profiled_steps(tmp, device)
+    check(_jax_free(), "jax or the JAX package was imported")
+    out = {"phase": "parallel", "dp_step": dp, "gpipe": gp, "remat_sp": rs,
+           "cli": cli, "profiler": pf, "jax_imported": not _jax_free(),
+           "card": card() if device == "cuda" else None}
+    emit({"phase": "parallel", "card": out["card"],
+          "jax_imported": out["jax_imported"]})
+    return out
+
+
+def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl) -> dict:
     """One entry per kernel: launches on its path (training for K1, K2, K3;
     the sequence-parallel training step for K4; beam serving for K6, K7;
     speculative serving with the self-prefix drafter for K8; the perf
@@ -4879,8 +5323,9 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph) -> dict:
     K7 the launches per request of each mode of the modes phase
     (``modes_launches_per_request``), and the speech phase's eval CLI run
     (K1, K6, K7: ``speech_eval_launches``) and fine-tune CLI run (K1, K2,
-    K3, K6, K7: ``speech_finetune_launches``)), the error and the times of
-    its case
+    K3, K6, K7: ``speech_finetune_launches``), and the parallel phase's
+    runs (K1, K2, K3, K4: ``parallel_launches``)), the error and the times
+    of its case
     at that path's shape, its
     bound and the library call's time (for a probe kernel, of one variant
     named in ``case``, with every variant's ms beside)."""
@@ -4930,6 +5375,21 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph) -> dict:
         out["speech_finetune_launches"] = sph["finetune"]["launches"][kernel]
         return out
 
+    def parallel(kernel):
+        """The kernel's launches in the parallel phase: per rank and step
+        of the data-parallel step, in each GPipe stack (both stages), and
+        per step of the SP step without and with remat."""
+        out = {}
+        if kernel in ("K1", "K2", "K3"):
+            out["dp_per_rank_per_step"] = \
+                pl["dp_step"]["launches_per_rank_per_step"][kernel]
+            out.update({f"gpipe_{g['stack']}": g["launches"][kernel]
+                        for g in pl["gpipe"]})
+        if kernel in ("K4", "K4_bwd"):
+            out["remat_sp_per_step"] = {name: r[kernel] for name, r in
+                                        pl["remat_sp"].items()}
+        return {"parallel_launches": out}
+
     fa_py = "neuspeech1_tpu/ops/flash_attention.py"
     k5_bwd = {"ms": k5["bwd_ms"], "plain_ms": k5["bwd_plain_ms"],
               "bound_ms": k5["bwd_bound_ms"], "bound_by": k5["bwd_bound_by"],
@@ -4964,12 +5424,13 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph) -> dict:
          "eval_launches": ev["launches"]["K1"],
          "finetune_launches": ft["launches"]["K1"],
          "modes_launches_per_request": modes("K1"),
-         **speech("K1"),
+         **speech("K1"), **parallel("K1"),
          "max_abs_err": k1["o_max_abs_err"], **timing(k1)},
         {"name": "flash_bwd_btc (K2)", "route": "cuda",
          "source": src + "flash_bwd_btc.cu", "replaces": fa_py + ":599",
          "launches": launches["K2"],
          "finetune_launches": ft["launches"]["K2"], **speech("K2"),
+         **parallel("K2"),
          "max_abs_err": k2["max_abs_err"], **timing(k2)},
         # K5: the same two kernels on [B, H, T, D] strides. No path of the
         # port calls that entry; its launches are those of its own run in
@@ -4987,16 +5448,19 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph) -> dict:
          "replaces": "neuspeech1_tpu/ops/lora_bwd.py:47",
          "launches": launches["K3"],
          "finetune_launches": ft["launches"]["K3"], **speech("K3"),
+         **parallel("K3"),
          "max_abs_err": k3["max_abs_err"], **timing(k3), **device(k3)},
         {"name": "flash_fwd_btc_bias (K4 forward)", "route": "cuda",
          "source": src + "flash_fwd_btc.cu", "replaces": fa_py + ":742",
          "launches": sp_launches["K4"],
          "local_ring_launches": [r["K4"] for r in ring_launches],
+         **parallel("K4"),
          "max_abs_err": k4["o_max_abs_err"], **timing(k4)},
         {"name": "flash_bwd_btc_bias (K4 backward)", "route": "cuda",
          "source": src + "flash_bwd_btc.cu", "replaces": fa_py + ":786",
          "launches": sp_launches["K4_bwd"],
          "local_ring_launches": [r["K4_bwd"] for r in ring_launches],
+         **parallel("K4_bwd"),
          "max_abs_err": k4_bwd["max_abs_err"], **timing(k4_bwd)},
         {"name": "decode_cross (K6, [B,H,T,D] cache)", "route": "cuda",
          "source": src + "decode_cross.cu", "replaces": fa_py + ":869",
@@ -5067,7 +5531,8 @@ def main(argv) -> int:
     rg = phase_ring(tr)
     pr = phase_probes()
     phase_bench()
-    emit(summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph))
+    pl = phase_parallel()
+    emit(summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl))
     print(card(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

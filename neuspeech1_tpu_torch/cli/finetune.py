@@ -16,9 +16,19 @@ read it) and, with ``--export_full_model``, ``full_model/``.
 Differences from the JAX CLI:
 - ``--device`` (default ``cuda``) picks the card or, when asked, the CPU;
   with ``cuda`` and no CUDA it raises, and it never falls back.
-- Refused before any model loads, each naming its ROADMAP.md item:
-  ``--coordinator`` and ``--mesh_{data,fsdp,tensor}`` above 1 (queue 1
-  item 8); ``--mesh_data=-1`` means the one device.
+- Data parallelism runs one process per rank, as torchrun starts them
+  (``torchrun --nproc_per_node=N -m neuspeech1_tpu_torch.cli.finetune
+  ...``: rank, world size and ``MASTER_ADDR``/``MASTER_PORT`` in the
+  environment), or from ``--coordinator=host:port`` with ``RANK`` and
+  ``WORLD_SIZE`` in the environment: NCCL on ``cuda:<LOCAL_RANK>``, gloo
+  with ``--device=cpu``. ``--mesh_data`` is the data axis (-1: the world
+  size over fsdp x tensor). As in the JAX CLI ``--per_device_train_batch_size``
+  is the global batch: each process takes its strided rows of every batch
+  (``data/loader.py``), and the device caches are off when the world is
+  larger than one. Data rank 0 alone writes the logs, checkpoints and
+  adapter.
+- Refused before any model loads, naming its ROADMAP.md item:
+  ``--mesh_fsdp`` and ``--mesh_tensor`` above 1 (queue 1 item 10).
 - ``--modal=speech`` trains the ``speech`` stem (in place of
   ``--stem_kind``) on ``SpeechDataset``'s log-mel features [80, 3000],
   computed per item on the host; as in the JAX CLI the native loader and
@@ -158,7 +168,8 @@ def build_parser() -> argparse.ArgumentParser:
     add_arg("label_max_length", int, 128, "static label pad length")
     # mesh
     add_arg("coordinator", str, None,
-            "multi-host coordinator address host:port (refused)")
+            "coordinator address host:port of a multi-process run (rank "
+            "and world size from RANK and WORLD_SIZE)")
     add_arg("mesh_data", int, -1, "data-parallel mesh axis (-1 = all)")
     add_arg("mesh_fsdp", int, 1, "fsdp mesh axis")
     add_arg("mesh_tensor", int, 1, "tensor-parallel mesh axis")
@@ -170,14 +181,11 @@ def build_parser() -> argparse.ArgumentParser:
 def refuse_unported(args) -> None:
     """Raise for a flag value the port does not have, before any model
     loads."""
-    if args.coordinator:
-        raise NotImplementedError(
-            f"--coordinator (multi-host training) {_REFUSED} 8")
-    for axis in ("mesh_data", "mesh_fsdp", "mesh_tensor"):
+    for axis in ("mesh_fsdp", "mesh_tensor"):
         if getattr(args, axis) > 1:
             raise NotImplementedError(
-                f"--{axis}={getattr(args, axis)} (a multi-device mesh) "
-                f"{_REFUSED} 8")
+                f"--{axis}={getattr(args, axis)} (FSDP and tensor "
+                f"parallelism) {_REFUSED} 10")
 
 
 def parse_resume(resume):
@@ -218,12 +226,42 @@ def main(argv=None):
     refuse_unported(args)
 
     import torch
+    import torch.distributed as dist
+
+    from neuspeech1_tpu_torch.parallel import mesh as pmesh
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"--device={args.device}: CUDA is not available; pass "
             "--device=cpu to train on the CPU")
+    started = not dist.is_initialized() and pmesh.initialize_distributed(
+        "nccl" if device.type == "cuda" else "gloo",
+        coordinator=args.coordinator)
+    try:
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        axes = pmesh.resolve_axes(world, data=args.mesh_data,
+                                  fsdp=args.mesh_fsdp,
+                                  tensor=args.mesh_tensor)
+        mesh = None
+        if dist.is_initialized():
+            if device.type == "cuda" and device.index is None:
+                device = torch.device("cuda", torch.cuda.current_device())
+            mesh = pmesh.make_mesh(device.type, **axes)
+        with pmesh.set_mesh(mesh):
+            return _train(args, device, world)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _train(args, device, world: int):
+    """The run on this process's ``device``, one of ``world`` ranks, under
+    the ambient mesh."""
+    import torch
+    import torch.distributed as dist
+
+    rank = dist.get_rank() if dist.is_initialized() else 0
 
     from neuspeech1_tpu_torch.cli import common
     from neuspeech1_tpu_torch.config import StemConfig
@@ -303,9 +341,10 @@ def main(argv=None):
 
     # ---- remat: the fast no-remat step iff params + optimizer + cached
     # corpus + saved activations fit the device (train/memory.py) ----
-    # the device caches hold EEG clips only
+    # the device caches hold EEG clips only, and one process's whole batch
     eligible = (args.modal == "eeg" and not shift_on
-                and not args.combine_sentences and not args.split_sentences)
+                and not args.combine_sentences and not args.split_sentences
+                and world == 1)
     cache_eligible = args.device_cache != "off" and eligible
     would_cache = cache_eligible and (
         corpus_bytes(train_ds) <= args.device_cache_budget_mb * 2**20)
@@ -371,15 +410,18 @@ def main(argv=None):
             batch_size=args.per_device_train_batch_size, device=device,
             seed=args.seed, shard_repeats=args.device_cache_shard_repeats)
     else:
+        # the global batch, of which this process takes its rows
         train_loader = DataLoader(
             train_ds, collator, args.per_device_train_batch_size,
             shuffle=True, seed=args.seed, num_threads=args.num_workers,
-            prefetch=2, native_signals=use_native(train_ds))
+            prefetch=2, native_signals=use_native(train_ds),
+            process_index=rank, process_count=world)
     val_loader = (
         DataLoader(val_ds, collator, args.per_device_eval_batch_size,
                    shuffle=False, drop_last=False,
                    num_threads=args.num_workers, prefetch=2,
-                   native_signals=use_native(val_ds))
+                   native_signals=use_native(val_ds),
+                   process_index=rank, process_count=world)
         if val_ds else None)
 
     # ---- model + adapters -------------------------------------------
@@ -454,6 +496,16 @@ def main(argv=None):
     state = trainer.train(
         resume_from_checkpoint=parse_resume(args.resume_from_checkpoint))
 
+    if trainer.writer:
+        _save_final(args, common, state, model, lora, config, stem, device)
+    if trainer.data_ring is not None:
+        trainer.data_ring.barrier()
+    trainer.ckpt.close()
+    return state
+
+
+def _save_final(args, common, state, model, lora, config, stem, device):
+    """adapter_final.npz and, with --export_full_model, full_model/."""
     # the final adapter (the PEFT checkpoint's counterpart)
     final = os.path.join(args.output_dir, "adapter_final.npz")
     common.save_adapter(final, common.trainable_tree(state.trainable, model,
@@ -471,8 +523,6 @@ def main(argv=None):
             os.path.join(args.output_dir, "full_model"), merged, config,
             stem)
         print(f"[finetune] merged full model saved to {out}")
-    trainer.ckpt.close()
-    return state
 
 
 if __name__ == "__main__":

@@ -114,12 +114,11 @@ class WhisperConfig:
     # this — it exists for long-context encoder variants at scale.
     seq_parallel_axis: Optional[str] = None
     # Pipeline parallelism (opt-in, beyond the reference): mesh AXIS NAME to
-    # GPipe-shard the encoder layer stack over (parallel/pipeline) — each
-    # device holds encoder_layers/P consecutive layers and microbatches hop
-    # the ring via ppermute. Requires the ambient mesh (set_mesh) and
-    # encoder_layers % P == 0; numerically identical to the plain scan.
-    # Inside the pipeline stages attention runs on the XLA path (a stage is
-    # a manual shard_map body; the flash kernel's GSPMD wrapper stays out).
+    # GPipe-pipeline the encoder layer stack and the decoder's teacher-forcing
+    # stack over (parallel/pipeline): stage s of P runs layers/P consecutive
+    # layers and microbatches hop the ring. Requires the ambient mesh
+    # (set_mesh) and layers % P == 0. The stages run the same attention,
+    # with the same flash gates, as the unpipelined stack.
     pipeline_axis: Optional[str] = None
     # microbatches per pipeline flush; 0 = one per stage (minimum that fills
     # the pipe). Bubble fraction is (P-1)/(M+P-1) — raise M to amortize.

@@ -8,6 +8,15 @@ bounded queue; batches stay numpy, and the caller uploads them (the eval
 CLI's `cli/common.py::upload_features`, pinned and asynchronous on CUDA).
 With ``native_signals`` the signals of a batch come from the C++ clip
 loader (`data/native_loader.py`), whose threads read the files in parallel.
+
+Under data parallelism over several processes ``batch_size`` is the global
+batch: process ``process_index`` of ``process_count`` takes the strided
+rows ``[process_index::process_count]`` of every global batch, so every
+process sees the same batch order and the processes' rows together are
+each global batch once. A process's share of a short last batch
+(``drop_last=False``) may hold no row: it comes as a batch of nothing but
+an empty ``_indices``, so that every process sees the same number of
+batches.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ class DataLoader:
         num_threads: int = 4,
         prefetch: int = 2,
         native_signals: bool = False,
+        process_index: int = 0,
+        process_count: int = 1,
     ):
         self.dataset = dataset
         self.collator = collator
@@ -40,6 +51,8 @@ class DataLoader:
         self.drop_last = drop_last
         self.num_threads = max(1, num_threads)
         self.prefetch = prefetch
+        self.process_index = process_index
+        self.process_count = process_count
         self.epoch = 0
         self._native = None
         if native_signals:
@@ -51,6 +64,8 @@ class DataLoader:
             from neuspeech1_tpu_torch.data.native_loader import NativeClipLoader
 
             self._native = NativeClipLoader(num_threads=self.num_threads)
+        if process_count > 1 and batch_size % process_count != 0:
+            raise ValueError("global batch_size must divide evenly across hosts")
 
     def __len__(self) -> int:
         n = len(self.dataset) // self.batch_size
@@ -72,9 +87,15 @@ class DataLoader:
         ]
         if not self.drop_last and len(idx) % self.batch_size:
             batches.append(idx[nb * self.batch_size :])
+        # this process's shard of each global batch
+        if self.process_count > 1:
+            batches = [b[self.process_index :: self.process_count]
+                       for b in batches]
         return batches
 
     def _load_batch(self, index_list) -> dict:
+        if len(index_list) == 0:
+            return {"_indices": np.asarray(index_list)}
         if self._native is not None:
             ds = self.dataset
             paths = [ds.signal_path(int(i)) for i in index_list]

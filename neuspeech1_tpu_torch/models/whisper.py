@@ -31,7 +31,9 @@ through ``ops.decode_step_multi`` (K8). With ``config.flash_attention ==
 "off"`` all of these run their plain versions. Under a config's
 ``seq_parallel_axis`` the encoder's self-attention is ring attention over
 that axis of the ambient mesh (``parallel/ring_attention.py``, K4 in every
-round). Elsewhere attention is plain
+round); under its ``pipeline_axis`` the encoder's stack and the decoder's
+teacher-forcing stack run GPipe over that axis (``parallel/pipeline.py``).
+Elsewhere attention is plain
 tensor code, as it is XLA in the JAX package (the int8 cross cache
 included), with the same rounding points: scores from a product in the
 compute dtype, softmax in f32, probabilities cast back to the compute dtype
@@ -60,6 +62,7 @@ from neuspeech1_tpu_torch.ops.decode_step import (
     decode_step, decode_step_multi, decode_step_multi_plain, decode_step_plain)
 from neuspeech1_tpu_torch.ops.flash_attention import flash_attention_bthd
 from neuspeech1_tpu_torch.parallel.mesh import axis_ring
+from neuspeech1_tpu_torch.parallel.pipeline import pipeline
 from neuspeech1_tpu_torch.parallel.ring_attention import (
     SHARD_QUANTUM, gather_seq, ring_attention_local, shard_seq)
 
@@ -540,6 +543,10 @@ def resolve_flash(model: Whisper) -> bool:
 #                layer runs without a checkpoint (the JAX package's
 #                ``everything_saveable``, whose backward also reads only
 #                what it saved).
+# On the ring path (``seq_parallel_axis``) K4's forward is no op a policy can
+# keep: the ring's attention runs again in the backward under every policy
+# but 'everything', as in the JAX package, whose ring names no residual.
+# The names and the product ops are kept as on the flash path.
 REMAT_POLICIES = (None, "flash", "flash_qkv", "flash_mlp", "dots", "attn",
                   "everything")
 _QKV = ("flash_q", "flash_k", "flash_v")
@@ -547,17 +554,6 @@ _SAVED_NAMES = {"flash": (), "flash_qkv": _QKV,
                 "flash_mlp": _QKV + ("mlp_h",), "attn": ("attn_out",)}
 _DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
             torch.ops.aten.bmm.default, torch.ops.aten._int_mm.default)
-
-
-def check_remat(config: WhisperConfig) -> None:
-    """Raises for remat under sequence parallelism (not ported). A policy
-    name outside `REMAT_POLICIES` is full recompute, as policy None
-    (`remat_policy`), as the JAX package's ``_remat_policy`` runs it for a
-    name it does not know (such as ``perf/ablate.py``'s 'full')."""
-    if config.remat and config.seq_parallel_axis is not None:
-        raise NotImplementedError(
-            "remat under sequence parallelism is not ported yet; ROADMAP.md "
-            "queue 1 item 8 lists it")
 
 
 def remat_policy(config: WhisperConfig):
@@ -587,27 +583,47 @@ def _policy_fn(policy: str):
     return rule
 
 
-def _remat_layer(layer: nn.Module, h, flash: bool, lora, policy):
-    """``layer(h, flash, lora)`` under a non-reentrant checkpoint. The
-    layer's weights are the checkpoint's inputs, read as the layer holds
-    them now (the training step's merged weights, which it substitutes with
-    ``functional_call``) and substituted again when the backward runs the
-    layer's forward anew, by which time the step's substitution has ended;
-    so are the fold regime (`fold_at_linear`) and the int8 mode, whose
-    contexts have closed by then too."""
+def _layer_weights(layer: nn.Module) -> dict:
+    """The layer's weights by name, as it holds them now: under the
+    training step's ``functional_call`` the merged ones."""
+    return {n: functools.reduce(getattr, n.split("."), layer)
+            for n, _ in layer.named_parameters()}
+
+
+def _run_layer(layer: nn.Module, weights: Optional[dict], args: tuple,
+               kwargs: dict):
+    """``layer(*args, **kwargs)``, on ``weights`` in place of its own when
+    given (a pipeline stage's detached leaves)."""
+    if weights is None:
+        return layer(*args, **kwargs)
+    return torch.func.functional_call(layer, weights, args, kwargs)
+
+
+def _remat_layer(layer: nn.Module, h, flash: bool, lora, policy,
+                 weights: Optional[dict] = None, **kwargs):
+    """``layer(h, flash, lora, **kwargs)`` under a non-reentrant
+    checkpoint. The layer's weights (``weights``, else as the layer holds
+    them now: the training step's merged weights, which it substitutes with
+    ``functional_call``) are the checkpoint's inputs, substituted again
+    when the backward runs the layer's forward anew, by which time the
+    step's substitution has ended; so are the fold regime
+    (`fold_at_linear`) and the int8 mode, whose contexts have closed by
+    then too. Under sequence parallelism ``kwargs`` carry the ring and
+    ``kv_valid_len``: the recompute runs the ring's forward again inside
+    the backward, so on CUDA the ring must be a ``DistRing``."""
     if policy == "everything":
-        return layer(h, flash, lora)
-    names = [n for n, _ in layer.named_parameters()]
-    weights = [functools.reduce(getattr, n.split("."), layer) for n in names]
+        return _run_layer(layer, weights, (h, flash, lora), kwargs)
+    weights = _layer_weights(layer) if weights is None else weights
+    names = list(weights)
     fold = _FOLD_AT_LINEAR.get()
     i8 = int8_matmul.mode()
 
-    def run(h, *weights):
+    def run(h, *values):
         token = _FOLD_AT_LINEAR.set(fold)
         try:
             with int8_matmul.int8_mode(i8):
                 return torch.func.functional_call(
-                    layer, dict(zip(names, weights)), (h, flash, lora))
+                    layer, dict(zip(names, values)), (h, flash, lora), kwargs)
         finally:
             _FOLD_AT_LINEAR.reset(token)
 
@@ -615,7 +631,57 @@ def _remat_layer(layer: nn.Module, h, flash: bool, lora, policy):
     if policy is not None:
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _policy_fn(policy))
-    return checkpoint(run, h, *weights, use_reentrant=False, **kw)
+    return checkpoint(run, h, *weights.values(), use_reentrant=False, **kw)
+
+
+def _stack_xs(layers, lora_layers) -> list:
+    """One pytree per layer for `parallel/pipeline.py`: its index, its
+    weights by name and its adapters."""
+    return [{"i": i, "w": _layer_weights(layer),
+             "lora": None if lora_layers is None else lora_layers[i]}
+            for i, layer in enumerate(layers)]
+
+
+def encoder_stack(model: Whisper, lora=None):
+    """(body, xs): the encoder's layer stack as `parallel/pipeline.py`
+    takes it. ``body(h, layer_xs)`` runs one layer on the layer's weights
+    and adapters in ``layer_xs`` (under the config's remat when grad is
+    on), with the attention of the plain stack."""
+    layers = model.encoder.layers
+    flash = resolve_flash(model)
+    remat = model.config.remat and torch.is_grad_enabled()
+    policy = remat_policy(model.config)
+
+    def body(h, x):
+        if remat:
+            return _remat_layer(layers[x["i"]], h, flash, x["lora"], policy,
+                                x["w"])
+        return _run_layer(layers[x["i"]], x["w"], (h, flash, x["lora"]), {})
+
+    return body, _stack_xs(layers, _layer_lora(lora, "encoder"))
+
+
+def decoder_flags(model: Whisper, t: int) -> dict:
+    """The teacher-forcing flash gates at ``t`` tokens: ``flash_self`` and
+    ``flash_cross`` (the JAX package's ``decoder_flash_*_min_q``)."""
+    config = model.config
+    use_flash = resolve_flash(model) and t >= config.decoder_flash_min_q
+    return {"flash_self": use_flash and t >= config.decoder_flash_self_min_q,
+            "flash_cross": use_flash and t >= config.decoder_flash_cross_min_q}
+
+
+def decoder_stack(model: Whisper, t: int, lora=None):
+    """(body, xs): the decoder's teacher-forcing stack at ``t`` tokens as
+    `parallel/pipeline.py` takes it: ``body(h, layer_xs, enc_out, mask)``,
+    the encoder states per microbatch and the causal mask constant."""
+    layers = model.decoder.layers
+    flags = decoder_flags(model, t)
+
+    def body(h, x, enc_mb, mask):
+        return _run_layer(layers[x["i"]], x["w"], (h, enc_mb, mask),
+                          {"lora": x["lora"], **flags})
+
+    return body, _stack_xs(layers, _layer_lora(lora, "decoder"))
 
 
 def _layer_lora(lora, part: str):
@@ -640,14 +706,19 @@ def encoder_apply(model: Whisper, features, lora=None, dropout=None):
     activations stay O(T'/n), then the shards are gathered, cut back to T'
     and layer-normed on every rank. The gradients of the layer stack's
     weights then cover only this rank's tokens; the training step sums them
-    over the ring. ``pipeline_axis`` (GPipe) is not ported and raises."""
+    over the ring.
+
+    Under ``config.pipeline_axis`` (the JAX routing) the layer stack runs
+    GPipe over that axis's ring (``parallel/pipeline.py``): stage s runs
+    layers s L/P .. (s+1) L/P - 1 on ``config.pipeline_microbatches``
+    microbatches (default P), with the same attention, adapters and remat
+    as the plain stack, and every rank gets the stack's output. A stage's
+    layers take gradients on that stage alone; the training step sums them
+    over the ring. Sequence and pipeline parallelism together are not
+    ported and raise."""
     config = model.config
-    if config.pipeline_axis is not None:
-        raise NotImplementedError(
-            "pipeline parallelism (pipeline_axis) is not ported yet; "
-            "ROADMAP.md queue 1 item 8 lists it")
-    check_remat(config)
     remat = config.remat and torch.is_grad_enabled()
+    policy = remat_policy(config)
     h = apply_stem(model, _cast(features, model.dtype), dropout)
     t = h.shape[1]
     if t != config.max_source_positions:
@@ -658,6 +729,18 @@ def encoder_apply(model: Whisper, features, lora=None, dropout=None):
     if dropout is not None:
         h = _dropout(h, dropout["frames"], dropout["rate"])
     flash = resolve_flash(model)
+    layers = model.encoder.layers
+    layers_lora = _layer_lora(lora, "encoder")
+    if config.pipeline_axis is not None:
+        if config.seq_parallel_axis is not None:
+            raise NotImplementedError(
+                "sequence and pipeline parallelism together are not ported "
+                "yet; ROADMAP.md queue 1 item 10 lists it")
+
+        body, xs = encoder_stack(model, lora)
+        h = pipeline(body, xs, h, axis_ring(config.pipeline_axis),
+                     config.pipeline_microbatches or None)
+        return layer_norm(h, model.encoder.ln_post)
     ring, kv_valid_len = None, None
     if config.seq_parallel_axis is not None:
         ring = axis_ring(config.seq_parallel_axis)
@@ -667,15 +750,14 @@ def encoder_apply(model: Whisper, features, lora=None, dropout=None):
             h = F.pad(h, (0, 0, 0, t_pad - t))
             kv_valid_len = t
         h = shard_seq(h, ring)
-    layers_lora = _layer_lora(lora, "encoder")
-    for i, layer in enumerate(model.encoder.layers):
+    ring_kw = {} if ring is None else {"ring": ring,
+                                       "kv_valid_len": kv_valid_len}
+    for i, layer in enumerate(layers):
         layer_lora = None if layers_lora is None else layers_lora[i]
         if remat:
-            h = _remat_layer(layer, h, flash, layer_lora,
-                              remat_policy(config))
+            h = _remat_layer(layer, h, flash, layer_lora, policy, **ring_kw)
         else:
-            h = layer(h, flash, layer_lora, ring=ring,
-                      kv_valid_len=kv_valid_len)
+            h = layer(h, flash, layer_lora, **ring_kw)
     if ring is not None:
         h = gather_seq(h, ring)[:, :t]
     return layer_norm(h, model.encoder.ln_post)
@@ -716,14 +798,19 @@ def decoder_apply(model: Whisper, tokens, enc_out, cache=None,
         mask = torch.ones((t, t), dtype=torch.bool,
                           device=h.device).tril()[None, None]
         enc_out = _cast(enc_out, h.dtype)
-        use_flash = resolve_flash(model) and t >= config.decoder_flash_min_q
-        flash_self = use_flash and t >= config.decoder_flash_self_min_q
-        flash_cross = use_flash and t >= config.decoder_flash_cross_min_q
         layers_lora = _layer_lora(lora, "decoder")
-        for i, layer in enumerate(dec.layers):
-            h = layer(h, enc_out, mask,
-                      lora=None if layers_lora is None else layers_lora[i],
-                      flash_self=flash_self, flash_cross=flash_cross)
+        flags = decoder_flags(model, t)
+        if config.pipeline_axis is not None:
+            # enc_out rides as a per-microbatch constant, the mask as one
+            body, xs = decoder_stack(model, t, lora)
+            h = pipeline(body, xs, h, axis_ring(config.pipeline_axis),
+                         config.pipeline_microbatches or None,
+                         consts=(mask,), sample_consts=(enc_out,))
+        else:
+            for i, layer in enumerate(dec.layers):
+                h = layer(h, enc_out, mask,
+                          lora=None if layers_lora is None else layers_lora[i],
+                          **flags)
     else:
         # past the table's end the JAX package's reads clamp
         # (``lax.dynamic_slice``'s start, a gather's indices): so do these
@@ -823,19 +910,22 @@ def forward(model: Whisper, features, decoder_input_ids, lora=None,
 class CrossEntropy(torch.autograd.Function):
     """The JAX package's ``ce_loss`` with its custom backward. Forward:
     logsumexp - picked logit per token in f32, clamped at 0, masked at
-    ``ignore_id`` and divided by max(n, 1). Backward: (softmax - onehot) * w
-    in the logits' dtype, from the saved f32 lse; the clamp passes the
-    gradient through (autograd through it would zero it where it binds)."""
+    ``ignore_id`` and divided by max(n, 1), n the unmasked tokens or
+    ``n_tokens`` where given (under data parallelism the count over every
+    rank's rows, so that the ranks' losses sum to the global mean).
+    Backward: (softmax - onehot) * w in the logits' dtype, from the saved
+    f32 lse; the clamp passes the gradient through (autograd through it
+    would zero it where it binds)."""
 
     @staticmethod
-    def forward(ctx, logits, labels, ignore_id: int):
+    def forward(ctx, logits, labels, ignore_id: int, n_tokens=None):
         mask = labels != ignore_id
         safe = torch.where(mask, labels, 0)
         m = logits.amax(dim=-1).float()  # exact in the logits dtype
         lse = torch.log(torch.exp(logits.float() - m[..., None]).sum(-1)) + m
         picked = logits.gather(-1, safe[..., None])[..., 0].float()
         nll = torch.clamp(lse - picked, min=0.0)
-        n = mask.sum().clamp(min=1)
+        n = (mask.sum() if n_tokens is None else n_tokens).clamp(min=1)
         ctx.save_for_backward(logits, safe, mask, lse, n)
         return (nll * mask).sum() / n
 
@@ -846,10 +936,12 @@ class CrossEntropy(torch.autograd.Function):
         probs = torch.exp(logits.float() - lse[..., None])
         probs.scatter_add_(-1, safe[..., None],
                            torch.full_like(lse[..., None], -1.0))
-        return (probs * w).to(logits.dtype), None, None
+        return (probs * w).to(logits.dtype), None, None, None
 
 
-def ce_loss(logits, labels, ignore_id: int = -100):
+def ce_loss(logits, labels, ignore_id: int = -100, n_tokens=None):
     """Token-mean cross entropy over logits [B, T, V] with labels [B, T]
-    (``ignore_id`` masked), differentiable through `CrossEntropy`."""
-    return CrossEntropy.apply(logits, labels, ignore_id)
+    (``ignore_id`` masked), differentiable through `CrossEntropy`; with
+    ``n_tokens`` (a 0-d tensor) the sum is divided by it instead of by the
+    count of unmasked labels."""
+    return CrossEntropy.apply(logits, labels, ignore_id, n_tokens)

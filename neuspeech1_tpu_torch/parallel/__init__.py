@@ -4,11 +4,15 @@
 - ``ring_attention``: sequence-parallel (ring) flash self-attention over a
   ``Ring`` of ranks, with two rings: ``DistRing`` over a
   ``torch.distributed`` process group, and ``LocalRing``, n ranks as n
-  threads on one device (for tests and ``chip_smoke.py``).
-- ``mesh``: ``make_mesh`` over ``torch.distributed``'s ``DeviceMesh``,
-  ``initialize_distributed``, and the ambient mesh (``set_mesh``) that a
-  config's ``seq_parallel_axis`` names an axis of.
+  threads on one device (``LocalRing.run_mesh``: a grid of them, one ring
+  per axis; for tests and ``chip_smoke.py``).
+- ``mesh``: ``AXES``, ``make_mesh`` over ``torch.distributed``'s
+  ``DeviceMesh``, ``initialize_distributed``, ``batch_sharding`` and
+  ``replicated``, and the ambient mesh (``set_mesh``) whose axes a config's
+  ``seq_parallel_axis`` and ``pipeline_axis`` name, and whose ``data`` axis
+  the training step averages over.
+- ``pipeline``: GPipe over a ring, for a config's ``pipeline_axis``.
 
-Not ported yet (ROADMAP.md queue 1 item 8): data-parallel gradient
-averaging, ``sharding.py`` as DTensor specs, ``pipeline.py``.
+Not ported yet (ROADMAP.md queue 1 item 10): ``sharding.py`` (FSDP and
+tensor parallelism).
 """

@@ -10,18 +10,31 @@ axis of that ambient mesh. Here ``make_mesh`` builds a ``torch.distributed``
 or a mapping ``{axis: Ring}`` (``LocalRing`` ranks are threads, so the
 ambient mesh is a ``contextvars`` variable, one per thread).
 
-``batch_sharding``, ``replicated`` and ``parallel/sharding.py`` (data, FSDP
-and tensor parallelism as DTensor specs) are not ported yet (ROADMAP.md
-queue 1 item 8).
+``AXES`` are the JAX mesh's axis names. ``batch_sharding`` says which rows
+of a global batch this rank holds (the JAX ``P(("data", "fsdp"))`` layout:
+rank r of those axes, major first, takes the r-th contiguous block) and
+``replicated`` that it holds all of them. ``initialize_distributed`` starts
+the process group from the JAX CLI's ``coordinator`` address, from
+torchrun's environment, or from a store.
+
+``parallel/sharding.py`` (FSDP and tensor parallelism) is not ported yet
+(ROADMAP.md queue 1 item 10).
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
+import math
+import os
 from typing import Mapping, Optional
 
 import torch
+
+AXES = ("data", "fsdp", "tensor")
+# the axes a global batch's rows are split over, major first
+BATCH_AXES = ("data", "fsdp")
 
 _MESH: contextvars.ContextVar = contextvars.ContextVar(
     "neuspeech1_tpu_torch_mesh", default=None)
@@ -29,35 +42,118 @@ _MESH: contextvars.ContextVar = contextvars.ContextVar(
 
 def initialize_distributed(backend: str = "nccl", store=None,
                            rank: Optional[int] = None,
-                           world_size: Optional[int] = None) -> None:
-    """Starts the default process group once per process; a no-op when one
-    exists. With ``store`` (a ``torch.distributed`` store, e.g. a
-    ``FileStore``) the caller gives rank and world size; without, they come
-    from the environment (``torchrun``'s ``env://``). Under NCCL the process
-    takes card ``rank % device_count``."""
+                           world_size: Optional[int] = None,
+                           coordinator: Optional[str] = None) -> bool:
+    """Starts the default process group once per process and returns
+    whether one is up. The rendezvous, in order: ``store`` (a
+    ``torch.distributed`` store such as a ``FileStore``); ``coordinator``,
+    the JAX CLI's "host:port" (``tcp://``); torchrun's environment
+    (``MASTER_ADDR``/``MASTER_PORT``, ``env://``). Rank and world size are
+    the arguments or, where not given, ``RANK`` and ``WORLD_SIZE`` from the
+    environment. Without any of the three it is a no-op, as the JAX
+    package's is without a coordinator. Under NCCL the process takes card
+    ``LOCAL_RANK`` (torchrun's), else ``rank % device_count``."""
     import torch.distributed as dist
 
     if dist.is_initialized():
-        return
-    if store is None:
-        dist.init_process_group(backend)
-    else:
+        return True
+    if rank is None and "RANK" in os.environ:
+        rank = int(os.environ["RANK"])
+    if world_size is None and "WORLD_SIZE" in os.environ:
+        world_size = int(os.environ["WORLD_SIZE"])
+    if store is not None:
         dist.init_process_group(backend, store=store, rank=rank,
                                 world_size=world_size)
+    elif coordinator:
+        dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
+                                rank=0 if rank is None else rank,
+                                world_size=1 if world_size is None
+                                else world_size)
+    elif "MASTER_ADDR" in os.environ:
+        dist.init_process_group(backend)
+    else:
+        return False
     if backend == "nccl":
-        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+        local = os.environ.get("LOCAL_RANK")
+        torch.cuda.set_device(int(local) if local is not None else
+                              dist.get_rank() % torch.cuda.device_count())
+    return True
 
 
 def make_mesh(device_type: str = "cuda", **axes: int):
     """A ``DeviceMesh`` over the default process group with one named dim
     per keyword, in order: ``make_mesh(data=1, seq=4)``. The sizes multiply
-    to the world size."""
+    to the world size; one of them may be -1, all the ranks the others
+    leave (the JAX ``make_mesh``'s ``data=-1``)."""
+    import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
     if not axes:
         raise ValueError("make_mesh needs at least one named axis")
+    axes = resolve_axes(dist.get_world_size(), **axes)
     return init_device_mesh(device_type, tuple(axes.values()),
                             mesh_dim_names=tuple(axes))
+
+
+def resolve_axes(world_size: int, **axes: int) -> dict:
+    """``axes`` with a -1 replaced by what the others leave of
+    ``world_size``; raises where the sizes do not multiply to it."""
+    fixed = math.prod(n for n in axes.values() if n != -1)
+    free = [a for a, n in axes.items() if n == -1]
+    if len(free) > 1:
+        raise ValueError(f"at most one mesh axis may be -1: {axes}")
+    if free:
+        if world_size % fixed:
+            raise ValueError(f"{world_size} ranks not divisible by {fixed}")
+        axes = {**axes, free[0]: world_size // fixed}
+    if math.prod(axes.values()) != world_size:
+        raise ValueError(f"mesh {axes} needs {math.prod(axes.values())} "
+                         f"ranks; the world has {world_size}")
+    return axes
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """Which rows of a global batch this rank holds: the ``index``-th of
+    ``count`` contiguous blocks, split over the mesh ``axes`` (empty:
+    replicated, the whole batch)."""
+
+    axes: tuple
+    index: int
+    count: int
+
+    def shard(self, x):
+        """This rank's block of ``x``'s leading dim, which ``count``
+        divides."""
+        if self.count == 1:
+            return x
+        if x.shape[0] % self.count:
+            raise ValueError(f"batch {x.shape[0]} not divisible by the "
+                             f"{self.count} ranks of {self.axes}")
+        rows = x.shape[0] // self.count
+        return x[self.index * rows:(self.index + 1) * rows]
+
+
+def batch_sharding(mesh=None) -> Sharding:
+    """The batch dim split over the mesh's ``data`` and ``fsdp`` axes, in
+    that order (axes the mesh lacks are skipped): the JAX ``NamedSharding``
+    of ``P(("data", "fsdp"))``, whose rank r takes the r-th contiguous
+    block of rows."""
+    mesh = get_mesh() if mesh is None else mesh
+    axes = tuple(a for a in BATCH_AXES
+                 if mesh is not None and a in axis_names(mesh))
+    index, count = 0, 1
+    for a in axes:
+        n = axis_size(a, mesh)
+        index = index * n + axis_rank(a, mesh)
+        count *= n
+    return Sharding(axes, index, count)
+
+
+def replicated(mesh=None) -> Sharding:
+    """Every rank holds the whole batch."""
+    del mesh
+    return Sharding((), 0, 1)
 
 
 def local_mesh_info(mesh) -> dict:
@@ -102,6 +198,35 @@ def axis_size(axis: str, mesh=None) -> int:
     if isinstance(mesh, Mapping):
         return mesh[axis].size
     return mesh.size(axis_names(mesh).index(axis))
+
+
+def axis_rank(axis: str, mesh=None) -> int:
+    """This rank's coordinate along ``axis`` of ``mesh`` (default: the
+    ambient mesh)."""
+    mesh = _mesh_with(axis, mesh)
+    if isinstance(mesh, Mapping):
+        return mesh[axis].rank
+    return mesh.get_local_rank(axis)
+
+
+def data_ring(mesh=None):
+    """The ring along the ``data`` axis of ``mesh`` (default: the ambient
+    mesh), or None where there is no mesh, no such axis, or one of size 1.
+    Raises for the axes whose parallelism is not ported: ``fsdp`` or
+    ``tensor`` larger than 1."""
+    mesh = get_mesh() if mesh is None else mesh
+    if mesh is None:
+        return None
+    names = axis_names(mesh)
+    for axis in ("fsdp", "tensor"):
+        if axis in names and axis_size(axis, mesh) > 1:
+            raise NotImplementedError(
+                f"a mesh {axis!r} axis larger than 1 (FSDP and tensor "
+                "parallelism) is not ported yet; ROADMAP.md queue 1 item 10 "
+                "lists it")
+    if "data" not in names or axis_size("data", mesh) == 1:
+        return None
+    return axis_ring("data", mesh)
 
 
 def axis_ring(axis: str, mesh=None):

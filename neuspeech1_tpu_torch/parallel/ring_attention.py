@@ -20,7 +20,10 @@ as ``lax.ppermute`` with the JAX package's ``_ring_perm``):
 
 Rings: ``DistRing`` over a ``torch.distributed`` process group, and
 ``LocalRing``, n ranks as n Python threads on one device, the counterpart of
-the JAX tests' virtual CPU mesh. A ring of one communicates nothing in
+the JAX tests' virtual CPU mesh (``LocalRing.run_mesh`` builds a grid of
+them, one ring per mesh axis). Besides the hop to rank + 1 a ring has the
+reverse hop (``permute_back``, the pipeline's backward), a broadcast, a
+barrier and a gather of host objects. A ring of one communicates nothing in
 ``permute``. The JAX shard contract is kept on purpose, so that both
 packages pad alike: T % n == 0, T / n a multiple of 128, D in {32, 64, 128}.
 
@@ -34,8 +37,10 @@ threads would wait on each other there) calls directly.
 
 from __future__ import annotations
 
+import itertools
+import math
 import threading
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -59,12 +64,29 @@ class Ring:
         """Sends each tensor to rank + 1 and returns those of rank - 1."""
         raise NotImplementedError
 
+    def permute_back(self, *tensors) -> tuple:
+        """Sends each tensor to rank - 1 and returns those of rank + 1."""
+        raise NotImplementedError
+
     def all_gather(self, x, dim: int):
         """Every rank's ``x`` concatenated along ``dim`` in rank order."""
         raise NotImplementedError
 
     def all_reduce_sum(self, x):
         """The sum of every rank's ``x``, the same on every rank."""
+        raise NotImplementedError
+
+    def broadcast(self, x, src: int):
+        """Rank ``src``'s ``x`` on every rank (the others' ``x`` gives the
+        shape and dtype)."""
+        raise NotImplementedError
+
+    def gather_objects(self, obj) -> list:
+        """Every rank's picklable ``obj``, in rank order, on every rank."""
+        raise NotImplementedError
+
+    def barrier(self) -> None:
+        """Returns once every rank has called it."""
         raise NotImplementedError
 
 
@@ -82,12 +104,19 @@ class DistRing(Ring):
         self.size = dist.get_world_size(self.group)
 
     def permute(self, *tensors) -> tuple:
+        return self._shift(tensors, 1)
+
+    def permute_back(self, *tensors) -> tuple:
+        return self._shift(tensors, -1)
+
+    def _shift(self, tensors, hop: int) -> tuple:
+        """Sends each tensor to rank + hop; returns those of rank - hop."""
         if self.size == 1:
             return tensors
         import torch.distributed as dist
 
-        dst = dist.get_global_rank(self.group, (self.rank + 1) % self.size)
-        src = dist.get_global_rank(self.group, (self.rank - 1) % self.size)
+        dst = dist.get_global_rank(self.group, (self.rank + hop) % self.size)
+        src = dist.get_global_rank(self.group, (self.rank - hop) % self.size)
         outs = tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
                      for t in tensors)
         ops = []
@@ -115,6 +144,26 @@ class DistRing(Ring):
         out = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
         return out
+
+    def broadcast(self, x, src: int):
+        import torch.distributed as dist
+
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.broadcast(out, dist.get_global_rank(self.group, src),
+                       group=self.group)
+        return out
+
+    def gather_objects(self, obj) -> list:
+        import torch.distributed as dist
+
+        out = [None] * self.size
+        dist.all_gather_object(out, obj, group=self.group)
+        return out
+
+    def barrier(self) -> None:
+        import torch.distributed as dist
+
+        dist.barrier(group=self.group)
 
 
 class _LocalState:
@@ -152,6 +201,11 @@ class LocalRing(Ring):
             return tensors
         return self._exchange(tensors, lambda s: s[(self.rank - 1) % self.size])
 
+    def permute_back(self, *tensors) -> tuple:
+        if self.size == 1:
+            return tensors
+        return self._exchange(tensors, lambda s: s[(self.rank + 1) % self.size])
+
     def all_gather(self, x, dim: int):
         return self._exchange(x, lambda s: torch.cat(s, dim))
 
@@ -164,6 +218,16 @@ class LocalRing(Ring):
 
         return self._exchange(x, total)
 
+    def broadcast(self, x, src: int):
+        # a copy per rank: each rank's result is its own tensor
+        return self._exchange(x, lambda s: s[src].clone())
+
+    def gather_objects(self, obj) -> list:
+        return self._exchange(obj, list)
+
+    def barrier(self) -> None:
+        self._exchange(None, lambda s: None)
+
     @staticmethod
     def run(fn: Callable[[Ring], object], n: int) -> list:
         """Runs ``fn(ring)`` for ranks 0..n-1 in n threads; returns their
@@ -171,16 +235,39 @@ class LocalRing(Ring):
         that the others stop too, and the first error is raised; a rank
         that waits longer than BARRIER_TIMEOUT_S at an exchange breaks it
         as well."""
-        state = _LocalState(n)
+        return LocalRing.run_mesh(lambda mesh: fn(mesh["ring"]), ring=n)
+
+    @staticmethod
+    def run_mesh(fn: Callable[[Dict[str, Ring]], object], **axes: int
+                 ) -> list:
+        """Runs ``fn(mesh)`` in one thread per point of the grid of
+        ``axes`` (sizes by name, the first the slowest-varying, as a
+        ``DeviceMesh``'s dims): ``mesh`` is ``{axis: LocalRing}``, each ring
+        holding the threads that share every other coordinate, the mapping
+        ``parallel/mesh.py::set_mesh`` takes. Returns the results in
+        row-major order of the grid; errors as `run`."""
+        names, sizes = tuple(axes), tuple(axes.values())
+        n = math.prod(sizes)
+        coords = list(itertools.product(*(range(s) for s in sizes)))
+        states: Dict[tuple, _LocalState] = {}
+        for c in coords:
+            for i, name in enumerate(names):
+                key = (name,) + c[:i] + c[i + 1:]
+                if key not in states:
+                    states[key] = _LocalState(sizes[i])
         results: List[object] = [None] * n
         errors: List[Exception] = []
 
-        def body(rank):
+        def body(t):
+            c = coords[t]
+            mesh = {name: LocalRing(states[(name,) + c[:i] + c[i + 1:]],
+                                    c[i]) for i, name in enumerate(names)}
             try:
-                results[rank] = fn(LocalRing(state, rank))
+                results[t] = fn(mesh)
             except Exception as e:  # re-raised in the caller's thread below
                 errors.append(e)
-                state.barrier.abort()
+                for st in states.values():
+                    st.barrier.abort()
 
         threads = [threading.Thread(target=body, args=(r,), daemon=True)
                    for r in range(n)]

@@ -19,6 +19,10 @@ the JAX package:
     model, the adapter tree and the optimizer keep referring to them, and
     it is exact: the same bits as before the save.
 
+Under data parallelism every rank keeps a manager and takes the same
+gating decisions (the eval loss is the same on every rank), but only the
+``writer`` (data rank 0) writes; every rank reads on resume.
+
 The copy to the host happens in ``save`` and the file is written by a
 thread; ``wait`` joins it and re-raises the writer's error. A step's directory appears under its
 final name only once its file is complete.
@@ -36,10 +40,12 @@ import torch
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int = 5):
+    def __init__(self, directory: str, max_to_keep: int = 5,
+                 writer: bool = True):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
+        self.writer = writer
         self.best_eval = float("inf")
         self._writer: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -58,15 +64,19 @@ class CheckpointManager:
 
     def save(self, state, eval_loss: Optional[float] = None,
              force: bool = False) -> bool:
-        """Save if gating allows. Returns True when a save happened or the
-        step is already saved."""
+        """Save if gating allows. Returns True when a save happened (on a
+        rank that does not write: would have happened) or the step is
+        already saved."""
         if eval_loss is not None and eval_loss < self.best_eval:
             self.best_eval = eval_loss
-            with open(self._meta_path, "w") as f:
-                json.dump({"best_eval": self.best_eval}, f)
+            if self.writer:
+                with open(self._meta_path, "w") as f:
+                    json.dump({"best_eval": self.best_eval}, f)
         if not force:
             if eval_loss is None or eval_loss > self.best_eval:
                 return False
+        if not self.writer:
+            return True
         step = int(state.step)
         self.wait()
         if step in self.all_steps():

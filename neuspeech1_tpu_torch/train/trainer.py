@@ -21,6 +21,16 @@ wherever both are installed).
 
 The loop reads the device only where the JAX trainer does: the loss and
 gradient norm at logging steps, the eval metrics, and a checkpoint's copy.
+
+Under data parallelism (the ambient mesh's ``data`` axis larger than 1,
+``parallel/mesh.py``) each rank's loader yields its rows of every global
+batch and the step averages over the data ring. The eval loss is token
+weighted over the ring, so it equals one process's on the same rows; for
+the eval WER each rank decodes its rows and the predictions are gathered
+and put back in the global batches' row order (the loader's strided
+per-process rows) before scoring. Logs, ``metrics.jsonl`` and checkpoints
+are written by data rank 0 alone, and the final save ends at a barrier;
+every rank reads a checkpoint on resume.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from neuspeech1_tpu_torch.models.lora import (
     adalora_apply_pattern, adalora_budget_schedule, adalora_mask_to_budget,
     adalora_matrix_count, adalora_pattern_of, adalora_total_ranks,
     adalora_triplet_scores, has_entries)
+from neuspeech1_tpu_torch.parallel import mesh as pmesh
 from neuspeech1_tpu_torch.train import trainstep as ts
 from neuspeech1_tpu_torch.train.checkpoint import CheckpointManager
 
@@ -83,10 +94,13 @@ class Trainer:
         self.save_steps = save_steps
         self.logging_steps = logging_steps
         self.adalora = adalora
+        # the data ring of the ambient mesh (None: one process's batch)
+        self.data_ring = pmesh.data_ring()
+        self.writer = self.data_ring is None or self.data_ring.rank == 0
         os.makedirs(output_dir, exist_ok=True)
         self.ckpt = CheckpointManager(
             os.path.join(output_dir, "checkpoints"),
-            max_to_keep=max_to_keep)
+            max_to_keep=max_to_keep, writer=self.writer)
         adalora_total = (adalora or {}).get("total_steps", max_steps or 10_000)
         self.train_step = ts.make_train_step(
             config, stem, tx, orth_reg_weight=orth_reg_weight,
@@ -97,8 +111,9 @@ class Trainer:
                 adalora_total - (adalora or {}).get("tfinal", 1000)
                 if adalora else None))
         self.eval_step = ts.make_eval_step(config, stem)
-        self._log_file = open(os.path.join(output_dir, "metrics.jsonl"), "a",
-                              encoding="utf-8")
+        self._log_file = (open(os.path.join(output_dir, "metrics.jsonl"),
+                               "a", encoding="utf-8") if self.writer
+                          else None)
         self._last_eval_loss: Optional[float] = None
         self._eval_batch_size: Optional[int] = None
         self._adalora_pattern = None  # the frozen rank pattern (final phase)
@@ -109,6 +124,8 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def log(self, record: Dict[str, Any]):
+        if not self.writer:
+            return
         record = {
             k: (float(v) if isinstance(v, (int, float, np.floating))
                 or hasattr(v, "item") else v)
@@ -154,12 +171,17 @@ class Trainer:
             return float("nan")
         total, n = 0.0, 0
         for batch in self.eval_loader:
+            if _rows(batch) == 0:
+                continue  # this rank's share of a short last batch
             batch, _ = self._pad_batch(batch)
             batch = self._prep(batch)
             out = self.eval_step(self.state, self.frozen, batch)
             toks = int(out["n_tokens"])
             total += float(out["loss"]) * toks
             n += toks
+        if self.data_ring is not None:
+            total, n = self.data_ring.all_reduce_sum(torch.tensor(
+                [total, float(n)], dtype=torch.float64)).tolist()
         if n == 0:
             return float("nan")  # an empty eval set must not look like 0
         return total / n
@@ -181,8 +203,11 @@ class Trainer:
             [tok.prefix_tokens(self._gen_lang, self._gen_task)], np.int32)
         gen = GenerationConfig.for_model(
             self.config, max_length=prompt.shape[1] + self._gen_max_new)
-        preds, refs = [], []
+        pairs = []  # per batch: (predictions, references) of this rank's rows
         for batch in self.eval_loader:
+            if _rows(batch) == 0:
+                pairs.append(([], []))
+                continue
             batch, true_rows = self._pad_batch(batch)
             labels = batch["labels"]
             labels = (labels.cpu().numpy() if isinstance(labels, torch.Tensor)
@@ -193,8 +218,12 @@ class Trainer:
                                   ).to(self.device)
             out = greedy_decode(model, feats, bp, gen,
                                 lora=lora).cpu().numpy()[:true_rows]
-            preds.extend(tok.batch_decode(out))
-            refs.extend(tok.decode(l) for l in labels)
+            pairs.append((tok.batch_decode(out),
+                          [tok.decode(l) for l in labels]))
+        if self.data_ring is not None:
+            pairs = _interleave(self.data_ring.gather_objects(pairs))
+        preds = [p for ps, _ in pairs for p in ps]
+        refs = [r for _, rs in pairs for r in rs]
         m = compute_battery(preds, refs, include_cer=False)
         return {"eval_wer": m["wer"], "eval_bleu1": m["bleu-1"]}
 
@@ -238,7 +267,8 @@ class Trainer:
             if self.num_epochs is not None and epoch >= self.num_epochs:
                 break
             for batch in self.train_loader:
-                bsz = next(iter(batch.values())).shape[0]
+                bsz = _rows(batch) * (1 if self.data_ring is None
+                                      else self.data_ring.size)
                 batch = self._prep(batch)
                 metrics = self.train_step(self.state, self.frozen, batch)
                 step_num += 1
@@ -293,6 +323,8 @@ class Trainer:
         # the final save (reference `finetune.py:282` checkpoint-final)
         self.ckpt.save(self.state, force=True)
         self.ckpt.wait()
+        if self.data_ring is not None:
+            self.data_ring.barrier()
         return self.state
 
     # ------------------------------------------------------------------
@@ -321,3 +353,20 @@ class Trainer:
                 self.state.ipt), budget, init_bgt)
             if step_num >= total - tfinal:
                 self._adalora_pattern = adalora_pattern_of(lora)
+
+
+def _rows(batch) -> int:
+    return next(iter(batch.values())).shape[0]
+
+
+def _interleave(per_rank: list) -> list:
+    """Per batch, the ranks' (predictions, references) put back in the
+    global batch's row order: rank r holds rows r, r + n, r + 2n, ... (the
+    loader's per-process stride)."""
+    n = len(per_rank)
+    out = []
+    for parts in zip(*per_rank):
+        total = sum(len(p) for p, _ in parts)
+        out.append(tuple([parts[j % n][k][j // n] for j in range(total)]
+                         for k in (0, 1)))
+    return out

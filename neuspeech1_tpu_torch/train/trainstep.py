@@ -19,10 +19,26 @@ Under a config's ``seq_parallel_axis`` each rank of that axis's ring runs
 the encoder's layer stack on its sequence shard (``models/whisper.py::
 encoder_apply``), so the gradients of the leaves that stack reads (its
 weights and their adapters, merged or folded) cover only its own tokens:
-the step sums them over the ring before the norm and the update, and every
-rank ends with the same gradients and parameters. Every other leaf is whole
-on every rank already. Data parallelism (a mesh ``data`` axis larger than
-1) is not ported and raises.
+the step sums them over the ring before the norm and the update. Under its
+``pipeline_axis`` each stage's layers take gradients on that stage alone:
+the step sums the layer stacks' leaves over the pipeline ring.
+
+Under a mesh ``data`` axis larger than 1 (data parallelism, as the JAX
+package's GSPMD step on a batch sharded over ``data``) each rank holds its
+block of the global batch's rows, and the step gives what one device gives
+on the whole batch: the unmasked labels are counted over the data ring
+before the forward, so that each rank's cross entropy is its token sum over
+the global count; AdaLoRA's orthogonality loss enters the backward on data
+rank 0 only; every gradient is then summed over the data ring. The norm,
+the clip, the update and the importance EMAs run on the summed gradients,
+which are the same bits on every rank, so every rank keeps the same
+parameters, optimizer state and EMAs. The augmentation's and the dropout's
+draws are taken for the global batch from the state's generator, and each
+rank applies its rows: the generators stay in step. Every collective runs
+between ``loss.backward()`` and the update, none inside autograd's
+backward (the ranks of a ``LocalRing`` on one CUDA device share one
+autograd worker thread). FSDP and tensor parallelism (mesh ``fsdp`` or
+``tensor`` axes larger than 1) are not ported and raise.
 
 The step makes no host sync: its metrics stay 0-d device tensors, and the
 importance EMAs' stop test reads the host's step count.
@@ -52,8 +68,8 @@ from neuspeech1_tpu_torch.models import whisper as tw
 from neuspeech1_tpu_torch.models.lora import (
     IPT_NAMES, adalora_entries, adalora_ipt_init, adalora_ipt_update,
     adalora_orth_loss, has_entries, merge_lora, split_lora_fc)
+from neuspeech1_tpu_torch.ops import augment
 from neuspeech1_tpu_torch.ops import int8_matmul as i8
-from neuspeech1_tpu_torch.ops.augment import augment_batch
 from neuspeech1_tpu_torch.parallel import mesh as pmesh
 from neuspeech1_tpu_torch.train.optimizer import (
     AdamState, Optimizer, PathPred, default_trainable_pred, global_norm,
@@ -65,6 +81,10 @@ Batch = Dict[str, torch.Tensor]
 # the leaves the encoder's layer stack reads: under sequence parallelism a
 # rank's gradients for them cover its own tokens only
 SEQ_SHARDED_PREFIXES = ("model/encoder/layers/", "lora/encoder/layers/")
+# the leaves of both layer stacks: under pipeline parallelism a layer's
+# gradients land on its stage only
+STAGE_PREFIXES = SEQ_SHARDED_PREFIXES + ("model/decoder/layers/",
+                                         "lora/decoder/layers/")
 
 
 class Frozen(NamedTuple):
@@ -132,9 +152,12 @@ def make_loss_fn(config: WhisperConfig, stem: StemConfig,
         raise NotImplementedError(
             f"fold regime {fold_impl!r} is not ported: the port keeps the 'fc' "
             "regime (ROADMAP.md 'Not to port')")
-    tw.check_remat(config)
 
-    def loss_fn(frozen: Frozen, batch: Batch, dropout=None):
+    def loss_fn(frozen: Frozen, batch: Batch, dropout=None, n_tokens=None,
+                reg_grad: bool = True):
+        """``n_tokens``: the cross entropy's denominator (`models/whisper.py::
+        ce_loss`); ``reg_grad=False`` keeps the orthogonality loss out of
+        the returned loss (it stays in ``aux``)."""
         model, lora = frozen
         if model.stem_config.kind != stem.kind:
             raise ValueError(
@@ -156,14 +179,17 @@ def make_loss_fn(config: WhisperConfig, stem: StemConfig,
                         {"lora": fc, "dropout": dropout})
             else:
                 logits = tw.forward(model, feats, ids, lora, dropout)
-        loss = tw.ce_loss(logits, batch["labels"])
+        loss = tw.ce_loss(logits, batch["labels"], n_tokens=n_tokens)
         aux = {"ce_loss": loss.detach()}
         if orth_reg_weight > 0.0 and reg_lora is not None:
             # over the whole tree, merged and folded entries alike
             reg = adalora_orth_loss(reg_lora)
-            loss = loss + orth_reg_weight * reg
             aux["orth_reg"] = reg.detach()
-        aux["loss"] = loss.detach()
+            aux["loss"] = (loss + orth_reg_weight * reg).detach()
+            if reg_grad:
+                loss = loss + orth_reg_weight * reg
+        else:
+            aux["loss"] = loss.detach()
         return loss, aux
 
     return loss_fn
@@ -197,22 +223,29 @@ def make_train_step(config: WhisperConfig, stem: StemConfig, tx: Optimizer,
                            fold_lora=fold_lora, int8_matmul=int8_matmul)
 
     def step(state: TrainState, frozen: Frozen, batch: Batch):
-        ring = _seq_ring(config)
+        data = pmesh.data_ring()
+        n, rank = (1, 0) if data is None else (data.size, data.rank)
         gen = state.generator
+        feats = batch["input_features"]
+        rows, total = feats.shape[0], n * feats.shape[0]
         if augment_config:
-            batch = {**batch, "input_features": augment_batch(
-                gen, batch["input_features"], augment_config)}
-        dropout = (tw.draw_dropout(gen, config, stem,
-                                   batch["input_features"].shape[0])
-                   if use_dropout else None)
+            draws = augment.draw_augment(gen, (total, *feats.shape[1:]),
+                                         augment_config)
+            batch = {**batch, "input_features": augment.apply_augment(
+                feats, _rank_rows(draws, rank, rows, total), augment_config)}
+        dropout = (_rank_rows(tw.draw_dropout(gen, config, stem, total),
+                              rank, rows, total) if use_dropout else None)
+        n_tokens = (None if data is None else
+                    data.all_reduce_sum((batch["labels"] != -100).sum()))
         for t in state.trainable.values():
             t.grad = None
-        loss, aux = loss_fn(frozen, batch, dropout)
+        loss, aux = loss_fn(frozen, batch, dropout, n_tokens,
+                            reg_grad=rank == 0)
         loss.backward()
-        grads = {k: t.grad for k, t in state.trainable.items()
-                 if t.grad is not None}
-        if ring is not None:
-            grads = sum_seq_sharded_grads(grads, ring)
+        grads = reduce_grads(state.trainable, config, data, aux)
+        if data is not None:
+            aux["loss"] = aux["ce_loss"] + orth_reg_weight * aux.get(
+                "orth_reg", 0.0)
         norm = global_norm(grads.values())
         tx.update(state.trainable, grads, state.opt_state, norm)
         if track_adalora_importance and state.ipt and (
@@ -227,18 +260,54 @@ def make_train_step(config: WhisperConfig, stem: StemConfig, tx: Optimizer,
     return step
 
 
-def _seq_ring(config: WhisperConfig):
-    """The ring of ``config.seq_parallel_axis`` in the ambient mesh, or None
-    without the axis; raises for a mesh ``data`` axis larger than 1."""
-    mesh = pmesh.get_mesh()
-    if mesh is not None and "data" in pmesh.axis_names(mesh) \
-            and pmesh.axis_size("data", mesh) > 1:
-        raise NotImplementedError(
-            "data-parallel gradient averaging (a mesh 'data' axis > 1) is not "
-            "ported yet; ROADMAP.md queue 1 item 8 lists it")
-    if config.seq_parallel_axis is None:
-        return None
-    return pmesh.axis_ring(config.seq_parallel_axis)
+def _rank_rows(draws, rank: int, rows: int, total: int):
+    """``draws`` (a draw function's tree for a batch of ``total`` rows) cut
+    to this rank's block: every tensor whose leading dim is ``total`` takes
+    rows rank*rows .. (rank+1)*rows - 1; anything else stays."""
+    if rows == total or draws is None:
+        return draws
+    if isinstance(draws, dict):
+        return {k: _rank_rows(v, rank, rows, total)
+                for k, v in draws.items()}
+    if isinstance(draws, torch.Tensor) and draws.dim() and \
+            draws.shape[0] == total:
+        return draws[rank * rows:(rank + 1) * rows]
+    return draws
+
+
+def _axis_ring(axis: Optional[str]):
+    return None if axis is None else pmesh.axis_ring(axis)
+
+
+def reduce_grads(trainable: Dict[str, torch.Tensor], config: WhisperConfig,
+                 data=None, aux: Optional[dict] = None
+                 ) -> Dict[str, torch.Tensor]:
+    """The trainable leaves' gradients after ``loss.backward()``, summed
+    where the mesh splits the work: the encoder stack's leaves over
+    ``config.seq_parallel_axis``'s ring, both layer stacks' leaves over
+    ``config.pipeline_axis``'s ring (a stage's missing gradients taken as
+    zeros), then every leaf, with ``aux['ce_loss']``, over the ``data``
+    ring. Each is one collective per dtype; the result is the same on
+    every rank."""
+    grads = {k: t.grad for k, t in trainable.items() if t.grad is not None}
+    seq = _axis_ring(config.seq_parallel_axis)
+    if seq is not None:
+        grads = sum_seq_sharded_grads(grads, seq)
+    pipe = _axis_ring(config.pipeline_axis)
+    if pipe is not None and pipe.size > 1:
+        # in the trainable leaves' order on every rank: the collective sums
+        # the leaves packed flat
+        grads = {k: grads[k] if k in grads else torch.zeros_like(t)
+                 for k, t in trainable.items()
+                 if k in grads or k.startswith(STAGE_PREFIXES)}
+        grads = _sum_leaves(grads, pipe, STAGE_PREFIXES)
+    if data is not None:
+        if aux is not None:
+            grads["\0ce_loss"] = aux["ce_loss"]
+        grads = _sum_leaves(grads, data)
+        if aux is not None:
+            aux["ce_loss"] = grads.pop("\0ce_loss")
+    return grads
 
 
 def sum_seq_sharded_grads(grads: Dict[str, torch.Tensor], ring
@@ -246,10 +315,18 @@ def sum_seq_sharded_grads(grads: Dict[str, torch.Tensor], ring
     """``grads`` with every leaf under ``SEQ_SHARDED_PREFIXES`` summed over
     ``ring``: one collective per dtype over the leaves packed flat, the
     same sum on every rank."""
+    return _sum_leaves(grads, ring, SEQ_SHARDED_PREFIXES)
+
+
+def _sum_leaves(grads: Dict[str, torch.Tensor], ring,
+                prefixes: Optional[tuple] = None
+                ) -> Dict[str, torch.Tensor]:
+    """``grads`` with every leaf (under ``prefixes`` where given) summed
+    over ``ring``, packed flat: one collective per dtype."""
     out = dict(grads)
     by_dtype: Dict[torch.dtype, list] = {}
     for k, g in grads.items():
-        if k.startswith(SEQ_SHARDED_PREFIXES):
+        if prefixes is None or k.startswith(prefixes):
             by_dtype.setdefault(g.dtype, []).append(k)
     for keys in by_dtype.values():
         flat = ring.all_reduce_sum(

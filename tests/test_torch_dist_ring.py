@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from neuspeech1_tpu_torch.parallel import mesh as pmesh
+from neuspeech1_tpu_torch.parallel.pipeline import pipeline
 from neuspeech1_tpu_torch.parallel.ring_attention import (
     LocalRing, ring_flash_attention)
 
@@ -74,6 +75,62 @@ def test_dist_ring_over_gloo_equals_local_ring(tmp_path):
             np.testing.assert_array_equal(got[name], x, err_msg=name)
     np.testing.assert_array_equal(local[0]["total"], np.full(3, 3.0))
     assert np.isfinite(local[0]["o"]).all()
+
+
+def _toy_pipeline(ring, seed=3, n_layers=4, b=8, d=16):
+    """The pipelined toy stack (tanh(h W + b)) on one rank: output, the
+    input's gradient, this stage's weight gradients; and the ring's other
+    exchanges: the reverse hop, a broadcast from the last rank, the
+    gathered objects."""
+    rng = np.random.default_rng(seed)
+    ws = torch.from_numpy(rng.standard_normal((n_layers, d, d))
+                          .astype(np.float32)) * 0.3
+    x = torch.from_numpy(rng.standard_normal((b, 5, d)).astype(np.float32))
+    w = ws.clone().requires_grad_()
+    h = x.clone().requires_grad_()
+    o = pipeline(lambda h, xs: torch.tanh(h @ xs["w"]),
+                 [{"w": w[i]} for i in range(n_layers)], h, ring)
+    (o ** 2).sum().backward()
+    (back,) = ring.permute_back(torch.full((2,), float(ring.rank)))
+    ring.barrier()
+    return {"o": o.detach().numpy(), "dh": h.grad.numpy(),
+            "dw": w.grad.numpy(), "back": back.numpy(),
+            "bcast": ring.broadcast(torch.full((2,), float(ring.rank)),
+                                    ring.size - 1).numpy(),
+            "objects": np.asarray(ring.gather_objects(ring.rank * 10))}
+
+
+def _gloo_pipe_rank(rank, n, store_path, out_dir):
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    pmesh.initialize_distributed("gloo", store=dist.FileStore(store_path, n),
+                                 rank=rank, world_size=n)
+    try:
+        ring = pmesh.axis_ring("pipe", pmesh.make_mesh("cpu", data=1,
+                                                       pipe=-1))
+        np.savez(os.path.join(out_dir, f"pipe{rank}.npz"),
+                 **_toy_pipeline(ring))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dist_pipeline_over_gloo_equals_local_ring(tmp_path):
+    """GPipe's autograd wrapper over a DistRing (gloo, two processes; the
+    mesh's pipe axis from -1) against LocalRing(2): output, input and
+    stage gradients, the reverse hop, the broadcast and the gathered
+    objects bit for bit."""
+    torch.multiprocessing.spawn(
+        _gloo_pipe_rank, args=(N, str(tmp_path / "store"), str(tmp_path)),
+        nprocs=N)
+    local = LocalRing.run(_toy_pipeline, N)
+    for rank, ref in enumerate(local):
+        got = np.load(tmp_path / f"pipe{rank}.npz")
+        for name, x in ref.items():
+            np.testing.assert_array_equal(got[name], x, err_msg=name)
+    np.testing.assert_array_equal(local[0]["back"], [1.0, 1.0])
+    np.testing.assert_array_equal(local[1]["bcast"], [1.0, 1.0])
+    np.testing.assert_array_equal(local[0]["objects"], [0, 10])
 
 
 def test_local_ring_exchanges_under_thread_switching():

@@ -212,9 +212,10 @@ def test_resume_from_checkpoint(runs, tmp_path, resume, first, capsys):
 
 
 REFUSED = {
-    "coordinator": ["--coordinator=localhost:1234"],
-    "mesh_data": ["--mesh_data=2"],
     "mesh_fsdp": ["--mesh_fsdp=2"],
+    "mesh_fsdp_beside_data": ["--mesh_data=2", "--mesh_fsdp=2"],
+    "mesh_tensor_with_coordinator": ["--coordinator=localhost:1234",
+                                     "--mesh_tensor=2"],
     "mesh_tensor": ["--mesh_tensor=4"],
 }
 

@@ -321,8 +321,10 @@ def test_encoder_seq_parallel_matches_plain():
 def test_encoder_routes_self_attention_through_the_ring(monkeypatch):
     """Under ``seq_parallel_axis`` the encoder's self-attention calls K4's
     entry (2 ranks x 2 rounds x 2 layers) and never K1's; without an
-    ambient mesh, or with a mesh lacking the axis, it raises; a
-    ``pipeline_axis`` raises as not ported."""
+    ambient mesh, or with a mesh lacking the axis, it raises; with a
+    ``pipeline_axis`` as well it raises as not ported. A ``pipeline_axis``
+    alone calls K1's entry once per layer and microbatch, and gives the
+    plain stack's output on every rank."""
     calls = {"k1": 0, "k4": 0}
     k1, k4 = tw.flash_attention_bthd, tfa.flash_bias_fwd
 
@@ -354,9 +356,29 @@ def test_encoder_routes_self_attention_through_the_ring(monkeypatch):
     with pmesh.set_mesh({"data": types.SimpleNamespace(size=1)}), \
             pytest.raises(ValueError, match="no axis 'seq'"), torch.no_grad():
         tw.encoder_apply(model, feats)
-    model.config = port(tiny(pipeline_axis="pipe"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"), torch.no_grad():
+    # sequence and pipeline parallelism together are not ported
+    model.config = port(tiny(seq_parallel_axis="seq", pipeline_axis="pipe"))
+    one = types.SimpleNamespace(size=1)
+    with pmesh.set_mesh({"seq": one, "pipe": one}), \
+            pytest.raises(NotImplementedError, match="ROADMAP"), \
+            torch.no_grad():
         tw.encoder_apply(model, feats)
+    # a pipeline_axis alone: two stages of one layer, two microbatches, the
+    # stages' self-attention on K1's entry as in the plain stack
+    model.config = port(tiny())
+    calls.update(k1=0, k4=0)
+    with torch.no_grad():
+        plain = tw.encoder_apply(model, feats)
+    model.config = port(tiny(pipeline_axis="pipe"))
+
+    def stage(ring):
+        with pmesh.set_mesh({"pipe": ring}), torch.no_grad():
+            return tw.encoder_apply(model, feats)
+
+    outs = LocalRing.run(stage, 2)
+    assert calls == {"k1": config.encoder_layers * (1 + 2), "k4": 0}
+    for o in outs:
+        torch.testing.assert_close(o, plain, rtol=0, atol=0)
 
 
 N_STEPS = 2
@@ -409,19 +431,48 @@ def test_sp_train_steps_equal_on_every_rank_and_match_single_device():
                                        err_msg=jax.tree_util.keystr(path))
 
 
-def test_sp_step_refuses_a_data_axis():
-    """Data-parallel gradient averaging is not ported: a mesh 'data' axis
-    larger than 1 raises."""
-    config = port(tiny(seq_parallel_axis="seq"))
-    _, _, model, t_lora = _setup(tiny())
-    tx = topt.make_optimizer()
-    state, frozen = tts.init_train_state(model, t_lora, tx)
-    step = tts.make_train_step(config, TSTEM, tx, fold_lora=True)
-    mesh = {"data": types.SimpleNamespace(size=2),
-            "seq": types.SimpleNamespace(size=1)}
-    with pmesh.set_mesh(mesh), pytest.raises(NotImplementedError,
-                                             match="ROADMAP"):
-        step(state, frozen, _torch_batch(_batch(tiny())))
+def test_sp_step_takes_a_data_axis():
+    """Data-parallel gradient averaging is ported: the SP step under a
+    {data: 2, seq: 2} mesh, each data rank on one of the batch's two rows,
+    gives the single-device step's metrics and leaves on every rank."""
+    single = _train_run(port(tiny()))
+
+    def rank(mesh):
+        _, _, model, t_lora = _setup(tiny())
+        config = port(tiny(seq_parallel_axis="seq"))
+        model.config = config
+        tx = topt.make_optimizer(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+        state, frozen = tts.init_train_state(model, t_lora, tx)
+        step = tts.make_train_step(config, TSTEM, tx, fold_lora=True)
+        with pmesh.set_mesh(mesh):
+            shard = pmesh.batch_sharding()
+            batch = {k: shard.shard(v)
+                     for k, v in _torch_batch(_batch(tiny())).items()}
+            out = []
+            for _ in range(N_STEPS):
+                m = step(state, frozen, batch)
+                out.append(({k: float(m[k]) for k in ("loss", "grad_norm")},
+                            params_from_lora(t_lora)))
+        return out
+
+    runs = LocalRing.run_mesh(rank, data=2, seq=2)
+    for step in range(N_STEPS):
+        m_ref, l_ref = single[step]
+        for run in runs:
+            m, leaves = run[step]
+            assert m == runs[0][step][0]
+            for k in m_ref:
+                np.testing.assert_allclose(m[k], m_ref[k], rtol=RTOL,
+                                           atol=ATOL_MODEL, err_msg=k)
+            ref = {k: v for k, v in l_ref.items() if k != "stem"}
+            assert jax.tree_util.tree_structure(leaves) == \
+                jax.tree_util.tree_structure(ref)
+            for (path, a), b in zip(
+                    jax.tree_util.tree_leaves_with_path(leaves),
+                    jax.tree_util.tree_leaves(ref)):
+                np.testing.assert_allclose(
+                    a, b, rtol=RTOL, atol=ATOL_MODEL,
+                    err_msg=jax.tree_util.keystr(path))
 
 
 def test_bias_kernels_on_cuda_never_take_the_plain_path(monkeypatch):

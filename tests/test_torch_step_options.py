@@ -175,20 +175,19 @@ def test_remat_policy_matches_jax_and_no_remat(remat_setup, policy):
 def test_unknown_remat_policy_raises():
     """The JAX package runs full recompute for a policy name it does not
     know (perf/ablate.py's 'full'), and so does the port: such a name
-    builds the loss and resolves to policy None. What still raises is remat
-    under sequence parallelism, whatever the policy's name."""
+    builds the loss and resolves to policy None. Remat under sequence
+    parallelism is ported and builds under every policy
+    (tests/test_torch_remat_sp.py runs it)."""
     _, tconfig = _configs(remat=True, remat_policy="full")
     tts.make_loss_fn(tconfig, port(STEM))
     for name in ("full", "dot", None, "flash"):
         config = dataclasses.replace(tconfig, remat_policy=name)
-        tw.check_remat(config)
         assert tw.remat_policy(config) == (
             "flash" if name == "flash" else None)
-        with pytest.raises(NotImplementedError, match="sequence parallel"):
-            tw.check_remat(dataclasses.replace(config,
-                                               seq_parallel_axis="seq"))
-    tw.check_remat(dataclasses.replace(tconfig, remat=False,
-                                       seq_parallel_axis="seq"))
+        tts.make_loss_fn(dataclasses.replace(config, seq_parallel_axis="seq"),
+                         port(STEM))
+        tts.make_train_step(dataclasses.replace(
+            config, seq_parallel_axis="seq"), port(STEM), _optimizers()[1])
 
 
 def test_remat_restores_the_int8_mode_in_the_backward(remat_setup):

@@ -270,11 +270,26 @@ def test_eval_step_matches_jax():
 UNPORTED = {
     "fold_merge": lambda c, tx: tts.make_loss_fn(c, TSTEM, fold_lora=True,
                                                  fold_impl="merge"),
-    # remat under sequence parallelism (ROADMAP queue 1 item 8)
-    "remat_seq_parallel": lambda c, tx: tts.make_train_step(
-        port(tiny(remat=True, remat_policy="flash_qkv",
-                  seq_parallel_axis="seq")), TSTEM, tx),
+    # FSDP and tensor parallelism (ROADMAP queue 1 item 10)
+    "fsdp_axis": lambda c, tx: _step_under_mesh(c, tx, {"fsdp": 2}),
+    "tensor_axis": lambda c, tx: _step_under_mesh(c, tx, {"data": 2,
+                                                          "tensor": 2}),
 }
+
+
+def _step_under_mesh(config, tx, sizes):
+    """One train step under an ambient mesh of rings of ``sizes``; the
+    step raises before any ring is used."""
+    import types
+
+    from neuspeech1_tpu_torch.parallel import mesh as pmesh
+
+    _, _, model, t_lora = _setup(tiny())
+    state, frozen = tts.init_train_state(model, t_lora, tx)
+    step = tts.make_train_step(config, TSTEM, tx)
+    mesh = {a: types.SimpleNamespace(size=n, rank=0) for a, n in sizes.items()}
+    with pmesh.set_mesh(mesh):
+        step(state, frozen, _torch_batch(_batch(tiny())))
 
 
 @pytest.mark.parametrize("option", list(UNPORTED))
