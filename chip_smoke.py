@@ -513,13 +513,14 @@ OPT_CLI_STEPS = 3
 # parallel: the train phase's step with the data axis on DP_N LocalRing
 # threads of the card (64 / DP_N rows a rank), DP_STEPS steps, its loss
 # within DP_LOSS_RTOL of the one-rank step's (bf16); GPipe on PIPE_N
-# LocalRing threads at PIPE_BATCH rows in PIPE_M microbatches, outputs and
-# input gradients within PIPE_O_TOL (relative) of the plain loop's; remat
+# LocalRing threads at PIPE_BATCH rows (four times the train batch; the
+# pass's peak memory is printed) in PIPE_M microbatches, outputs and input
+# gradients within PIPE_O_TOL (relative) of the plain loop's; remat
 # under SP for REMAT_SP_POLICIES; the fine-tune CLI under a torchrun
 # environment for PAR_CLI_STEPS steps then two more after a resume; and the
 # names the profiler's trace must hold
 DP_N, DP_STEPS, DP_LOSS_RTOL = 2, 2, 2e-2
-PIPE_N, PIPE_M, PIPE_BATCH = 2, 4, 64
+PIPE_N, PIPE_M, PIPE_BATCH = 2, 4, 256
 PIPE_O_TOL = 2e-2
 REMAT_SP_POLICIES = (None, "flash_qkv")
 PAR_CLI_STEPS = 4
@@ -4994,24 +4995,31 @@ def _gpipe_stack(part: str, model, gen, device: str) -> dict:
     h = torch.randn((PIPE_BATCH, t, d), generator=gen, device=device).to(dt)
     g = torch.randn((PIPE_BATCH, t, d), generator=gen, device=device).to(dt)
     params = [p for x in xs for p in x["w"].values()]
-    for p in params:
-        p.grad = None
 
-    _sync(device)
-    t0 = time.perf_counter()
-    h0 = h.detach().clone().requires_grad_()
-    s0 = [c.detach().clone().requires_grad_() for c in sample]
-    y = h0
-    for x in xs:
-        y = body(y, x, *s0, *consts)
-    y.backward(g)
-    _sync(device)
-    plain_ms = 1e3 * (time.perf_counter() - t0)
-    ref_out, ref_dh = y.detach(), h0.grad
-    ref_ds = [c.grad for c in s0]
-    ref_w = {id(p): p.grad for p in params}
-    for p in params:
-        p.grad = None
+    def plain():
+        """The plain loop's forward and backward: ms, output, gradients of
+        the input, the encoder states and the weights."""
+        for p in params:
+            p.grad = None
+        _sync(device)
+        t0 = time.perf_counter()
+        h0 = h.detach().clone().requires_grad_()
+        s0 = [c.detach().clone().requires_grad_() for c in sample]
+        y = h0
+        for x in xs:
+            y = body(y, x, *s0, *consts)
+        y.backward(g)
+        _sync(device)
+        ms = 1e3 * (time.perf_counter() - t0)
+        out = (ms, y.detach(), h0.grad, [c.grad for c in s0],
+               {id(p): p.grad for p in params})
+        for p in params:
+            p.grad = None
+        return out
+
+    # as the pipelined pass below: a first pass warms up, the second counts
+    plain()
+    plain_ms, ref_out, ref_dh, ref_ds, ref_w = plain()
 
     def rank(ring):
         mine = stage_layers(xs, ring)
@@ -5023,7 +5031,6 @@ def _gpipe_stack(part: str, model, gen, device: str) -> dict:
                  if isinstance(p, torch.Tensor) and p.requires_grad}
         return out, dh, ds, grads
 
-    del y, h0, s0
     _empty_cache(device)
     # a first pass warms the threads' libraries; the second is timed and
     # counted
