@@ -235,9 +235,12 @@ def main(argv=None):
         raise RuntimeError(
             f"--device={args.device}: CUDA is not available; pass "
             "--device=cpu to train on the CPU")
+    if args.coordinator:
+        # the JAX CLI's rendezvous address, as torchrun passes it
+        host, port = args.coordinator.rsplit(":", 1)
+        os.environ.update(MASTER_ADDR=host, MASTER_PORT=port)
     started = not dist.is_initialized() and pmesh.initialize_distributed(
-        "nccl" if device.type == "cuda" else "gloo",
-        coordinator=args.coordinator)
+        "nccl" if device.type == "cuda" else "gloo")
     try:
         world = dist.get_world_size() if dist.is_initialized() else 1
         axes = pmesh.resolve_axes(world, data=args.mesh_data,

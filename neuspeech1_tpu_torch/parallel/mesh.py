@@ -14,8 +14,7 @@ ambient mesh is a ``contextvars`` variable, one per thread).
 of a global batch this rank holds (the JAX ``P(("data", "fsdp"))`` layout:
 rank r of those axes, major first, takes the r-th contiguous block) and
 ``replicated`` that it holds all of them. ``initialize_distributed`` starts
-the process group from the JAX CLI's ``coordinator`` address, from
-torchrun's environment, or from a store.
+the process group from torchrun's environment or from a store.
 
 ``parallel/sharding.py`` (FSDP and tensor parallelism) is not ported yet
 (ROADMAP.md queue 1 item 10).
@@ -42,33 +41,22 @@ _MESH: contextvars.ContextVar = contextvars.ContextVar(
 
 def initialize_distributed(backend: str = "nccl", store=None,
                            rank: Optional[int] = None,
-                           world_size: Optional[int] = None,
-                           coordinator: Optional[str] = None) -> bool:
+                           world_size: Optional[int] = None) -> bool:
     """Starts the default process group once per process and returns
-    whether one is up. The rendezvous, in order: ``store`` (a
-    ``torch.distributed`` store such as a ``FileStore``); ``coordinator``,
-    the JAX CLI's "host:port" (``tcp://``); torchrun's environment
-    (``MASTER_ADDR``/``MASTER_PORT``, ``env://``). Rank and world size are
-    the arguments or, where not given, ``RANK`` and ``WORLD_SIZE`` from the
-    environment. Without any of the three it is a no-op, as the JAX
+    whether one is up. The rendezvous: ``store`` (a ``torch.distributed``
+    store such as a ``FileStore``) with ``rank`` and ``world_size``, else
+    torchrun's environment (``MASTER_ADDR``/``MASTER_PORT``, ``RANK``,
+    ``WORLD_SIZE``; ``env://``), where the fine-tune CLI also puts its
+    ``--coordinator`` "host:port". Without either it is a no-op, as the JAX
     package's is without a coordinator. Under NCCL the process takes card
     ``LOCAL_RANK`` (torchrun's), else ``rank % device_count``."""
     import torch.distributed as dist
 
     if dist.is_initialized():
         return True
-    if rank is None and "RANK" in os.environ:
-        rank = int(os.environ["RANK"])
-    if world_size is None and "WORLD_SIZE" in os.environ:
-        world_size = int(os.environ["WORLD_SIZE"])
     if store is not None:
         dist.init_process_group(backend, store=store, rank=rank,
                                 world_size=world_size)
-    elif coordinator:
-        dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
-                                rank=0 if rank is None else rank,
-                                world_size=1 if world_size is None
-                                else world_size)
     elif "MASTER_ADDR" in os.environ:
         dist.init_process_group(backend)
     else:

@@ -180,8 +180,10 @@ class Trainer:
             total += float(out["loss"]) * toks
             n += toks
         if self.data_ring is not None:
+            # on the model's device: an NCCL group refuses a CPU tensor
             total, n = self.data_ring.all_reduce_sum(torch.tensor(
-                [total, float(n)], dtype=torch.float64)).tolist()
+                [total, float(n)], dtype=torch.float64,
+                device=self.device)).tolist()
         if n == 0:
             return float("nan")  # an empty eval set must not look like 0
         return total / n

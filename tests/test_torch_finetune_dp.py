@@ -12,6 +12,7 @@ WER with the validation row on rank 0 and none on rank 1."""
 import json
 import os
 import shutil
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -19,7 +20,7 @@ import torch
 
 from neuspeech1_tpu.cli.finetune import main as jax_finetune
 from neuspeech1_tpu_torch.cli.finetune import main as port_finetune
-from neuspeech1_tpu_torch.train.trainer import _interleave
+from neuspeech1_tpu_torch.train.trainer import Trainer, _interleave
 from tests.test_torch_eval_cli import make_eval_setup
 from tests.test_torch_finetune_cli import _log, _train_argv
 from tests.torch_spawn import finetune_rank, free_port
@@ -138,3 +139,36 @@ def test_interleave_restores_the_strided_row_order():
                 [(["a1", "a3"], [1, 3]), ([], [])]]
     assert _interleave(per_rank) == [
         (["a0", "a1", "a2", "a3", "a4"], [0, 1, 2, 3, 4]), (["b0"], [5])]
+
+
+class _DeviceCheckingRing:
+    """A data ring of two ranks that holds every tensor it reduces to one
+    device, as an NCCL group does, and answers for both ranks."""
+
+    rank, size = 0, 2
+
+    def __init__(self, device):
+        self.device = device
+
+    def all_reduce_sum(self, x):
+        assert x.device == self.device, (x.device, self.device)
+        return torch.tensor([2 * 6.0, 2 * 3.0], dtype=torch.float64)
+
+
+def test_eval_reduction_runs_on_the_model_device():
+    """The eval loss's token-weighted sum crosses the data ring on the
+    model's device (a 'meta' device stands for the card here), and the
+    global mean comes back to the host."""
+    device = torch.device("meta")
+    batch = {"labels": np.zeros((2, 4), np.int32)}
+    trainer = SimpleNamespace(
+        eval_loader=[batch], state=None, frozen=None, device=device,
+        data_ring=_DeviceCheckingRing(device),
+        _pad_batch=lambda b: (b, _rows_of(b)), _prep=lambda b: b,
+        eval_step=lambda state, frozen, b: {"loss": torch.tensor(2.0),
+                                            "n_tokens": torch.tensor(3)})
+    assert Trainer.evaluate(trainer) == 2.0
+
+
+def _rows_of(batch):
+    return next(iter(batch.values())).shape[0]
