@@ -138,8 +138,17 @@ each printing JSON lines:
             probe_bwd and probe_dot over the full-shape sweep.
 14. bench   ``neuspeech1_tpu_torch.bench`` once in process: its JSON line
             (samples/s, step ms, mfu, greedy decode tokens/s with adapters).
+15. parallel data parallelism and GPipe as LocalRing threads on the card,
+            remat under sequence parallelism, the fine-tune CLI under
+            torchrun's environment, the profiler's trace.
+16. sharded FSDP and tensor parallelism in four processes on the card over
+            a gloo group (``parallel/sharding.py``): the LoRA step over
+            {tensor: 2} and the --ft_full step over {fsdp: 2, tensor: 2}
+            against the one-rank step, greedy serving over {tensor: 2} and
+            {data: 2}, the fine-tune CLI at --mesh_fsdp=2 --mesh_tensor=2
+            (whole-tensor checkpoints, resume, eval-WER).
 
-Then it prints the kernel summary (with each kernel's bound: the least time
+Then it prints each phase's wall seconds, the kernel summary (with each kernel's bound: the least time
 the card could take for the same bytes or operations, from NVIDIA's H100 SXM
 peaks), the card's name and power limit as ``nvidia-smi`` gives them, and as
 its last line
@@ -255,6 +264,10 @@ KERNEL_CASES = (
     # the training path at batch 64: encoder self and decoder cross
     dict(name="train_encoder", b=64, t=1500, h=8, d=64, bwd=True),
     dict(name="train_cross", b=64, t=64, t_kv=1500, h=8, d=64, bwd=True),
+    # the same at the tensor-parallel shapes: each of 2 tensor ranks holds
+    # 4 of the 8 heads
+    dict(name="tp_train_encoder", b=64, t=1500, h=4, d=64, bwd=True),
+    dict(name="tp_train_cross", b=64, t=64, t_kv=1500, h=4, d=64, bwd=True),
     dict(name="d32", b=2, t=300, h=4, d=32, bwd=True),
     dict(name="d128_causal", b=2, t=300, h=4, d=128, causal=True, bwd=True),
 )
@@ -264,6 +277,9 @@ KERNEL_CASES = (
 LORA_CASES = (
     ("fc1", 96000, 512, 2048, 32),
     ("fc2", 96000, 2048, 512, 32),
+    # fc1's and fc2's blocks on one of 2 tensor ranks
+    ("tp_fc1", 96000, 512, 1024, 32),
+    ("tp_fc2", 96000, 1024, 512, 32),
     ("ragged_r12", 10007, 512, 2048, 12),
 )
 # (name, B, Tq, T, kv_len, layout): K6 at the serving paths' shapes,
@@ -299,6 +315,17 @@ DECODE_STEP_MULTI_CASES = (
     ("verify_early", 16, 4, 516, 8, "holes"),
     ("verify_late", 16, 4, 516, 508, "holes"),
     ("prefill", 16, 4, 516, 0, "broadcast"),
+)
+# K6 and K7 on one of 2 tensor ranks (4 of the 8 heads): the greedy and
+# beam steps of the cases above
+SHARDED_DECODE_HEADS = 4
+SHARDED_DECODE_CROSS_CASES = (
+    ("tp_greedy", 8, 1, 1500, None, "bhtd"),
+    ("tp_beam_step", 16, 5, 1500, None, "bhtd"),
+)
+SHARDED_DECODE_STEP_CASES = (
+    ("tp_greedy_last", 8, 36, 35),
+    ("tp_beam_last", 80, 132, 131),
 )
 # the share of earlier verify columns a row keeps (accepted drafts) in the
 # K8 cases' hole masks
@@ -529,6 +556,19 @@ OPT_CLI_STEPS = 3
 # GiB and not 2560; after the script's earlier phases the encoder's 512
 # ran out and the decoder fit 2304 at 68.8 GiB (same card), so each list
 # steps down to a fallback
+# The sharded phase: SHARD_PROCS processes share the card over a gloo group
+# (NCCL refuses two ranks on one GPU); a collective that waits past
+# SHARD_GROUP_TIMEOUT_S fails its rank, and the phase fails if its ranks
+# run past SHARD_TIMEOUT_S. The LoRA 'fc' step at TRAIN_BATCH over {tensor:
+# 2} and the --ft_full step at SHARD_FSDP_BATCH over {fsdp: 2, tensor: 2},
+# SHARD_STEPS steps each against the one-rank step, with the data-parallel
+# check's bounds; greedy serving of SHARD_CLIPS clips, SHARD_NEW_TOKENS new
+# tokens; the fine-tune CLI for SHARD_CLI_STEPS steps, then a resume
+SHARD_PROCS, SHARD_STEPS, SHARD_FSDP_BATCH = 4, 2, 32
+SHARD_LOSS_RTOL, SHARD_GRAD_NORM_RTOL = LOSS_TOL, 5e-3
+SHARD_CLIPS, SHARD_NEW_TOKENS = 8, 16
+SHARD_CLI_STEPS, SHARD_CLI_BATCH, SHARD_EVAL_BATCH = 4, 32, 8
+SHARD_GROUP_TIMEOUT_S, SHARD_TIMEOUT_S = 300, 900
 DP_N, DP_STEPS, DP_LOSS_RTOL = 2, 2, LOSS_TOL
 DP_GRAD_NORM_RTOL = 5e-3
 PIPE_N, PIPE_M = 2, 4
@@ -696,7 +736,11 @@ def phase_kernels() -> list:
     results.extend(_check_lora_bwd(gen))
     results.extend(_check_flash_bias(gen))
     results.extend(_check_decode_cross(gen))
+    results.extend(_check_decode_cross(gen, SHARDED_DECODE_CROSS_CASES,
+                                       SHARDED_DECODE_HEADS))
     results.extend(_check_decode_step(gen))
+    results.extend(_check_decode_step(gen, SHARDED_DECODE_STEP_CASES,
+                                      SHARDED_DECODE_HEADS))
     results.extend(_check_decode_step_multi(gen))
     return results
 
@@ -731,7 +775,7 @@ def _bwd_split_ms(fn, calls: int = 5) -> dict:
     return split
 
 
-def _profiled(fn, calls: int, read, seen, windows: int = 3):
+def _profiled(fn, calls: int, read, seen, windows: int = 8):
     """``read`` of torch.profiler's key averages over ``calls`` calls of
     ``fn``, after one call outside the window. The profiler on the card now
     and then hands back a window without its device events; a window whose
@@ -1092,19 +1136,21 @@ def _sdpa_bias_bwd_ms(q, k, v, mask, do) -> float:
                                                retain_graph=True))
 
 
-def _check_decode_cross(gen) -> list:
-    """K6 against its plain version at the greedy and beam decoder's shapes,
-    through both cache layouts; timed over CACHE_COPIES caches in turn,
-    beside SDPA on the same [B, H, Tq, D] x [B, H, T, D] inputs: CUDA
-    events, device time under torch.profiler and the wrapper's host time;
-    and a second call on the same inputs gives the same bits."""
+def _check_decode_cross(gen, cases=DECODE_CROSS_CASES,
+                        h: int = DECODE_HEADS) -> list:
+    """K6 against its plain version at the greedy and beam decoder's shapes
+    (``cases``, at ``h`` heads), through both cache layouts; timed over
+    CACHE_COPIES caches in turn, beside SDPA on the same [B, H, Tq, D] x
+    [B, H, T, D] inputs: CUDA events, device time under torch.profiler and
+    the wrapper's host time; and a second call on the same inputs gives the
+    same bits."""
     import torch.nn.functional as F
 
     from neuspeech1_tpu_torch.ops import decode_cross as dc
 
-    h, d = DECODE_HEADS, DECODE_HEAD_DIM
+    d = DECODE_HEAD_DIM
     out = []
-    for name, b, t_q, t, kv_len, layout in DECODE_CROSS_CASES:
+    for name, b, t_q, t, kv_len, layout in cases:
         kvl = kv_len or t
         q = (torch.randn((b, t_q, h * d), generator=gen, device="cuda")
              .to(torch.bfloat16).view(b, t_q, h, d))
@@ -1165,18 +1211,19 @@ def _check_decode_cross(gen) -> list:
     return out
 
 
-def _check_decode_step(gen) -> list:
-    """K7 against its plain version at the beam and greedy steps' shapes:
-    the context within K7_TOL and the caches after the in-place write equal,
-    the same bits from a second call; timed over CACHE_COPIES caches in turn
-    (CUDA events, device time under torch.profiler and the wrapper's host
-    time). No single PyTorch call computes this function (a cache write and
-    a masked attention)."""
+def _check_decode_step(gen, cases=DECODE_STEP_CASES,
+                       h: int = DECODE_HEADS) -> list:
+    """K7 against its plain version at the beam and greedy steps' shapes
+    (``cases``, at ``h`` heads): the context within K7_TOL and the caches
+    after the in-place write equal, the same bits from a second call; timed
+    over CACHE_COPIES caches in turn (CUDA events, device time under
+    torch.profiler and the wrapper's host time). No single PyTorch call
+    computes this function (a cache write and a masked attention)."""
     from neuspeech1_tpu_torch.ops import decode_step as ds
 
-    h, d = DECODE_HEADS, DECODE_HEAD_DIM
+    d = DECODE_HEAD_DIM
     out = []
-    for name, rows, t_max, idx in DECODE_STEP_CASES:
+    for name, rows, t_max, idx in cases:
         q, kn, vn = (torch.randn((rows, 1, h * d), generator=gen,
                                  device="cuda").to(torch.bfloat16)
                      .view(rows, 1, h, d) for _ in range(3))
@@ -2985,13 +3032,17 @@ def phase_bench() -> dict:
 
 
 def _train_setup(batch_size: int, device: str = "cuda",
-                 seq_parallel_axis=None):
+                 seq_parallel_axis=None, shard: bool = False,
+                 ft_full: bool = False):
     """The bench configuration on the card: whisper-base with the 'base'
     stem over 208 channels, f32 masters computing in bf16, LoRA r=32 alpha=64
     on encoder q/k/v/out/fc1/fc2 from seeds, AdamW with warmup, and a
     synthetic batch from a seeded numpy generator (bench.py's recipe);
     with ``seq_parallel_axis`` the encoder's self-attention runs the ring
-    over that axis of the ambient mesh."""
+    over that axis of the ambient mesh; with ``shard`` the model is split
+    over the ambient mesh's fsdp and tensor axes
+    (``parallel/sharding.py::shard_params``); with ``ft_full`` every leaf
+    trains and there are no adapters."""
     import dataclasses
 
     from neuspeech1_tpu_torch.cli import common
@@ -3004,10 +3055,16 @@ def _train_setup(batch_size: int, device: str = "cuda",
     config = dataclasses.replace(config, seq_parallel_axis=seq_parallel_axis)
     model = module_from_params(init_params(config, stem, seed=0), config, stem,
                                device=device, dtype=torch.float32)
-    lora = init_lora(config, rank=32, alpha=64, seed=1, device=device)
+    if shard:
+        from neuspeech1_tpu_torch.parallel import sharding
+
+        sharding.shard_params(model)
+    lora = (None if ft_full else
+            init_lora(config, rank=32, alpha=64, seed=1, device=device))
     tx = optimizer.make_optimizer(peak_lr=1e-3, warmup_steps=500,
                                   total_steps=100_000)
-    state, frozen = trainstep.init_train_state(model, lora, tx)
+    state, frozen = trainstep.init_train_state(
+        model, lora, tx, optimizer.default_trainable_pred(ft_full=ft_full))
     step = trainstep.make_train_step(config, stem, tx, fold_lora=True)
     rng = np.random.default_rng(0)
     n_samples = 4 * config.max_source_positions
@@ -5372,7 +5429,481 @@ def phase_parallel(device: str = "cuda") -> dict:
     return out
 
 
-def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl) -> dict:
+# --------------------------------------------------------------------------
+# the sharded phase: FSDP and tensor parallelism in processes on one card
+# --------------------------------------------------------------------------
+
+def _shard_steps(step, state, frozen, batch, device: str, ring=None) -> dict:
+    """SHARD_STEPS train steps: per step the ce loss, the pre-clip
+    gradient norm, the kernels' launches and the ms (host clock, the
+    device synchronized and, with ``ring``, the ranks at a barrier on each
+    side: the step of every rank sharing the card), then the peak memory."""
+    out = {"ce_loss": [], "grad_norm": [], "ms": [], "launches": []}
+    _sync(device)
+    _reset_peak(device)
+    for _ in range(SHARD_STEPS):
+        if ring is not None:
+            ring.barrier()
+        _reset_counts()
+        t0 = time.perf_counter()
+        m = step(state, frozen, batch)
+        out["ce_loss"].append(float(m["ce_loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        _sync(device)
+        if ring is not None:
+            ring.barrier()
+        out["ms"].append(1e3 * (time.perf_counter() - t0))
+        out["launches"].append({k: v for k, v in _kernel_counts().items()
+                                if v})
+    out["peak_mem_gb"] = _peak_gb(device)
+    return out
+
+
+def _state_bytes(state) -> dict:
+    """Bytes of the trainable leaves and of their AdamW moments."""
+    opt = state.opt_state
+    return {"params": sum(t.nbytes for t in state.trainable.values()),
+            "adam": sum(opt.mu[k].nbytes + opt.nu[k].nbytes
+                        for k in state.trainable)}
+
+
+def _bits_equal_over(ring, tensors) -> bool:
+    """Whether ``tensors`` are the same bits on every rank of ``ring``."""
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    parts = ring.all_gather(flat.view(torch.int32)[None], 0)
+    return all(torch.equal(parts[0], p) for p in parts[1:])
+
+
+def _shard_references(device: str) -> dict:
+    """The one-rank runs the sharded phase holds its ranks to, in this
+    (warm) process before the ranks start: the LoRA 'fc' step at
+    TRAIN_BATCH, the --ft_full step at SHARD_FSDP_BATCH (with its bytes of
+    parameters and Adam state), and the greedy request of `_shard_request`."""
+    out = {}
+    _, _, st, fz, stp, batch = _train_setup(TRAIN_BATCH, device)
+    out["tp_step"] = _shard_steps(stp, st, fz, batch, device)
+    del st, fz, stp, batch
+    _empty_cache(device)
+    _, _, st, fz, stp, batch = _train_setup(SHARD_FSDP_BATCH, device,
+                                            ft_full=True)
+    out["fsdp_tp_step"] = {**_shard_steps(stp, st, fz, batch, device),
+                           "bytes": _state_bytes(st)}
+    del st, fz, stp, batch
+    _empty_cache(device)
+    model, feats, prompt, gen = _shard_request_inputs(device)
+    out["serving"] = _shard_request(model, feats, prompt, gen, device)
+    del model
+    _empty_cache(device)
+    return out
+
+
+def _shard_tp_step(rank: int, pair, device: str) -> dict:
+    """The train phase's LoRA 'fc' step (batch TRAIN_BATCH) on ranks 0 and
+    1 split over {tensor: 2} (each rank the whole batch, 4 of 8 heads, fc1
+    and fc2 in halves), ranks 2 and 3 waiting; the trainable (replicated)
+    leaves compared bit for bit across the two ranks."""
+    import torch.distributed as dist
+
+    from neuspeech1_tpu_torch.parallel import mesh as pmesh
+
+    out = {}
+    if rank < 2:
+        with pmesh.set_mesh({"tensor": pair}):
+            _, _, st, fz, stp, batch = _train_setup(TRAIN_BATCH, device,
+                                                    shard=True)
+            out["sharded"] = _shard_steps(stp, st, fz, batch, device, pair)
+            out["replicated_bits_equal"] = _bits_equal_over(
+                pair, st.trainable.values())
+        del st, fz, stp, batch
+        _empty_cache(device)
+    dist.barrier()
+    return out
+
+
+def _shard_fsdp_step(rank: int, device: str) -> dict:
+    """Every leaf trainable (--ft_full), batch SHARD_FSDP_BATCH, on the four
+    ranks as {fsdp: 2, tensor: 2} (a ``DeviceMesh`` over the gloo group;
+    16 rows a rank): each rank's bytes of parameters and AdamW state, and
+    the leaves no axis splits compared bit for bit across the four
+    ranks."""
+    import torch.distributed as dist
+
+    from neuspeech1_tpu_torch.parallel import mesh as pmesh
+    from neuspeech1_tpu_torch.parallel import sharding
+    from neuspeech1_tpu_torch.parallel.ring_attention import DistRing
+
+    out = {}
+    mesh = pmesh.make_mesh(device, fsdp=2, tensor=2)
+    with pmesh.set_mesh(mesh):
+        _, _, st, fz, stp, batch = _train_setup(SHARD_FSDP_BATCH, device,
+                                                shard=True, ft_full=True)
+        shard = pmesh.batch_sharding()
+        rows = {k: shard.shard(v) for k, v in batch.items()}
+        world = DistRing(dist.group.WORLD)
+        out["sharded"] = {**_shard_steps(stp, st, fz, rows, device, world),
+                          "rows_per_rank": rows["labels"].shape[0],
+                          "bytes": _state_bytes(st)}
+        specs = sharding.leaf_specs(fz.model)
+        out["replicated_bits_equal"] = _bits_equal_over(
+            world, [t for k, t in st.trainable.items() if k not in specs])
+    del st, fz, stp, batch
+    _empty_cache(device)
+    dist.barrier()
+    return out
+
+
+def _shard_request_inputs(device: str):
+    """A bf16 whisper-base model from a seed, SHARD_CLIPS clips of seeded
+    signals, their prompts and greedy settings for SHARD_NEW_TOKENS new
+    tokens."""
+    from neuspeech1_tpu_torch.cli import common
+    from neuspeech1_tpu_torch.decode.generate import GenerationConfig
+    from neuspeech1_tpu_torch.models.convert import module_from_params
+    from neuspeech1_tpu_torch.models.init import init_params
+
+    config, stem = common.preset_model("base", "base", in_channels=208)
+    model = module_from_params(init_params(config, stem, seed=0), config,
+                               stem, device=device)
+    rng = np.random.default_rng(7)
+    feats = torch.from_numpy(rng.standard_normal(
+        (SHARD_CLIPS, stem.in_channels, 4 * config.max_source_positions))
+        .astype(np.float32)).to(device, model.dtype)
+    prompt = torch.tensor([[config.sot_id, config.first_language_id,
+                            config.transcribe_id, config.notimestamps_id]]
+                          * SHARD_CLIPS, device=device)
+    gen = GenerationConfig.for_model(
+        config, max_length=prompt.shape[1] + SHARD_NEW_TOKENS)
+    return model, feats, prompt, gen
+
+
+def _shard_request(model, feats, prompt, gen, device: str) -> dict:
+    """One greedy request through ``generate_over_mesh`` under the ambient
+    mesh: its ms, the kernels' launches and every clip's tokens."""
+    from neuspeech1_tpu_torch.decode.generate import generate_over_mesh
+
+    _reset_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    tokens = generate_over_mesh(model, feats, prompt, gen)
+    _sync(device)
+    return {"ms": 1e3 * (time.perf_counter() - t0),
+            "launches": {k: v for k, v in _kernel_counts().items() if v},
+            "tokens": tokens.cpu().tolist()}
+
+
+def _shard_serving(rank: int, pair, device: str) -> dict:
+    """`_shard_request` on ranks 0 and 1 as {tensor: 2} (the weights split,
+    4 heads a rank in K1, K6 and K7) and as {data: 2} (half the clips a
+    rank), each rank returning every clip's tokens, ranks 2 and 3
+    waiting."""
+    import copy
+
+    import torch.distributed as dist
+
+    from neuspeech1_tpu_torch.parallel import mesh as pmesh
+    from neuspeech1_tpu_torch.parallel import sharding
+
+    model, feats, prompt, gen = _shard_request_inputs(device)
+    out = {}
+    for name in ("tensor", "data"):
+        if rank < 2:
+            mesh = {name: pair}
+            with pmesh.set_mesh(mesh):
+                m = (sharding.shard_params(copy.deepcopy(model), mesh)
+                     if name == "tensor" else model)
+                out[name] = _shard_request(m, feats, prompt, gen, device)
+                out[name]["ranks_agree"] = _bits_equal_over(
+                    pair, [torch.tensor(out[name]["tokens"])])
+            del m
+        dist.barrier()
+    del model
+    _empty_cache(device)
+    return out
+
+
+def _shard_cli(rank: int, out_dir: str, corpus: str, tokenizer: str,
+               device: str) -> dict:
+    """The fine-tune CLI in every process at --mesh_fsdp=2 --mesh_tensor=2
+    (the gloo group is up before ``main``, which adopts it), --ft_full,
+    batch SHARD_CLI_BATCH (16 rows a rank): SHARD_CLI_STEPS steps with a
+    save every two and eval loss and eval-WER at the last, then a resume
+    to two more; rank 0 reads the checkpoints' tensors."""
+    import torch.distributed as dist
+
+    run = os.path.join(out_dir, "cli")
+    argv = [f"--train_data={corpus}/train.jsonl",
+            f"--val_data={corpus}/eval.jsonl", "--base_model=random",
+            f"--tokenizer={tokenizer}", "--eeg_ch=208", "--ft_full=True",
+            f"--per_device_train_batch_size={SHARD_CLI_BATCH}",
+            f"--per_device_eval_batch_size={SHARD_EVAL_BATCH}",
+            f"--label_max_length={FT_LABEL_LEN}", "--warmup_steps=1",
+            "--logging_steps=1", "--save_steps=2",
+            f"--eval_steps={SHARD_CLI_STEPS}", "--eval_wer=True",
+            "--remat=False", "--mesh_fsdp=2", "--mesh_tensor=2",
+            f"--output_dir={run}", f"--device={device}"]
+    before = _kernel_counts()
+    first = _run_finetune(argv + [f"--max_steps={SHARD_CLI_STEPS}"])
+    counts = {k: v - before[k] for k, v in _kernel_counts().items()
+              if v - before[k]}
+    resumed = _run_finetune(argv + [f"--max_steps={SHARD_CLI_STEPS + 2}",
+                                    "--resume_from_checkpoint=latest"])
+    out = {"step_ms": [s["ms"] for s in first["steps"]],
+           "launches": counts, "wall_s": [first["wall_s"],
+                                          resumed["wall_s"]],
+           "peak_mem_gb": first["peak_mem_gb"],
+           "restored_step": (resumed["restored"] or {}).get("step"),
+           "resumed_steps": [r["step"] for r in resumed["records"]
+                             if "loss" in r][-2:],
+           # metrics.jsonl after the resume: both runs' records
+           "records": resumed["records"]}
+    dist.barrier()
+    if rank == 0:
+        out["checkpoints"] = _whole_shapes(run)
+    return out
+
+
+def _whole_shapes(run: str) -> dict:
+    """Of each checkpoint of a CLI run: whether every trainable tensor and
+    its moments have the shapes of a one-rank whisper-base model's leaves
+    (its vocabulary from the file's embedding)."""
+    import dataclasses
+
+    from neuspeech1_tpu_torch.cli import common
+    from neuspeech1_tpu_torch.models.whisper import Whisper
+    from neuspeech1_tpu_torch.train.optimizer import named_leaves
+
+    out = {}
+    ck = os.path.join(run, "checkpoints")
+    for step in sorted(d for d in os.listdir(ck) if d.isdigit()):
+        saved = torch.load(os.path.join(ck, step, "state.pt"),
+                           map_location="cpu", weights_only=True)
+        config, stem = common.preset_model("base", "base", in_channels=208)
+        vocab = saved["trainable"]["model/decoder/token_embed"].shape[0]
+        with torch.device("meta"):
+            whole = named_leaves(Whisper(dataclasses.replace(
+                config, vocab_size=vocab), stem))
+        moments = saved["opt_state"]
+        out[step] = {
+            "leaves": len(saved["trainable"]),
+            "whole": set(saved["trainable"]) == set(whole) and all(
+                t.shape == whole[k].shape == moments["mu"][k].shape
+                == moments["nu"][k].shape
+                for k, t in saved["trainable"].items()),
+            "embed_shape": list(saved["trainable"][
+                "model/decoder/token_embed"].shape)}
+    return out
+
+
+def _sharded_worker(rank: int, world: int, store: str, out_dir: str,
+                    corpus: str, tokenizer: str, device: str) -> None:
+    """One of the sharded phase's processes, all on the one card: a gloo
+    group from a FileStore (collectives on CUDA tensors; a collective that
+    waits past SHARD_GROUP_TIMEOUT_S raises), pairs of ranks (0, 1) and
+    (2, 3) as subgroups, then the phase's parts in order; its output goes
+    to ``rank{rank}.log``, its results to ``rank{rank}.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from neuspeech1_tpu_torch.parallel.ring_attention import DistRing
+
+    log = open(os.path.join(out_dir, f"rank{rank}.log"), "w", buffering=1)
+    os.dup2(log.fileno(), 1)
+    os.dup2(log.fileno(), 2)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store, world), rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=SHARD_GROUP_TIMEOUT_S))
+    try:
+        pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+        pair = DistRing(pairs[rank // 2])
+        out = {"rank": rank}
+        out["tp_step"] = _shard_tp_step(rank, pair, device)
+        out["fsdp_tp_step"] = _shard_fsdp_step(rank, device)
+        out["serving"] = _shard_serving(rank, pair, device)
+        out["cli"] = _shard_cli(rank, out_dir, corpus, tokenizer, device)
+        out["jax_imported"] = not _jax_free()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_ranks(fn, args: tuple, n: int, out_dir: str) -> float:
+    """``fn(rank, *args)`` in ``n`` spawned processes; the wall seconds. A
+    rank that raises fails the run with its traceback, after the others
+    are stopped; ranks still running after SHARD_TIMEOUT_S are killed and
+    fail it too. Each rank's log tail goes to stderr on failure."""
+    ctx = torch.multiprocessing.start_processes(
+        fn, args=args, nprocs=n, join=False, start_method="spawn")
+    t0 = time.perf_counter()
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > SHARD_TIMEOUT_S:
+                raise RuntimeError(f"sharded phase: ranks still running "
+                                   f"after {SHARD_TIMEOUT_S} s")
+    except BaseException:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+        for r in range(n):
+            path = os.path.join(out_dir, f"rank{r}.log")
+            if os.path.exists(path):
+                with open(path) as f:
+                    tail = f.read()[-3000:]
+                print(f"--- sharded rank {r} log tail ---\n{tail}",
+                      file=sys.stderr, flush=True)
+        raise
+    return time.perf_counter() - t0
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def phase_sharded(device: str = "cuda") -> dict:
+    """FSDP and tensor parallelism at whisper-base width in SHARD_PROCS
+    processes sharing the one card over a gloo group: the LoRA 'fc' step
+    at batch 64 over {tensor: 2} and the --ft_full step at batch 32 over
+    {fsdp: 2, tensor: 2}, each against the one-rank step run in this
+    process first (`_shard_references`; ce loss within
+    SHARD_LOSS_RTOL, pre-clip gradient norm within SHARD_GRAD_NORM_RTOL,
+    the replicated leaves the same bits on every rank), K1/K2/K3 launches
+    per rank and step, ms per step with the ranks sharing the card (not a
+    multi-card figure), peak memory and each rank's parameter and Adam
+    bytes; greedy serving under {tensor: 2} and {data: 2} against one rank
+    (the share of equal tokens); the fine-tune CLI in four processes at
+    --mesh_fsdp=2 --mesh_tensor=2 (train, save whole tensors, eval loss and
+    eval-WER, resume)."""
+    _sync(device)
+    gc.collect()
+    _empty_cache(device)
+    refs = _shard_references(device)
+    gc.collect()
+    _empty_cache(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus, tokenizer = _finetune_corpus(tmp, 50257)
+        out_dir = os.path.join(tmp, "ranks")
+        os.makedirs(out_dir)
+        wall = _run_ranks(_sharded_worker, (
+            SHARD_PROCS, os.path.join(tmp, "store"), out_dir, corpus,
+            tokenizer, device), SHARD_PROCS, out_dir)
+        runs = []
+        for r in range(SHARD_PROCS):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                runs.append(json.load(f))
+    tp, fs = runs[0]["tp_step"], runs[0]["fsdp_tp_step"]
+    sv, cli = runs[0]["serving"], runs[0]["cli"]
+    from neuspeech1_tpu_torch.cli import common
+
+    n_layers = common.preset_model("base", "base")[0].encoder_layers
+    out = {"procs": SHARD_PROCS, "wall_s": wall, "card": card()
+           if device == "cuda" else None}
+    for name, part, mesh in (("tp_step", tp, {"tensor": 2}),
+                             ("fsdp_tp_step", fs, {"fsdp": 2, "tensor": 2})):
+        one, sh = refs[name], part["sharded"]
+        rec = {"mesh": mesh, "ce_loss": {"one_rank": one["ce_loss"],
+                                         "sharded": sh["ce_loss"]},
+               "grad_norm": {"one_rank": one["grad_norm"],
+                             "sharded": sh["grad_norm"]},
+               "loss_rtol": SHARD_LOSS_RTOL,
+               "grad_norm_rtol": SHARD_GRAD_NORM_RTOL,
+               "launches_per_rank_per_step": sh["launches"][-1],
+               "one_rank_launches_per_step": one["launches"][-1],
+               "step_ms_ranks_sharing_one_card": sh["ms"],
+               "one_rank_step_ms": one["ms"],
+               "peak_mem_gb_per_rank": [r[name]["sharded"]["peak_mem_gb"]
+                                        for r in runs
+                                        if "sharded" in r[name]],
+               "one_rank_peak_mem_gb": one["peak_mem_gb"],
+               "replicated_bits_equal": part["replicated_bits_equal"]}
+        if "bytes" in sh:
+            rec["bytes_per_rank"] = [r[name]["sharded"]["bytes"]
+                                     for r in runs]
+            rec["one_rank_bytes"] = one["bytes"]
+        out[name] = rec
+        emit({"phase": "sharded", "part": name, **rec})
+        for a, b in zip(sh["ce_loss"], one["ce_loss"]):
+            check(_rel(a, b) <= SHARD_LOSS_RTOL,
+                  f"sharded {name}: ce_loss {a}, one-rank {b}")
+        for a, b in zip(sh["grad_norm"], one["grad_norm"]):
+            check(_rel(a, b) <= SHARD_GRAD_NORM_RTOL,
+                  f"sharded {name}: grad_norm {a}, one-rank {b}")
+        check(part["replicated_bits_equal"],
+              f"sharded {name}: replicated leaves differ across ranks")
+        check(all(r[name]["sharded"]["ce_loss"] == sh["ce_loss"]
+                  for r in runs if "sharded" in r[name]),
+              f"sharded {name}: the ranks' losses differ")
+        want = {"K1": 2 * n_layers, "K2": 2 * n_layers}
+        if name == "tp_step":
+            want["K3"] = 2 * n_layers
+        got = sh["launches"][-1]
+        check(all(got.get(k) == v for k, v in want.items()),
+              f"sharded {name}: launches per rank {got}, expected {want}")
+    b1 = out["fsdp_tp_step"]["one_rank_bytes"]
+    for b in out["fsdp_tp_step"]["bytes_per_rank"]:
+        check(b["params"] < b1["params"] and b["adam"] < b1["adam"],
+              f"sharded fsdp_tp_step: a rank holds {b}, one rank {b1}")
+    ref = refs["serving"]["tokens"]
+    serving = {}
+    for name in ("tensor", "data"):
+        r = sv[name]
+        flat = [(a == b) for ra, rb in zip(r["tokens"], ref)
+                for a, b in zip(ra[4:], rb[4:])]
+        serving[name] = {"ms_ranks_sharing_one_card": r["ms"],
+                         "one_rank_ms": refs["serving"]["ms"],
+                         "launches_per_rank": r["launches"],
+                         "one_rank_launches": refs["serving"]["launches"],
+                         "equal_token_share": sum(flat) / len(flat),
+                         "ranks_agree": r["ranks_agree"]}
+        check(r["ranks_agree"], f"sharded serving {name}: the ranks' "
+              "tokens differ")
+        check(len(r["tokens"]) == SHARD_CLIPS, f"sharded serving {name}: "
+              f"{len(r['tokens'])} rows, expected {SHARD_CLIPS}")
+        for k in ("K1", "K6", "K7"):
+            check(r["launches"].get(k, 0) > 0,
+                  f"sharded serving {name}: no {k} launch")
+    out["serving"] = serving
+    emit({"phase": "sharded", "part": "serving", **serving})
+    records = cli["records"]
+    evals = [r for r in records if "eval_wer" in r]
+    cli_out = {k: cli[k] for k in ("step_ms", "launches", "wall_s",
+                                   "peak_mem_gb", "restored_step",
+                                   "resumed_steps", "checkpoints")}
+    cli_out["losses"] = [r["loss"] for r in records if "loss" in r]
+    cli_out["evals"] = evals
+    out["cli"] = cli_out
+    emit({"phase": "sharded", "part": "cli", **cli_out})
+    check(cli["restored_step"] == SHARD_CLI_STEPS
+          and cli["resumed_steps"] == [SHARD_CLI_STEPS + 1,
+                                       SHARD_CLI_STEPS + 2],
+          f"sharded CLI resume: restored {cli['restored_step']}, steps "
+          f"{cli['resumed_steps']}")
+    check(all(math.isfinite(x) for x in cli_out["losses"])
+          and len(cli_out["losses"]) == SHARD_CLI_STEPS + 2,
+          f"sharded CLI losses {cli_out['losses']}")
+    check(len(evals) >= 1 and all(math.isfinite(r["eval_loss"])
+                                  for r in evals),
+          f"sharded CLI evals {evals}")
+    check(sorted(cli["checkpoints"]) == ["2", "4", "6"] or len(
+        cli["checkpoints"]) >= 2, f"CLI checkpoints {cli['checkpoints']}")
+    check(all(c["whole"] for c in cli["checkpoints"].values()),
+          f"sharded CLI: a checkpoint holds split tensors "
+          f"{cli['checkpoints']}")
+    for k in ("K1", "K2", "K6", "K7"):
+        check(cli["launches"].get(k, 0) > 0, f"sharded CLI: no {k} launch")
+    check(not any(r["jax_imported"] for r in runs),
+          "a sharded rank imported jax or the JAX package")
+    emit({"phase": "sharded", "wall_s": wall, "card": out["card"]})
+    return out
+
+
+def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl,
+            sh) -> dict:
     """One entry per kernel: launches on its path (training for K1, K2, K3;
     the sequence-parallel training step for K4; beam serving for K6, K7;
     speculative serving with the self-prefix drafter for K8; the perf
@@ -5384,8 +5915,10 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl) -> dict:
     (``modes_launches_per_request``), and the speech phase's eval CLI run
     (K1, K6, K7: ``speech_eval_launches``) and fine-tune CLI run (K1, K2,
     K3, K6, K7: ``speech_finetune_launches``), and the parallel phase's
-    runs (K1, K2, K3, K4: ``parallel_launches``)), the error and the times
-    of its case
+    runs (K1, K2, K3, K4: ``parallel_launches``), and the sharded phase's
+    (K1, K2, K3, K6, K7: ``sharded_launches``, per rank, with the times of
+    its case at the sharded shape as ``sharded_shape``)), the error and the
+    times of its case
     at that path's shape, its
     bound and the library call's time (for a probe kernel, of one variant
     named in ``case``, with every variant's ms beside)."""
@@ -5450,6 +5983,25 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl) -> dict:
                                         pl["remat_sp"].items()}
         return {"parallel_launches": out}
 
+    def sharded(kernel, case):
+        """The kernel's launches per rank in the sharded phase's runs, and
+        its kernels-phase case at the sharded shape."""
+        out = {}
+        for part in ("tp_step", "fsdp_tp_step"):
+            n = sh[part]["launches_per_rank_per_step"].get(kernel, 0)
+            if n:
+                out[f"{part}_per_rank_per_step"] = n
+        for name, r in sh["serving"].items():
+            if r["launches_per_rank"].get(kernel):
+                out[f"serving_{name}_per_rank"] = \
+                    r["launches_per_rank"][kernel]
+        if sh["cli"]["launches"].get(kernel):
+            out["cli_per_rank"] = sh["cli"]["launches"][kernel]
+        r = first(kernel, case)
+        return {"sharded_launches": out,
+                "sharded_shape": {"case": case, "max_abs_err": r.get(
+                    "max_abs_err", r.get("o_max_abs_err")), **timing(r)}}
+
     fa_py = "neuspeech1_tpu/ops/flash_attention.py"
     k5_bwd = {"ms": k5["bwd_ms"], "plain_ms": k5["bwd_plain_ms"],
               "bound_ms": k5["bwd_bound_ms"], "bound_by": k5["bwd_bound_by"],
@@ -5485,12 +6037,13 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl) -> dict:
          "finetune_launches": ft["launches"]["K1"],
          "modes_launches_per_request": modes("K1"),
          **speech("K1"), **parallel("K1"),
+         **sharded("K1", "tp_train_encoder"),
          "max_abs_err": k1["o_max_abs_err"], **timing(k1)},
         {"name": "flash_bwd_btc (K2)", "route": "cuda",
          "source": src + "flash_bwd_btc.cu", "replaces": fa_py + ":599",
          "launches": launches["K2"],
          "finetune_launches": ft["launches"]["K2"], **speech("K2"),
-         **parallel("K2"),
+         **parallel("K2"), **sharded("K2", "tp_train_encoder"),
          "max_abs_err": k2["max_abs_err"], **timing(k2)},
         # K5: the same two kernels on [B, H, T, D] strides. No path of the
         # port calls that entry; its launches are those of its own run in
@@ -5508,7 +6061,7 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl) -> dict:
          "replaces": "neuspeech1_tpu/ops/lora_bwd.py:47",
          "launches": launches["K3"],
          "finetune_launches": ft["launches"]["K3"], **speech("K3"),
-         **parallel("K3"),
+         **parallel("K3"), **sharded("K3", "tp_fc1"),
          "max_abs_err": k3["max_abs_err"], **timing(k3), **device(k3)},
         {"name": "flash_fwd_btc_bias (K4 forward)", "route": "cuda",
          "source": src + "flash_fwd_btc.cu", "replaces": fa_py + ":742",
@@ -5529,6 +6082,7 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl) -> dict:
          "eval_launches": ev["launches"]["K6"],
          "finetune_launches": ft["launches"]["K6"],
          "modes_launches_per_request": modes("K6"), **speech("K6"),
+         **sharded("K6", "tp_greedy"),
          "max_abs_err": k6["max_abs_err"], **timing(k6),
          **device(k6)},
         # the [B, T, H*D] cache entry: no serving path holds that layout,
@@ -5546,6 +6100,7 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl) -> dict:
          "eval_launches": ev["launches"]["K7"],
          "finetune_launches": ft["launches"]["K7"],
          "modes_launches_per_request": modes("K7"), **speech("K7"),
+         **sharded("K7", "tp_greedy_last"),
          "max_abs_err": k7["max_abs_err"], **timing(k7), **device(k7)},
         {"name": "decode_step_multi (K8)", "route": "cuda",
          "source": src + "decode_step_multi.cu",
@@ -5574,25 +6129,36 @@ def main(argv) -> int:
         print(f"usage: {argv[0]} [--profile-train[-sp] [TRACE_DIR]]",
               file=sys.stderr)
         return 2
-    phase_build()
-    kernels = phase_kernels()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        """``fn(*args)``, its wall seconds recorded under ``name``."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    timed("build", phase_build)
+    kernels = timed("kernels", phase_kernels)
     with tempfile.TemporaryDirectory() as tmp:
         model = serving_model(tmp)
-        sl = phase_slice(model)
-        bm = phase_beam(model)
-        sp = phase_spec(model)
-        phase_lora(model)
-        ev = phase_eval(model, bm)
-        md = phase_modes(model)
-    tr = phase_train()
-    phase_options(tr)
-    ft = phase_finetune(tr, bm)
-    sph = phase_speech()
-    rg = phase_ring(tr)
-    pr = phase_probes()
-    phase_bench()
-    pl = phase_parallel()
-    emit(summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl))
+        sl = timed("slice", phase_slice, model)
+        bm = timed("beam", phase_beam, model)
+        sp = timed("spec", phase_spec, model)
+        timed("lora", phase_lora, model)
+        ev = timed("eval", phase_eval, model, bm)
+        md = timed("modes", phase_modes, model)
+    tr = timed("train", phase_train)
+    timed("options", phase_options, tr)
+    ft = timed("finetune", phase_finetune, tr, bm)
+    sph = timed("speech", phase_speech)
+    rg = timed("ring", phase_ring, tr)
+    pr = timed("probes", phase_probes)
+    timed("bench", phase_bench)
+    pl = timed("parallel", phase_parallel)
+    sh = timed("sharded", phase_sharded)
+    emit({"phase_seconds": seconds})
+    emit(summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl, sh))
     print(card(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,14 +21,18 @@ Differences from the JAX CLI:
   ...``: rank, world size and ``MASTER_ADDR``/``MASTER_PORT`` in the
   environment), or from ``--coordinator=host:port`` with ``RANK`` and
   ``WORLD_SIZE`` in the environment: NCCL on ``cuda:<LOCAL_RANK>``, gloo
-  with ``--device=cpu``. ``--mesh_data`` is the data axis (-1: the world
-  size over fsdp x tensor). As in the JAX CLI ``--per_device_train_batch_size``
-  is the global batch: each process takes its strided rows of every batch
-  (``data/loader.py``), and the device caches are off when the world is
-  larger than one. Data rank 0 alone writes the logs, checkpoints and
-  adapter.
-- Refused before any model loads, naming its ROADMAP.md item:
-  ``--mesh_fsdp`` and ``--mesh_tensor`` above 1 (queue 1 item 10).
+  with ``--device=cpu``; a process group already up when ``main`` runs is
+  used as it is. The mesh is ``{data, fsdp, tensor}`` as the JAX CLI's
+  ``make_mesh``: ``--mesh_data`` (-1: the world size over fsdp x tensor),
+  ``--mesh_fsdp`` and ``--mesh_tensor``; a mesh that does not fit the
+  world (``WORLD_SIZE``) is refused before any rendezvous. The model is
+  split over ``fsdp`` and ``tensor`` (``parallel/sharding.py``). As in the
+  JAX CLI ``--per_device_train_batch_size`` is the global batch: each
+  process takes its strided rows of every batch by its batch coordinate
+  over ``data`` x ``fsdp`` (``data/loader.py``; the ranks of a tensor group
+  take the same rows), and the device caches are off when the world is
+  larger than one. The mesh's first rank alone writes the logs,
+  checkpoints (whole tensors), adapter and exported model.
 - ``--modal=speech`` trains the ``speech`` stem (in place of
   ``--stem_kind``) on ``SpeechDataset``'s log-mel features [80, 3000],
   computed per item on the host; as in the JAX CLI the native loader and
@@ -59,8 +63,6 @@ import argparse
 import dataclasses
 import functools
 import os
-
-_REFUSED = "is not ported yet: ROADMAP.md queue 1 item"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -178,14 +180,18 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def refuse_unported(args) -> None:
-    """Raise for a flag value the port does not have, before any model
-    loads."""
-    for axis in ("mesh_fsdp", "mesh_tensor"):
-        if getattr(args, axis) > 1:
-            raise NotImplementedError(
-                f"--{axis}={getattr(args, axis)} (FSDP and tensor "
-                f"parallelism) {_REFUSED} 10")
+def mesh_axes(args) -> dict:
+    """The mesh's axis sizes for the world this process belongs to (the
+    process group's, else ``WORLD_SIZE``, else 1); raises ValueError where
+    the flags do not fit it."""
+    import torch.distributed as dist
+
+    from neuspeech1_tpu_torch.parallel.mesh import resolve_axes
+
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", 1)))
+    return resolve_axes(world, data=args.mesh_data, fsdp=args.mesh_fsdp,
+                        tensor=args.mesh_tensor)
 
 
 def parse_resume(resume):
@@ -223,7 +229,7 @@ def main(argv=None):
     from neuspeech1_tpu_torch.utils.args import print_arguments
 
     print_arguments(args)
-    refuse_unported(args)
+    mesh_axes(args)
 
     import torch
     import torch.distributed as dist
@@ -243,9 +249,7 @@ def main(argv=None):
         "nccl" if device.type == "cuda" else "gloo")
     try:
         world = dist.get_world_size() if dist.is_initialized() else 1
-        axes = pmesh.resolve_axes(world, data=args.mesh_data,
-                                  fsdp=args.mesh_fsdp,
-                                  tensor=args.mesh_tensor)
+        axes = mesh_axes(args)
         mesh = None
         if dist.is_initialized():
             if device.type == "cuda" and device.index is None:
@@ -262,9 +266,6 @@ def _train(args, device, world: int):
     """The run on this process's ``device``, one of ``world`` ranks, under
     the ambient mesh."""
     import torch
-    import torch.distributed as dist
-
-    rank = dist.get_rank() if dist.is_initialized() else 0
 
     from neuspeech1_tpu_torch.cli import common
     from neuspeech1_tpu_torch.config import StemConfig
@@ -274,6 +275,8 @@ def _train(args, device, world: int):
     from neuspeech1_tpu_torch.models.convert import module_from_params
     from neuspeech1_tpu_torch.models.init import init_stem
     from neuspeech1_tpu_torch.models.lora import init_lora
+    from neuspeech1_tpu_torch.parallel import mesh as pmesh
+    from neuspeech1_tpu_torch.parallel import sharding
     from neuspeech1_tpu_torch.train import memory as trainmem
     from neuspeech1_tpu_torch.train import optimizer as opt
     from neuspeech1_tpu_torch.train import trainstep as ts
@@ -363,6 +366,9 @@ def _train(args, device, world: int):
     if remat != config.remat:
         config = dataclasses.replace(config, remat=remat)
 
+    # this process's rows of a global batch: those of its batch coordinate
+    # over data x fsdp, shared within a tensor group
+    index, count = pmesh.batch_coordinate()
     use_cache = False
     use_rotating = False
     budget_mb = args.device_cache_budget_mb
@@ -418,13 +424,13 @@ def _train(args, device, world: int):
             train_ds, collator, args.per_device_train_batch_size,
             shuffle=True, seed=args.seed, num_threads=args.num_workers,
             prefetch=2, native_signals=use_native(train_ds),
-            process_index=rank, process_count=world)
+            process_index=index, process_count=count)
     val_loader = (
         DataLoader(val_ds, collator, args.per_device_eval_batch_size,
                    shuffle=False, drop_last=False,
                    num_threads=args.num_workers, prefetch=2,
                    native_signals=use_native(val_ds),
-                   process_index=rank, process_count=world)
+                   process_index=index, process_count=count)
         if val_ds else None)
 
     # ---- model + adapters -------------------------------------------
@@ -466,9 +472,10 @@ def _train(args, device, world: int):
                              seed=args.seed + 2, device=device,
                              layer_range=layer_range)
 
-    # f32 masters on the device; compute in config.dtype
-    model = module_from_params(params, config, stem, device=device,
-                               dtype=torch.float32)
+    # f32 masters on the device; compute in config.dtype; this rank's
+    # shards under mesh fsdp/tensor axes
+    model = sharding.shard_params(module_from_params(
+        params, config, stem, device=device, dtype=torch.float32))
     total_steps = args.max_steps or (
         args.num_train_epochs * max(len(train_loader), 1))
     tx = opt.make_optimizer(
@@ -499,16 +506,18 @@ def _train(args, device, world: int):
     state = trainer.train(
         resume_from_checkpoint=parse_resume(args.resume_from_checkpoint))
 
+    # whole weights on every rank (a collective), written by one
+    whole = sharding.gather_params(model)
     if trainer.writer:
-        _save_final(args, common, state, model, lora, config, stem, device)
-    if trainer.data_ring is not None:
-        trainer.data_ring.barrier()
+        _save_final(args, common, state, whole, lora, config, stem, device)
+    pmesh.barrier()
     trainer.ckpt.close()
     return state
 
 
 def _save_final(args, common, state, model, lora, config, stem, device):
-    """adapter_final.npz and, with --export_full_model, full_model/."""
+    """adapter_final.npz and, with --export_full_model, full_model/, from
+    the whole ``model``."""
     # the final adapter (the PEFT checkpoint's counterpart)
     final = os.path.join(args.output_dir, "adapter_final.npz")
     common.save_adapter(final, common.trainable_tree(state.trainable, model,

@@ -18,7 +18,9 @@ one takes a sequence bias (``bias_spec``, built by
 ``decode/sequence_bias.py``), applied after the other processors, and,
 with ``GenerationConfig.timestamps``, whisper's timestamp grammar last
 (``decode/timestamps.py``); the eval CLI's teacher forcing is
-`teacher_forcing_predict`.
+`teacher_forcing_predict`. `generate_over_mesh` decodes a global batch
+split over a mesh's ``data`` x ``fsdp`` ranks, on weights split over its
+``fsdp`` and ``tensor`` axes.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from neuspeech1_tpu_torch.config import WhisperConfig
 from neuspeech1_tpu_torch.decode import logits_process as lp
 from neuspeech1_tpu_torch.decode.timestamps import timestamp_rules
 from neuspeech1_tpu_torch.models import whisper as tw
+from neuspeech1_tpu_torch.parallel import mesh as pmesh
 
 NEG = lp.NEG_INF  # the score of a banned token, a hit's demotion, an empty slot
 
@@ -184,6 +187,19 @@ def _noise_source(generator: Optional[torch.Generator], sample_noise,
         shape)
 
 
+def all_done(done) -> bool:
+    """``done`` (a 0-d bool tensor: this rank's rows need no more steps)
+    here and, under a mesh ``fsdp`` axis larger than 1, on every rank of
+    it. The ranks of an fsdp group decode other rows but gather every
+    weight together, so they leave a decode loop together; a row that
+    finished keeps taking what a finished row takes, as it would in one
+    batch holding every rank's rows. The one wait per step of the loops."""
+    ring = pmesh.fsdp_ring()
+    if ring is None:
+        return bool(done)
+    return int(ring.all_reduce_sum((~done).reshape(1).int())) == 0
+
+
 @torch.no_grad()
 def greedy_decode(model: tw.Whisper, features, prompt_ids,
                   gen: GenerationConfig, lora=None, bias_spec=None):
@@ -215,7 +231,7 @@ def greedy_decode(model: tw.Whisper, features, prompt_ids,
             lp.update_seen(seen, nxt)
         # the step after the last position, or after every row finished,
         # would only feed logits nobody reads
-        if cur_len + 1 == length or bool(finished.all()):
+        if cur_len + 1 == length or all_done(finished.all()):
             break
         logits, cache = tw.decoder_apply(model, nxt[:, None], enc,
                                          cache=cache, cache_index=cur_len,
@@ -259,7 +275,7 @@ def sample_decode(model: tw.Whisper, features, prompt_ids,
         finished |= nxt == gen.eos_id
         if seen is not None:
             lp.update_seen(seen, nxt)
-        if cur_len + 1 == length or bool(finished.all()):
+        if cur_len + 1 == length or all_done(finished.all()):
             break
         logits, cache = tw.decoder_apply(model, nxt[:, None], enc,
                                          cache=cache, cache_index=cur_len,
@@ -414,7 +430,7 @@ def beam_search(model: tw.Whisper, features, prompt_ids,
             go &= ~fin_exists.all()
         # the one wait per step; the step after the last would only feed
         # logits nobody reads
-        if cur_len + 1 == length or not bool(go):
+        if cur_len + 1 == length or all_done(~go):
             break
         rows = (new_beam + offsets).reshape(-1)
         if seen is not None:
@@ -496,7 +512,7 @@ def contrastive_search(model: tw.Whisper, features, prompt_ids,
             lp.update_seen(seen, nxt)
         cache["self"] = _gather_beams(cache["self"], sel[:, None].expand(b, k),
                                       b, k)
-        if bool(finished.all()):
+        if all_done(finished.all()):
             break
     return tokens
 
@@ -510,11 +526,13 @@ def teacher_forcing_predict(model: tw.Whisper, features, decoder_input_ids,
 
 
 def generate(model: tw.Whisper, features, prompt_ids, gen: GenerationConfig,
-             lora=None, draft_table=None, bias_spec=None, generator=None):
+             lora=None, draft_table=None, bias_spec=None, generator=None,
+             sample_noise=None):
     """Mode dispatch as in the JAX package (HF's mode selection):
     contrastive search when ``penalty_alpha > 0 and top_k > 1`` without
     sampling; with ``do_sample``, beam-sample at ``num_beams > 1`` and
-    sampling otherwise, drawing from ``generator`` (seeded 0 when None);
+    sampling otherwise, drawing from ``sample_noise`` (a `Noise` source)
+    or else ``generator`` (seeded 0 when None);
     beam search at ``num_beams > 1``; self-speculative greedy at
     ``spec_gamma >= 2`` (drafting from ``draft_table`` when given, see
     `decode.spec.spec_greedy_decode`), which refuses the other modes and
@@ -533,10 +551,11 @@ def generate(model: tw.Whisper, features, prompt_ids, gen: GenerationConfig,
     if gen.do_sample:
         if gen.num_beams > 1:
             return beam_search(model, features, prompt_ids, gen, lora,
-                               bias_spec, generator=generator)[0]
+                               bias_spec, generator=generator,
+                               sample_noise=sample_noise)[0]
         return sample_decode(model, features, prompt_ids, gen,
-                             generator=generator, lora=lora,
-                             bias_spec=bias_spec)
+                             generator=generator, sample_noise=sample_noise,
+                             lora=lora, bias_spec=bias_spec)
     if gen.num_beams > 1:
         return beam_search(model, features, prompt_ids, gen, lora,
                            bias_spec)[0]
@@ -551,3 +570,35 @@ def generate(model: tw.Whisper, features, prompt_ids, gen: GenerationConfig,
                                   gamma=gen.spec_gamma, lora=lora,
                                   draft_table=draft_table)[0]
     return greedy_decode(model, features, prompt_ids, gen, lora, bias_spec)
+
+
+def generate_over_mesh(model: tw.Whisper, features, prompt_ids,
+                       gen: GenerationConfig, generator=None, **kw):
+    """`generate` on a global batch under the ambient mesh: each rank
+    decodes its block of the rows split over ``data`` x ``fsdp``
+    (``parallel/mesh.py::batch_sharding``) on its weights (whole, or split
+    by ``parallel/sharding.py::shard_params``), and the blocks are
+    gathered, so every rank returns the whole batch's tokens [B,
+    max_length], as the JAX package's global arrays are. With
+    ``gen.do_sample`` each step draws the noise of the whole batch from
+    ``generator`` (seeded 0 when None) and each rank takes its rows of it,
+    so the tokens are those of one call on the whole batch. Without a mesh,
+    or with one block, this is `generate`."""
+    from neuspeech1_tpu_torch.parallel import mesh as pmesh
+
+    shard = pmesh.batch_sharding()
+    if shard.count == 1:
+        return generate(model, features, prompt_ids, gen,
+                        generator=generator, **kw)
+    if gen.do_sample:
+        if generator is None:
+            generator = torch.Generator(device=features.device).manual_seed(0)
+        draw = gumbel_noise(generator)
+        kw["sample_noise"] = lambda cur_len, shape: shard.shard(
+            draw(cur_len, (shape[0] * shard.count, *shape[1:])))
+    tokens = generate(model, shard.shard(features), shard.shard(prompt_ids),
+                      gen, **kw)
+    # fsdp first, then data: the blocks in the batch's order
+    for ring in reversed(pmesh.batch_rings()):
+        tokens = ring.all_gather(tokens.contiguous(), 0)
+    return tokens

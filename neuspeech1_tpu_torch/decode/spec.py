@@ -43,7 +43,7 @@ import torch.nn.functional as F
 
 from neuspeech1_tpu_torch.decode import logits_process as lp
 from neuspeech1_tpu_torch.decode.generate import (GenerationConfig,
-                                                  _process_logits)
+                                                  _process_logits, all_done)
 from neuspeech1_tpu_torch.models import whisper as tw
 
 # Pair codes are prev2 * V + prev1. An empty table holds one sentinel row
@@ -232,7 +232,7 @@ def spec_greedy_decode(model: tw.Whisper, features, prompt_ids,
     ar_len = torch.arange(length, device=dev)
     phys, it = p, 0
     # the one wait per iteration
-    while it < max_iters and not bool(finished.all()):
+    while it < max_iters and not all_done(finished.all()):
         t_last = out.gather(1, (out_len - 1)[:, None])[:, 0]
         if draft_table is not None:
             drafts = _table_draft(out, out_len, t_last, gamma, draft_table)

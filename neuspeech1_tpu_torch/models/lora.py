@@ -16,6 +16,13 @@ An adapter tree mirrors the model's layer lists:
 detached, so they never receive a gradient (the JAX package's
 ``stop_gradient``). ``models/convert.py`` maps a tree onto the JAX package's
 stacked ``[L, ...]`` leaves and back.
+
+Adapters stay whole on every rank of a mesh. On a base weight split by
+``parallel/sharding.py`` the products take the entry's block
+(``sharding.entry_block``: B's columns of a column-parallel weight, A's
+rows of a row-parallel one), so K3 runs at the split shapes and each
+tensor rank's gradient for A, B and E is a partial sum, which the
+training step adds over the ``tensor`` ring.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 from neuspeech1_tpu_torch.ops.int8_matmul import mode as int8_mode
 from neuspeech1_tpu_torch.ops.int8_matmul import qdot
 from neuspeech1_tpu_torch.ops.lora_bwd import lora_adapter_bwd
+from neuspeech1_tpu_torch.parallel import sharding
 
 Params = Dict[str, Any]
 
@@ -153,10 +161,14 @@ def merge_lora(model, lora: Params) -> Dict[str, torch.Tensor]:
     parameter's name (``encoder.layers.0.self_attn.q.weight``): f32 merged
     weights that carry the adapters' autograd graph. Pass them to
     ``torch.func.functional_call`` to run the model on them (PEFT's
-    ``merge_and_unload``; the JAX package's ``merge_lora``)."""
+    ``merge_and_unload``; the JAX package's ``merge_lora``). A weight split
+    by ``parallel/sharding.py`` merges with its block of the delta."""
     merged: Dict[str, torch.Tensor] = {}
     for path, entry in entries(lora):
         name = path.replace("/", ".")
+        shard = getattr(model.get_submodule(name), "shard", None)
+        if shard is not None:
+            entry = sharding.entry_block(entry, shard["weight"])
         weight = model.get_parameter(f"{name}.weight")
         merged[f"{name}.weight"] = w_eff_of(weight.float(), entry)
     return merged
@@ -216,14 +228,20 @@ class FoldedLinear(torch.autograd.Function):
 
 def folded_linear(x, p, entry: Params):
     """``x @ (W + s A (E) B)^T + bias`` for an ``nn.Linear`` ``p`` whose
-    weight and bias are frozen; raises if either requires grad, because the
+    weight and bias are frozen (`folded_product`)."""
+    return folded_product(x, p.weight, p.bias, entry)
+
+
+def folded_product(x, weight, bias, entry: Params):
+    """``x @ (W + s A (E) B)^T + bias`` for a frozen ``weight`` [d_out,
+    d_in] and ``bias``; raises if either requires grad, because the
     backward returns none for them. The active int8 mode
     (``ops/int8_matmul.py``) is read here, when the forward runs."""
-    if p.weight.requires_grad or (p.bias is not None and p.bias.requires_grad):
+    if weight.requires_grad or (bias is not None and bias.requires_grad):
         raise ValueError(
             "folded_linear returns no gradient for the base weight and bias:"
             " freeze them (requires_grad=False) or use the delta path")
-    return FoldedLinear.apply(x, p.weight, p.bias, entry["A"], entry["B"],
+    return FoldedLinear.apply(x, weight, bias, entry["A"], entry["B"],
                               entry.get("E"), entry["alpha"].detach(),
                               int8_mode())
 

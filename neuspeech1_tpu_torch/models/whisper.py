@@ -33,7 +33,12 @@ through ``ops.decode_step_multi`` (K8). With ``config.flash_attention ==
 that axis of the ambient mesh (``parallel/ring_attention.py``, K4 in every
 round); under its ``pipeline_axis`` the encoder's stack and the decoder's
 teacher-forcing stack run GPipe over that axis (``parallel/pipeline.py``).
-Elsewhere attention is plain
+A model split over a mesh's ``fsdp`` and ``tensor`` axes
+(``parallel/sharding.py::shard_params``) gathers each FSDP-split weight
+before its use, runs each attention layer on its local heads (K1, K2, K6
+and K7 at H / tensor heads) and each linear as a column- or row-parallel
+block (`linear`), and gathers the tied embedding whole once per decoder
+call. Elsewhere attention is plain
 tensor code, as it is XLA in the JAX package (the int8 cross cache
 included), with the same rounding points: scores from a product in the
 compute dtype, softmax in f32, probabilities cast back to the compute dtype
@@ -54,13 +59,14 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from neuspeech1_tpu_torch.config import StemConfig, WhisperConfig
-from neuspeech1_tpu_torch.models.lora import folded_linear, lora_delta
+from neuspeech1_tpu_torch.models.lora import folded_product, lora_delta
 from neuspeech1_tpu_torch.models.quantize import quantize_int8
 from neuspeech1_tpu_torch.ops import int8_matmul
 from neuspeech1_tpu_torch.ops.decode_cross import decode_cross, decode_cross_plain
 from neuspeech1_tpu_torch.ops.decode_step import (
     decode_step, decode_step_multi, decode_step_multi_plain, decode_step_plain)
 from neuspeech1_tpu_torch.ops.flash_attention import flash_attention_bthd
+from neuspeech1_tpu_torch.parallel import sharding
 from neuspeech1_tpu_torch.parallel.mesh import axis_ring
 from neuspeech1_tpu_torch.parallel.pipeline import pipeline
 from neuspeech1_tpu_torch.parallel.ring_attention import (
@@ -297,16 +303,25 @@ def linear(x, p: nn.Linear, lora=None):
     into the weight under `fold_at_linear`, per token otherwise. Under
     ``int8_matmul.int8_mode`` the product x W^T runs as an int8 matmul with
     straight-through gradients (`int8_matmul.quantized_dot`; the folded
-    path quantizes inside `folded_linear`); the bias and the per-token
-    delta stay exact."""
+    path quantizes inside `folded_product`); the bias and the per-token
+    delta stay exact. A linear split by ``parallel/sharding.py::
+    shard_params`` runs the same product on this rank's block, between the
+    split's collectives (`sharding.sharded_linear`)."""
+    if hasattr(p, "shard"):
+        return sharding.sharded_linear(x, p, lora, _dense)
+    return _dense(x, p.weight, p.bias, lora)
+
+
+def _dense(x, weight, bias, lora=None):
+    """`linear`'s product on one device's ``weight`` [d_out, d_in]."""
     if lora is not None and _FOLD_AT_LINEAR.get():
-        return folded_linear(x, p, lora)
+        return folded_product(x, weight, bias, lora)
     if int8_matmul.mode() != "off":
-        y = int8_matmul.quantized_dot(x, _cast(p.weight, x.dtype))
-        if p.bias is not None:
-            y = y + _cast(p.bias, x.dtype)
+        y = int8_matmul.quantized_dot(x, _cast(weight, x.dtype))
+        if bias is not None:
+            y = y + _cast(bias, x.dtype)
     else:
-        y = F.linear(x, _cast(p.weight, x.dtype), _cast(p.bias, x.dtype))
+        y = F.linear(x, _cast(weight, x.dtype), _cast(bias, x.dtype))
     if lora is not None:
         y = y + lora_delta(x, lora)
     return y
@@ -689,6 +704,19 @@ def _layer_lora(lora, part: str):
     return ((lora or {}).get(part) or {}).get("layers")
 
 
+def check_split_alone(model: Whisper) -> None:
+    """Raises for a model split by FSDP or tensor parallelism
+    (``parallel/sharding.py``) under a config's ``seq_parallel_axis`` or
+    ``pipeline_axis``: those combinations are not ported."""
+    config = model.config
+    if sharding.leaf_specs(model) and (config.seq_parallel_axis is not None
+                                       or config.pipeline_axis is not None):
+        raise NotImplementedError(
+            "FSDP or tensor parallelism together with sequence or pipeline "
+            "parallelism is not ported yet; ROADMAP.md queue 1 item 10 "
+            "lists it")
+
+
 def encoder_apply(model: Whisper, features, lora=None, dropout=None):
     """[B, ch, T] -> [B, T', d] encoder states, T' == max_source_positions;
     ``lora`` is an adapter tree (``models/lora.py``). ``dropout``
@@ -715,7 +743,11 @@ def encoder_apply(model: Whisper, features, lora=None, dropout=None):
     as the plain stack, and every rank gets the stack's output. A stage's
     layers take gradients on that stage alone; the training step sums them
     over the ring. Sequence and pipeline parallelism together are not
-    ported and raise."""
+    ported and raise, and so is either on a model split by FSDP or tensor
+    parallelism (`check_split_alone`).
+
+    A model split by ``parallel/sharding.py::shard_params`` runs each
+    linear on this rank's block (`linear`) and attention on its heads."""
     config = model.config
     remat = config.remat and torch.is_grad_enabled()
     policy = remat_policy(config)
@@ -731,6 +763,7 @@ def encoder_apply(model: Whisper, features, lora=None, dropout=None):
     flash = resolve_flash(model)
     layers = model.encoder.layers
     layers_lora = _layer_lora(lora, "encoder")
+    check_split_alone(model)
     if config.pipeline_axis is not None:
         if config.seq_parallel_axis is not None:
             raise NotImplementedError(
@@ -792,7 +825,10 @@ def decoder_apply(model: Whisper, tokens, enc_out, cache=None,
     dec = model.decoder
     config = model.config
     t = tokens.shape[1]
-    h = _cast(F.embedding(tokens, dec.token_embed.weight), model.dtype)
+    # under tensor parallelism gathered whole once per call
+    # (``parallel/sharding.py::whole_embedding``)
+    embed = sharding.whole_embedding(dec.token_embed)
+    h = _cast(F.embedding(tokens, embed), model.dtype)
     if cache is None:
         h = h + _cast(dec.pos_embed[:t], h.dtype)
         mask = torch.ones((t, t), dtype=torch.bool,
@@ -839,7 +875,7 @@ def decoder_apply(model: Whisper, tokens, enc_out, cache=None,
                       lora=None if layers_lora is None else layers_lora[i],
                       kernels=kernels)
     h = layer_norm(h, dec.ln)
-    logits = F.linear(h, _cast(dec.token_embed.weight, h.dtype))
+    logits = F.linear(h, _cast(embed, h.dtype))
     if cache is None:
         return logits
     return (logits, cache, h) if return_hidden else (logits, cache)
@@ -859,8 +895,8 @@ def init_cache(model: Whisper, enc_out, max_len: int, int8_cross: bool = False,
     package's int8 cache: the projections in the model dtype, quantized in
     f32 over T_src with one scale per (row, head, channel), stored as
     ``k_qt``/``v_qt`` int8 [B, H, Dh, T_src] and ``k_s``/``v_s`` f32
-    [B, H, 1, Dh]. The self cache is ``k_t``/``v_t``, or ``k_tu``/``v_tu``
-    with ``self_t_major`` (the JAX package's default speculative-decode
+    [B, H, 1, Dh]. Under tensor parallelism H is this rank's heads. The self
+    cache is ``k_t``/``v_t``, or ``k_tu``/``v_tu`` with ``self_t_major`` (the JAX package's default speculative-decode
     cache, whose every call goes through K8). The 'btc' cross layout is not
     ported: no decode path of the JAX package builds it by default; it
     raises (ROADMAP.md queue 1)."""
@@ -869,14 +905,13 @@ def init_cache(model: Whisper, enc_out, max_len: int, int8_cross: bool = False,
             "only the 'bhtd' cross cache layout is ported; the 'btc' cross "
             "cache is queued in ROADMAP.md")
     config = model.config
-    h = config.decoder_heads
-    dh = config.d_model // h
+    dh = config.d_model // config.decoder_heads
     enc_out = enc_out.to(model.dtype)
     rows = self_batch or enc_out.shape[0]
     names = ("k_tu", "v_tu") if self_t_major else ("k_t", "v_t")
 
     def bhtd(x):
-        return _split_heads(x, h).transpose(1, 2)
+        return _split_heads(x, x.shape[-1] // dh).transpose(1, 2)
 
     def int8_cross_cache(k, v):
         (k_q, k_s), (v_q, v_s) = (quantize_int8(bhtd(x).float())
@@ -892,8 +927,8 @@ def init_cache(model: Whisper, enc_out, max_len: int, int8_cross: bool = False,
         cross.append(int8_cross_cache(k, v) if int8_cross else
                      {"k": bhtd(k).contiguous(), "v": bhtd(v).contiguous()})
         selfc.append({
-            name: torch.zeros((rows, h, dh, max_len), dtype=model.dtype,
-                              device=enc_out.device)
+            name: torch.zeros((rows, layer.n_heads, dh, max_len),
+                              dtype=model.dtype, device=enc_out.device)
             for name in names})
     return {"self": selfc, "cross": cross}
 

@@ -12,7 +12,7 @@
   ``seq_parallel_axis`` and ``pipeline_axis`` name, and whose ``data`` axis
   the training step averages over.
 - ``pipeline``: GPipe over a ring, for a config's ``pipeline_axis``.
-
-Not ported yet (ROADMAP.md queue 1 item 10): ``sharding.py`` (FSDP and
-tensor parallelism).
+- ``sharding``: FSDP and tensor parallelism over the mesh's ``fsdp`` and
+  ``tensor`` axes: the weights' splits, ``shard_params`` and
+  ``gather_params``, and the collectives of the split linears.
 """

@@ -13,11 +13,12 @@ ambient mesh is a ``contextvars`` variable, one per thread).
 ``AXES`` are the JAX mesh's axis names. ``batch_sharding`` says which rows
 of a global batch this rank holds (the JAX ``P(("data", "fsdp"))`` layout:
 rank r of those axes, major first, takes the r-th contiguous block) and
-``replicated`` that it holds all of them. ``initialize_distributed`` starts
-the process group from torchrun's environment or from a store.
-
-``parallel/sharding.py`` (FSDP and tensor parallelism) is not ported yet
-(ROADMAP.md queue 1 item 10).
+``replicated`` that it holds all of them (``batch_coordinate``: the
+block's index and count; the ranks of one ``tensor`` group share rows).
+``data_ring``, ``fsdp_ring`` and ``tensor_ring`` give an axis's ``Ring``
+where it has more than one rank; ``parallel/sharding.py`` splits weights
+over ``fsdp`` and ``tensor``. ``initialize_distributed`` starts the process
+group from torchrun's environment or from a store.
 """
 
 from __future__ import annotations
@@ -197,24 +198,62 @@ def axis_rank(axis: str, mesh=None) -> int:
     return mesh.get_local_rank(axis)
 
 
-def data_ring(mesh=None):
-    """The ring along the ``data`` axis of ``mesh`` (default: the ambient
-    mesh), or None where there is no mesh, no such axis, or one of size 1.
-    Raises for the axes whose parallelism is not ported: ``fsdp`` or
-    ``tensor`` larger than 1."""
+def _ring_along(axis: str, mesh=None):
+    """The ring along ``axis`` of ``mesh`` (default: the ambient mesh), or
+    None where there is no mesh, no such axis, or one of size 1."""
     mesh = get_mesh() if mesh is None else mesh
-    if mesh is None:
+    if mesh is None or axis not in axis_names(mesh) or \
+            axis_size(axis, mesh) == 1:
         return None
-    names = axis_names(mesh)
-    for axis in ("fsdp", "tensor"):
-        if axis in names and axis_size(axis, mesh) > 1:
-            raise NotImplementedError(
-                f"a mesh {axis!r} axis larger than 1 (FSDP and tensor "
-                "parallelism) is not ported yet; ROADMAP.md queue 1 item 10 "
-                "lists it")
-    if "data" not in names or axis_size("data", mesh) == 1:
-        return None
-    return axis_ring("data", mesh)
+    return axis_ring(axis, mesh)
+
+
+def data_ring(mesh=None):
+    """The ring along the ``data`` axis (`_ring_along`)."""
+    return _ring_along("data", mesh)
+
+
+def fsdp_ring(mesh=None):
+    """The ring along the ``fsdp`` axis (`_ring_along`)."""
+    return _ring_along("fsdp", mesh)
+
+
+def tensor_ring(mesh=None):
+    """The ring along the ``tensor`` axis (`_ring_along`)."""
+    return _ring_along("tensor", mesh)
+
+
+def batch_rings(mesh=None) -> list:
+    """The rings of the axes a global batch's rows are split over
+    (``data``, then ``fsdp``), those of size 1 left out: a sum over the
+    ranks holding different rows runs over each in turn."""
+    return [r for r in (data_ring(mesh), fsdp_ring(mesh)) if r is not None]
+
+
+def batch_coordinate(mesh=None) -> tuple:
+    """(index, count): this rank's block of a global batch's rows among
+    the blocks split over ``data`` x ``fsdp`` (`batch_sharding`). The
+    ranks of one tensor group share it."""
+    s = batch_sharding(mesh)
+    return s.index, s.count
+
+
+def is_first(mesh=None) -> bool:
+    """Whether this rank is rank 0 along every axis of ``mesh`` (default:
+    the ambient mesh; True without one): the rank that writes."""
+    mesh = get_mesh() if mesh is None else mesh
+    return mesh is None or all(axis_rank(a, mesh) == 0
+                               for a in axis_names(mesh))
+
+
+def barrier(mesh=None) -> None:
+    """Returns once every rank of ``mesh`` (default: the ambient mesh) has
+    called it: a barrier along each axis in turn."""
+    mesh = get_mesh() if mesh is None else mesh
+    for a in axis_names(mesh) if mesh is not None else ():
+        ring = _ring_along(a, mesh)
+        if ring is not None:
+            ring.barrier()
 
 
 def axis_ring(axis: str, mesh=None):

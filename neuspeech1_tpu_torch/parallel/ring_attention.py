@@ -22,8 +22,13 @@ Rings: ``DistRing`` over a ``torch.distributed`` process group, and
 ``LocalRing``, n ranks as n Python threads on one device, the counterpart of
 the JAX tests' virtual CPU mesh (``LocalRing.run_mesh`` builds a grid of
 them, one ring per mesh axis). Besides the hop to rank + 1 a ring has the
-reverse hop (``permute_back``, the pipeline's backward), a broadcast, a
-barrier and a gather of host objects. A ring of one communicates nothing in
+reverse hop (``permute_back``, the pipeline's backward), an all-gather, a
+sum and a reduce-scatter (FSDP and tensor parallelism,
+``parallel/sharding.py``), a broadcast, a barrier and a gather of host
+objects. A ``LocalRing`` of CUDA tensors refuses to exchange inside
+autograd's backward: its threads' backward passes would all run on the
+device's one autograd worker thread and wait on each other until the
+barrier's timeout. A ring of one communicates nothing in
 ``permute``. The JAX shard contract is kept on purpose, so that both
 packages pad alike: T % n == 0, T / n a multiple of 128, D in {32, 64, 128}.
 
@@ -74,6 +79,12 @@ class Ring:
 
     def all_reduce_sum(self, x):
         """The sum of every rank's ``x``, the same on every rank."""
+        raise NotImplementedError
+
+    def reduce_scatter_sum(self, x, dim: int):
+        """This rank's block of the sum of every rank's ``x``: the sum cut
+        into ``size`` equal blocks along ``dim`` (which ``size`` divides),
+        block ``rank`` (the backward of `all_gather`)."""
         raise NotImplementedError
 
     def broadcast(self, x, src: int):
@@ -145,6 +156,17 @@ class DistRing(Ring):
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
         return out
 
+    def reduce_scatter_sum(self, x, dim: int):
+        import torch.distributed as dist
+
+        if self.size == 1:
+            return x
+        # the blocks along dim 0, as the collective splits its input
+        flat = x.movedim(dim, 0).contiguous()
+        out = flat.new_empty((flat.shape[0] // self.size, *flat.shape[1:]))
+        dist.reduce_scatter_tensor(out, flat, group=self.group)
+        return out.movedim(0, dim)
+
     def broadcast(self, x, src: int):
         import torch.distributed as dist
 
@@ -173,6 +195,35 @@ class _LocalState:
         self.slots: List[object] = [None] * n
 
 
+def _total(parts):
+    """The sum of ``parts`` in list order."""
+    out = parts[0].clone()
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+def _on_cuda(value) -> bool:
+    if isinstance(value, torch.Tensor):
+        return value.is_cuda
+    return isinstance(value, (tuple, list)) and any(map(_on_cuda, value))
+
+
+def check_backward(ring: Ring, value) -> None:
+    """Raises for a collective of CUDA tensors on a ``LocalRing`` of more
+    than one rank: called where such a collective would run inside
+    autograd's backward. A device runs every thread's backward on its one
+    autograd worker thread, so the ranks would wait on each other until
+    the barrier's timeout. Run such a step one process per rank
+    (``DistRing``), or call the backward bodies directly."""
+    if isinstance(ring, LocalRing) and ring.size > 1 and _on_cuda(value):
+        raise RuntimeError(
+            "a collective inside autograd's backward on a LocalRing of CUDA "
+            "tensors would deadlock (one autograd worker thread per device "
+            "runs every rank's backward): run the ranks as processes over "
+            "torch.distributed (DistRing)")
+
+
 class LocalRing(Ring):
     """n ranks as n Python threads of one process, on one device, meeting at
     a barrier: the port's counterpart of the virtual CPU mesh the JAX tests
@@ -188,7 +239,10 @@ class LocalRing(Ring):
 
     def _exchange(self, value, combine: Callable[[list], object]):
         """Posts ``value``, then returns ``combine(every rank's value)``,
-        computed before any rank may post again."""
+        computed before any rank may post again. Raises inside autograd's
+        backward when ``value`` holds a CUDA tensor (`check_backward`)."""
+        if self.size > 1 and torch._C._current_graph_task_id() != -1:
+            check_backward(self, value)
         st = self._state
         st.slots[self.rank] = value
         st.barrier.wait()
@@ -210,13 +264,15 @@ class LocalRing(Ring):
         return self._exchange(x, lambda s: torch.cat(s, dim))
 
     def all_reduce_sum(self, x):
-        def total(parts):
-            out = parts[0].clone()
-            for p in parts[1:]:
-                out = out + p
-            return out
+        return self._exchange(x, _total)
 
-        return self._exchange(x, total)
+    def reduce_scatter_sum(self, x, dim: int):
+        if self.size == 1:
+            return x
+        n = x.shape[dim] // self.size
+        # the block of the rank-order sum: the bits of all_reduce_sum's
+        return self._exchange(x, lambda s: _total(s).narrow(
+            dim, self.rank * n, n).contiguous())
 
     def broadcast(self, x, src: int):
         # a copy per rank: each rank's result is its own tensor

@@ -17,7 +17,12 @@ cache (``int8_kv_cache``) and token timestamps by cross-attention DTW
     texts = t.transcribe(signals)            # [B, ch, T] numpy
     rows = t.transcribe_with_timestamps(signals[0:1])
 
-Inputs are padded to ``batch_size`` rows, as in the JAX package.
+Inputs are padded to ``batch_size`` rows, as in the JAX package. With
+``mesh`` (``parallel/mesh.py``: a ``DeviceMesh`` or a ``{axis: Ring}``
+mapping, every rank building its own ``Transcriber``) the weights are split
+over its ``fsdp`` and ``tensor`` axes (``parallel/sharding.py``), each
+batch's rows over ``data`` x ``fsdp``, and every rank returns the whole
+batch's texts (``decode/generate.py::generate_over_mesh``).
 """
 
 from __future__ import annotations
@@ -30,12 +35,13 @@ import torch
 
 from neuspeech1_tpu_torch.cli import common
 from neuspeech1_tpu_torch.data.manifest import read_jsonlines
-from neuspeech1_tpu_torch.decode.generate import (GenerationConfig, generate,
-                                                  greedy_decode)
+from neuspeech1_tpu_torch.decode.generate import (
+    GenerationConfig, generate_over_mesh, greedy_decode)
 from neuspeech1_tpu_torch.decode.spec import build_draft_table
 from neuspeech1_tpu_torch.decode.timestamps import word_timestamps
 from neuspeech1_tpu_torch.models.quantize import (dequantize_params,
                                                   quantize_params)
+from neuspeech1_tpu_torch.parallel import mesh as pmesh
 
 
 class Transcriber:
@@ -61,6 +67,7 @@ class Transcriber:
         spec_gamma: int = 0,
         spec_draft_from: Optional[str] = None,
         device: str = "cuda",
+        mesh=None,
     ):
         """``suppress_tokens``: 'default' derives the HF whisper suppress /
         begin-suppress lists from the tokenizer's vocab, 'none' disables
@@ -77,6 +84,11 @@ class Transcriber:
             params = dequantize_params(quantize_params(params))
         self.device = torch.device(device)
         self.model = common.commit_params(params, config, stem, self.device)
+        self.mesh = mesh
+        if mesh is not None:
+            from neuspeech1_tpu_torch.parallel import sharding
+
+            sharding.shard_params(self.model, mesh)
         self.config = config
         self.stem = stem
         self.tokenizer = common.resolve_tokenizer(tokenizer, config)
@@ -152,9 +164,11 @@ class Transcriber:
                     [chunk, np.repeat(chunk[-1:], bs - n, axis=0)], axis=0)
             feats = common.upload_features(chunk, self.model.dtype,
                                            self.device)
-            out = generate(self.model, feats, prompt, self.gen,
-                           draft_table=self._draft_table,
-                           generator=generator).cpu().numpy()
+            with pmesh.set_mesh(self.mesh):
+                out = generate_over_mesh(
+                    self.model, feats, prompt, self.gen,
+                    draft_table=self._draft_table,
+                    generator=generator).cpu().numpy()
             out_texts.extend(self.tokenizer.batch_decode(out[:n]))
         return out_texts
 
@@ -163,20 +177,26 @@ class Transcriber:
         """Per-token start and end times by cross-attention DTW (an offline
         path): each clip alone, decoded greedily (one beam; the other
         settings as configured), trimmed after its first eot past the
-        prompt, then `decode.timestamps.word_timestamps`."""
+        prompt, then `decode.timestamps.word_timestamps`. With a ``mesh``
+        every rank runs it on the whole weights, gathered for the call."""
+        model = self.model
+        if self.mesh is not None:
+            from neuspeech1_tpu_torch.parallel import sharding
+
+            model = sharding.gather_params(self.model, self.mesh)
         signals = self._prepare(signals)
         gen = dataclasses.replace(self.gen, num_beams=1)
         prompt = torch.as_tensor(self.prompt, device=self.device)
         p = prompt.shape[1]
         rows: List[List[dict]] = []
         for i in range(signals.shape[0]):
-            feats = common.upload_features(signals[i:i + 1], self.model.dtype,
+            feats = common.upload_features(signals[i:i + 1], model.dtype,
                                            self.device)
-            out = greedy_decode(self.model, feats, prompt, gen)[0].tolist()
+            out = greedy_decode(model, feats, prompt, gen)[0].tolist()
             toks = []
             for t in out:
                 toks.append(t)
                 if t == self.config.eot_id and len(toks) > p:
                     break
-            rows.append(word_timestamps(self.model, feats, toks))
+            rows.append(word_timestamps(model, feats, toks))
         return rows

@@ -21,7 +21,14 @@ the JAX package:
 
 Under data parallelism every rank keeps a manager and takes the same
 gating decisions (the eval loss is the same on every rank), but only the
-``writer`` (data rank 0) writes; every rank reads on resume.
+``writer`` (the mesh's first rank) writes; every rank reads on resume.
+Under FSDP and tensor parallelism (``specs``: the split leaves, by path,
+``parallel/sharding.py::leaf_specs``) a save gathers each split leaf and
+its moments whole on every rank, so that the file holds a one-rank run's
+shapes, and a resume takes this rank's block of each: a checkpoint
+resumes on any mesh. Every rank decides alike whether a step is saved
+already, from the steps on disk when its manager opened and those saved
+since, because every rank takes part in the gathers.
 
 The copy to the host happens in ``save`` and the file is written by a
 thread; ``wait`` joins it and re-raises the writer's error. A step's directory appears under its
@@ -38,14 +45,19 @@ from typing import List, Optional
 
 import torch
 
+from neuspeech1_tpu_torch.parallel import sharding
+
 
 class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 5,
-                 writer: bool = True):
+                 writer: bool = True, specs: Optional[dict] = None):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
         self.writer = writer
+        self.specs = specs or {}
+        # steps saved as every rank knows them (see the module docstring)
+        self._known = set(self.all_steps())
         self.best_eval = float("inf")
         self._writer: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -75,13 +87,16 @@ class CheckpointManager:
         if not force:
             if eval_loss is None or eval_loss > self.best_eval:
                 return False
+        step = int(state.step)
+        if step in self._known:
+            return True  # already saved at this step (final after gated)
+        self._known.add(step)
+        if not (self.writer or self.specs):
+            return True
+        payload = _payload(state, self.specs)  # every rank gathers splits
         if not self.writer:
             return True
-        step = int(state.step)
         self.wait()
-        if step in self.all_steps():
-            return True  # already saved at this step (final after gated)
-        payload = _payload(state)
         final = os.path.join(self.directory, str(step))
         os.makedirs(final + ".tmp", exist_ok=True)
         self._writer = threading.Thread(
@@ -119,13 +134,18 @@ class CheckpointManager:
             raise KeyError("checkpoint leaves differ from the state's: "
                            f"{sorted(set(saved['trainable']) ^ set(state.trainable))}")
         opt = state.opt_state
+
+        def block(k, t):
+            return sharding.shard_leaf(t, self.specs[k]) if k in self.specs \
+                else t
+
         with torch.no_grad():
             for k, t in state.trainable.items():
-                t.copy_(saved["trainable"][k])
+                t.copy_(block(k, saved["trainable"][k]))
             for name in ("mu", "nu", "acc"):
                 dst = getattr(opt, name)
                 for k, t in (saved["opt_state"][name] or {}).items():
-                    dst[k].copy_(t)
+                    dst[k].copy_(block(k, t))
         opt.count = saved["opt_state"]["count"]
         opt.mini_step = saved["opt_state"]["mini_step"]
         state.generator.set_state(saved["generator"])
@@ -146,18 +166,23 @@ class CheckpointManager:
         self.wait()
 
 
-def _host(tensors):
-    return None if tensors is None else {
-        k: t.detach().to("cpu", copy=True) for k, t in tensors.items()}
+def _host(tensors, specs: Optional[dict] = None):
+    """``tensors`` on the host, each split one (``specs``) gathered whole."""
+    if tensors is None:
+        return None
+    specs = specs or {}
+    return {k: (sharding.gather_leaf(t.detach(), specs[k]) if k in specs
+                else t.detach()).to("cpu", copy=True)
+            for k, t in tensors.items()}
 
 
-def _payload(state) -> dict:
+def _payload(state, specs: Optional[dict] = None) -> dict:
     opt = state.opt_state
     return {
         "step": int(state.step),
-        "trainable": _host(state.trainable),
+        "trainable": _host(state.trainable, specs),
         "opt_state": {"count": opt.count, "mini_step": opt.mini_step,
-                      "mu": _host(opt.mu), "nu": _host(opt.nu),
-                      "acc": _host(opt.acc)},
+                      "mu": _host(opt.mu, specs), "nu": _host(opt.nu, specs),
+                      "acc": _host(opt.acc, specs)},
         "generator": state.generator.get_state(),
     }

@@ -104,7 +104,8 @@ def warmup_linear_schedule(peak_lr: float, warmup_steps: int,
 
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in f32 (a 0-d tensor on
-    the tensors' device)."""
+    the tensors' device). A rank's shards of split leaves take the sharded
+    norm, ``parallel/sharding.py::global_norm``."""
     return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
 
 
@@ -148,13 +149,17 @@ class Optimizer:
     @torch.no_grad()
     def update(self, params: Dict[str, torch.Tensor],
                grads: Dict[str, torch.Tensor], state: AdamState,
-               norm: Optional[torch.Tensor] = None) -> None:
+               norm: Optional[torch.Tensor] = None,
+               norm_fn: Optional[Callable] = None) -> None:
         """One call on ``params`` in place. ``grads`` maps a subset of the
         paths of ``params`` to gradients. A leaf without one keeps its value
         and moments: these are the leaves the loss never reaches (adapter
         ``alpha`` and ``mask``), whose optax update is exactly 0. ``norm``
         is the gradients' global norm when the caller has it (unused under
-        accumulation, which clips the mean)."""
+        accumulation, which clips the mean). ``norm_fn`` maps a gradient
+        dict to its global norm (default: `global_norm` of its values;
+        the training step passes the sharded norm when ``params`` are a
+        rank's shards, ``parallel/sharding.py::global_norm``)."""
         if self.accum_steps > 1:
             n = state.mini_step
             for k, g in grads.items():
@@ -163,8 +168,9 @@ class Optimizer:
             if n + 1 < self.accum_steps:
                 state.mini_step = n + 1
                 return
-            self._apply(params, {k: state.acc[k] for k in grads}, state,
-                        None)
+            acc = {k: state.acc[k] for k in grads}
+            self._apply(params, acc, state,
+                        None if norm_fn is None else norm_fn(acc))
             for acc in state.acc.values():
                 acc.zero_()
             state.mini_step = 0

@@ -24,13 +24,19 @@ gradient norm at logging steps, the eval metrics, and a checkpoint's copy.
 
 Under data parallelism (the ambient mesh's ``data`` axis larger than 1,
 ``parallel/mesh.py``) each rank's loader yields its rows of every global
-batch and the step averages over the data ring. The eval loss is token
-weighted over the ring, so it equals one process's on the same rows; for
-the eval WER each rank decodes its rows and the predictions are gathered
-and put back in the global batches' row order (the loader's strided
-per-process rows) before scoring. Logs, ``metrics.jsonl`` and checkpoints
-are written by data rank 0 alone, and the final save ends at a barrier;
-every rank reads a checkpoint on resume.
+batch and the step averages over the data ring. Under FSDP and tensor
+parallelism (its ``fsdp`` and ``tensor`` axes, the model split by
+``parallel/sharding.py::shard_params``) the rows are split over ``data`` x
+``fsdp`` (the loader's process index is the rank's batch coordinate,
+``parallel/mesh.py::batch_coordinate``) and shared by the ranks of a
+tensor group. The eval loss is token weighted over the ranks holding
+different rows, so it equals one process's on the same rows; for the eval
+WER each rank decodes its rows on its shards and the predictions are
+gathered and put back in the global batches' row order (the loader's
+strided per-process rows) before scoring. Logs, ``metrics.jsonl`` and
+checkpoints are written by the mesh's first rank alone (checkpoints hold
+whole tensors, ``train/checkpoint.py``), and the final save ends at a
+barrier of every rank; every rank reads a checkpoint on resume.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from neuspeech1_tpu_torch.models.lora import (
     adalora_matrix_count, adalora_pattern_of, adalora_total_ranks,
     adalora_triplet_scores, has_entries)
 from neuspeech1_tpu_torch.parallel import mesh as pmesh
+from neuspeech1_tpu_torch.parallel import sharding
 from neuspeech1_tpu_torch.train import trainstep as ts
 from neuspeech1_tpu_torch.train.checkpoint import CheckpointManager
 
@@ -94,13 +101,16 @@ class Trainer:
         self.save_steps = save_steps
         self.logging_steps = logging_steps
         self.adalora = adalora
-        # the data ring of the ambient mesh (None: one process's batch)
-        self.data_ring = pmesh.data_ring()
-        self.writer = self.data_ring is None or self.data_ring.rank == 0
+        # the rings of the ranks holding other rows of a global batch
+        # (data, then fsdp; [] for one process's batch)
+        self.row_rings = pmesh.batch_rings()
+        self.row_blocks = pmesh.batch_coordinate()[1]
+        self.writer = pmesh.is_first()
         os.makedirs(output_dir, exist_ok=True)
         self.ckpt = CheckpointManager(
             os.path.join(output_dir, "checkpoints"),
-            max_to_keep=max_to_keep, writer=self.writer)
+            max_to_keep=max_to_keep, writer=self.writer,
+            specs=sharding.leaf_specs(frozen.model))
         adalora_total = (adalora or {}).get("total_steps", max_steps or 10_000)
         self.train_step = ts.make_train_step(
             config, stem, tx, orth_reg_weight=orth_reg_weight,
@@ -170,8 +180,8 @@ class Trainer:
         if self.eval_loader is None:
             return float("nan")
         total, n = 0.0, 0
-        for batch in self.eval_loader:
-            if _rows(batch) == 0:
+        for batch, _ in _eval_shares(self.eval_loader):
+            if batch is None:
                 continue  # this rank's share of a short last batch
             batch, _ = self._pad_batch(batch)
             batch = self._prep(batch)
@@ -179,11 +189,13 @@ class Trainer:
             toks = int(out["n_tokens"])
             total += float(out["loss"]) * toks
             n += toks
-        if self.data_ring is not None:
+        if self.row_rings:
             # on the model's device: an NCCL group refuses a CPU tensor
-            total, n = self.data_ring.all_reduce_sum(torch.tensor(
-                [total, float(n)], dtype=torch.float64,
-                device=self.device)).tolist()
+            sums = torch.tensor([total, float(n)], dtype=torch.float64,
+                                device=self.device)
+            for ring in self.row_rings:
+                sums = ring.all_reduce_sum(sums)
+            total, n = sums.tolist()
         if n == 0:
             return float("nan")  # an empty eval set must not look like 0
         return total / n
@@ -206,11 +218,12 @@ class Trainer:
         gen = GenerationConfig.for_model(
             self.config, max_length=prompt.shape[1] + self._gen_max_new)
         pairs = []  # per batch: (predictions, references) of this rank's rows
-        for batch in self.eval_loader:
-            if _rows(batch) == 0:
+        for batch, rows in _eval_shares(self.eval_loader):
+            if batch is None:
                 pairs.append(([], []))
                 continue
             batch, true_rows = self._pad_batch(batch)
+            true_rows = min(true_rows, rows)
             labels = batch["labels"]
             labels = (labels.cpu().numpy() if isinstance(labels, torch.Tensor)
                       else np.asarray(labels))[:true_rows]
@@ -222,8 +235,14 @@ class Trainer:
                                 lora=lora).cpu().numpy()[:true_rows]
             pairs.append((tok.batch_decode(out),
                           [tok.decode(l) for l in labels]))
-        if self.data_ring is not None:
-            pairs = _interleave(self.data_ring.gather_objects(pairs))
+        # every rank's pairs in the batch coordinate's order (data major):
+        # gathered over fsdp, then over data
+        per_rank = [pairs]
+        for ring in reversed(self.row_rings):
+            per_rank = [p for part in ring.gather_objects(per_rank)
+                        for p in part]
+        if self.row_rings:
+            pairs = _interleave(per_rank)
         preds = [p for ps, _ in pairs for p in ps]
         refs = [r for _, rs in pairs for r in rs]
         m = compute_battery(preds, refs, include_cer=False)
@@ -269,8 +288,7 @@ class Trainer:
             if self.num_epochs is not None and epoch >= self.num_epochs:
                 break
             for batch in self.train_loader:
-                bsz = _rows(batch) * (1 if self.data_ring is None
-                                      else self.data_ring.size)
+                bsz = _rows(batch) * self.row_blocks
                 batch = self._prep(batch)
                 metrics = self.train_step(self.state, self.frozen, batch)
                 step_num += 1
@@ -325,8 +343,7 @@ class Trainer:
         # the final save (reference `finetune.py:282` checkpoint-final)
         self.ckpt.save(self.state, force=True)
         self.ckpt.wait()
-        if self.data_ring is not None:
-            self.data_ring.barrier()
+        pmesh.barrier()
         return self.state
 
     # ------------------------------------------------------------------
@@ -355,6 +372,28 @@ class Trainer:
                 self.state.ipt), budget, init_bgt)
             if step_num >= total - tfinal:
                 self._adalora_pattern = adalora_pattern_of(lora)
+
+
+def _eval_shares(loader):
+    """The eval loader's batches of this rank, each with its true row
+    count; None for an empty share of a short last batch. Under a mesh
+    ``fsdp`` axis its ranks gather every weight together, so a rank with
+    an empty share takes its previous batch again with every label masked
+    (0 rows, no tokens) instead, to run the forward beside its peers."""
+    last = None
+    fsdp = pmesh.fsdp_ring() is not None
+    for batch in loader:
+        if _rows(batch) > 0:
+            last = batch
+            yield batch, _rows(batch)
+        elif fsdp and last is not None:
+            labels = last["labels"]
+            masked = (torch.full_like(labels, -100)
+                      if isinstance(labels, torch.Tensor)
+                      else np.full_like(np.asarray(labels), -100))
+            yield {**last, "labels": masked}, 0
+        else:
+            yield None, 0
 
 
 def _rows(batch) -> int:

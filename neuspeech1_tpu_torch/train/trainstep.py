@@ -34,11 +34,27 @@ the clip, the update and the importance EMAs run on the summed gradients,
 which are the same bits on every rank, so every rank keeps the same
 parameters, optimizer state and EMAs. The augmentation's and the dropout's
 draws are taken for the global batch from the state's generator, and each
-rank applies its rows: the generators stay in step. Every collective runs
-between ``loss.backward()`` and the update, none inside autograd's
-backward (the ranks of a ``LocalRing`` on one CUDA device share one
-autograd worker thread). FSDP and tensor parallelism (mesh ``fsdp`` or
-``tensor`` axes larger than 1) are not ported and raise.
+rank applies its rows: the generators stay in step. Every collective of
+data parallelism runs between ``loss.backward()`` and the update, none
+inside autograd's backward (the ranks of a ``LocalRing`` on one CUDA
+device share one autograd worker thread).
+
+Under mesh ``fsdp`` and ``tensor`` axes (FSDP and tensor parallelism, the
+JAX package's GSPMD step on weights placed by its ``shard_params``) the
+model holds this rank's shards (``parallel/sharding.py::shard_params``),
+the rows are split over ``data`` x ``fsdp`` and shared within a tensor
+group. The split linears' collectives run inside the forward and the
+backward (``parallel/sharding.py``), so their ranks must be processes on
+the card. After the backward the step sums the adapter leaves over
+``tensor`` (a tensor-split product gives each rank a partial gradient for
+them; the orthogonality loss enters on the first tensor rank only), every
+leaf not split over ``fsdp`` over ``fsdp`` (an fsdp-split leaf's gradient
+was reduce-scattered in the backward), then every leaf over ``data``. The
+norm sums each split leaf's squares over its axes (``parallel/sharding.py::
+global_norm``), so the clip sees the same norm on every rank, and AdamW's
+moments have each leaf's shape: a rank keeps its shards' moments. FSDP or
+tensor parallelism together with sequence or pipeline parallelism is not
+ported and raises.
 
 The step makes no host sync: its metrics stay 0-d device tensors, and the
 importance EMAs' stop test reads the host's step count.
@@ -59,6 +75,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
@@ -71,6 +88,7 @@ from neuspeech1_tpu_torch.models.lora import (
 from neuspeech1_tpu_torch.ops import augment
 from neuspeech1_tpu_torch.ops import int8_matmul as i8
 from neuspeech1_tpu_torch.parallel import mesh as pmesh
+from neuspeech1_tpu_torch.parallel import sharding
 from neuspeech1_tpu_torch.train.optimizer import (
     AdamState, Optimizer, PathPred, default_trainable_pred, global_norm,
     named_leaves)
@@ -224,7 +242,17 @@ def make_train_step(config: WhisperConfig, stem: StemConfig, tx: Optimizer,
 
     def step(state: TrainState, frozen: Frozen, batch: Batch):
         data = pmesh.data_ring()
-        n, rank = (1, 0) if data is None else (data.size, data.rank)
+        fsdp, tensor = pmesh.fsdp_ring(), pmesh.tensor_ring()
+        if (fsdp is not None or tensor is not None) and (
+                config.seq_parallel_axis is not None
+                or config.pipeline_axis is not None):
+            raise NotImplementedError(
+                "FSDP or tensor parallelism together with sequence or "
+                "pipeline parallelism is not ported yet; ROADMAP.md queue 1 "
+                "item 10 lists it")
+        rank, n = pmesh.batch_coordinate()
+        row_rings = pmesh.batch_rings()
+        specs = sharding.leaf_specs(frozen.model)
         gen = state.generator
         feats = batch["input_features"]
         rows, total = feats.shape[0], n * feats.shape[0]
@@ -235,19 +263,27 @@ def make_train_step(config: WhisperConfig, stem: StemConfig, tx: Optimizer,
                 feats, _rank_rows(draws, rank, rows, total), augment_config)}
         dropout = (_rank_rows(tw.draw_dropout(gen, config, stem, total),
                               rank, rows, total) if use_dropout else None)
-        n_tokens = (None if data is None else
-                    data.all_reduce_sum((batch["labels"] != -100).sum()))
+        n_tokens = None
+        if row_rings:
+            n_tokens = (batch["labels"] != -100).sum()
+            for ring in row_rings:
+                n_tokens = ring.all_reduce_sum(n_tokens)
         for t in state.trainable.values():
             t.grad = None
         loss, aux = loss_fn(frozen, batch, dropout, n_tokens,
-                            reg_grad=rank == 0)
+                            reg_grad=rank == 0 and (tensor is None
+                                                    or tensor.rank == 0))
         loss.backward()
-        grads = reduce_grads(state.trainable, config, data, aux)
-        if data is not None:
+        grads = reduce_grads(state.trainable, config, data, aux, fsdp=fsdp,
+                             tensor=tensor, specs=specs)
+        if row_rings:
             aux["loss"] = aux["ce_loss"] + orth_reg_weight * aux.get(
                 "orth_reg", 0.0)
-        norm = global_norm(grads.values())
-        tx.update(state.trainable, grads, state.opt_state, norm)
+        norm_fn = (functools.partial(sharding.global_norm, specs=specs)
+                   if specs else lambda g: global_norm(g.values()))
+        norm = norm_fn(grads)
+        tx.update(state.trainable, grads, state.opt_state, norm,
+                  norm_fn=norm_fn)
         if track_adalora_importance and state.ipt and (
                 adalora_ipt_stop_step is None
                 or state.step < adalora_ipt_stop_step):
@@ -280,15 +316,19 @@ def _axis_ring(axis: Optional[str]):
 
 
 def reduce_grads(trainable: Dict[str, torch.Tensor], config: WhisperConfig,
-                 data=None, aux: Optional[dict] = None
+                 data=None, aux: Optional[dict] = None, fsdp=None,
+                 tensor=None, specs: Optional[dict] = None
                  ) -> Dict[str, torch.Tensor]:
     """The trainable leaves' gradients after ``loss.backward()``, summed
     where the mesh splits the work: the encoder stack's leaves over
     ``config.seq_parallel_axis``'s ring, both layer stacks' leaves over
     ``config.pipeline_axis``'s ring (a stage's missing gradients taken as
-    zeros), then every leaf, with ``aux['ce_loss']``, over the ``data``
-    ring. Each is one collective per dtype; the result is the same on
-    every rank."""
+    zeros), the adapter leaves over the ``tensor`` ring, every leaf that
+    ``specs`` (``parallel/sharding.py::leaf_specs``) does not split over
+    ``fsdp``, with ``aux['ce_loss']``, over the ``fsdp`` ring, then every
+    leaf, with ``aux['ce_loss']``, over the ``data`` ring. Each is one
+    collective per dtype; the result is the same on every rank of a
+    ring."""
     grads = {k: t.grad for k, t in trainable.items() if t.grad is not None}
     seq = _axis_ring(config.seq_parallel_axis)
     if seq is not None:
@@ -301,12 +341,26 @@ def reduce_grads(trainable: Dict[str, torch.Tensor], config: WhisperConfig,
                  for k, t in trainable.items()
                  if k in grads or k.startswith(STAGE_PREFIXES)}
         grads = _sum_leaves(grads, pipe, STAGE_PREFIXES)
+    if tensor is not None:
+        grads = _sum_leaves(grads, tensor, sharding.TENSOR_PARTIAL_PREFIXES)
+    if fsdp is not None:
+        specs = specs or {}
+        whole = tuple(k for k in grads if "fsdp" not in specs.get(k, ()))
+        grads = _sum_with_loss(grads, fsdp, aux, whole)
     if data is not None:
-        if aux is not None:
-            grads["\0ce_loss"] = aux["ce_loss"]
-        grads = _sum_leaves(grads, data)
-        if aux is not None:
-            aux["ce_loss"] = grads.pop("\0ce_loss")
+        grads = _sum_with_loss(grads, data, aux)
+    return grads
+
+
+def _sum_with_loss(grads, ring, aux, keys: Optional[tuple] = None):
+    """`_sum_leaves` of the leaves in ``keys`` (default: all) over
+    ``ring``, ``aux['ce_loss']`` packed in and summed with them."""
+    if aux is not None:
+        grads = {**grads, "\0ce_loss": aux["ce_loss"]}
+        keys = None if keys is None else keys + ("\0ce_loss",)
+    grads = _sum_leaves(grads, ring, keys)
+    if aux is not None:
+        aux["ce_loss"] = grads.pop("\0ce_loss")
     return grads
 
 
@@ -321,8 +375,9 @@ def sum_seq_sharded_grads(grads: Dict[str, torch.Tensor], ring
 def _sum_leaves(grads: Dict[str, torch.Tensor], ring,
                 prefixes: Optional[tuple] = None
                 ) -> Dict[str, torch.Tensor]:
-    """``grads`` with every leaf (under ``prefixes`` where given) summed
-    over ``ring``, packed flat: one collective per dtype."""
+    """``grads`` with every leaf (under ``prefixes``, a tuple of path
+    prefixes, where given) summed over ``ring``, packed flat: one
+    collective per dtype."""
     out = dict(grads)
     by_dtype: Dict[torch.dtype, list] = {}
     for k, g in grads.items():

@@ -248,8 +248,12 @@ def test_data_by_sequence_parallel_matches_the_one_rank_step():
 
 
 def test_fsdp_and_tensor_axes_still_raise(setup):
+    """FSDP and tensor parallelism run (tests/test_torch_fsdp.py); beside
+    sequence or pipeline parallelism they still raise."""
     _, tconfig, params, lora, batches, _ = setup
-    for axes in ({"data": 1, "fsdp": 2}, {"tensor": 2}):
+    for axes, axis in (({"fsdp": 2, "seq": 2}, "seq_parallel_axis"),
+                       ({"tensor": 2, "pipe": 2}, "pipeline_axis")):
+        config = dataclasses.replace(tconfig, **{axis: list(axes)[1]})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _dp(2, lambda: _port_run(tconfig, params, lora, batches[:1]),
+            _dp(4, lambda: _port_run(config, params, lora, batches[:1]),
                 **axes)

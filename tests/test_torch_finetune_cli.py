@@ -222,11 +222,15 @@ REFUSED = {
 
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_refused_flags_raise_before_loading(case, monkeypatch, tmp_path):
+    """A mesh the one-process world cannot hold is refused before any
+    rendezvous or model load (FSDP and tensor parallelism run since they
+    were ported: tests/test_torch_fsdp.py)."""
     def no_load(*a, **k):
         raise AssertionError("a model was loaded")
 
     monkeypatch.setattr(tcommon, "load_base_params", no_load)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="ranks"):
         port_finetune(["--train_data=missing.jsonl", "--device=cpu",
                        f"--output_dir={tmp_path}", *REFUSED[case]])
     assert not os.listdir(tmp_path)

@@ -163,7 +163,7 @@ def test_eval_reduction_runs_on_the_model_device():
     batch = {"labels": np.zeros((2, 4), np.int32)}
     trainer = SimpleNamespace(
         eval_loader=[batch], state=None, frozen=None, device=device,
-        data_ring=_DeviceCheckingRing(device),
+        row_rings=[_DeviceCheckingRing(device)],
         _pad_batch=lambda b: (b, _rows_of(b)), _prep=lambda b: b,
         eval_step=lambda state, frozen, b: {"loss": torch.tensor(2.0),
                                             "n_tokens": torch.tensor(3)})

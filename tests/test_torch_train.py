@@ -4,6 +4,8 @@ the JAX model's attention through its Pallas flash kernels (interpret
 mode): loss, gradient norm and updated leaves over three steps, the
 cross-entropy's custom backward, and the optimizer against optax."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -270,10 +272,14 @@ def test_eval_step_matches_jax():
 UNPORTED = {
     "fold_merge": lambda c, tx: tts.make_loss_fn(c, TSTEM, fold_lora=True,
                                                  fold_impl="merge"),
-    # FSDP and tensor parallelism (ROADMAP queue 1 item 10)
-    "fsdp_axis": lambda c, tx: _step_under_mesh(c, tx, {"fsdp": 2}),
-    "tensor_axis": lambda c, tx: _step_under_mesh(c, tx, {"data": 2,
-                                                          "tensor": 2}),
+    # FSDP and tensor parallelism beside sequence or pipeline parallelism
+    # (ROADMAP queue 1 item 10)
+    "fsdp_axis": lambda c, tx: _step_under_mesh(
+        dataclasses.replace(c, seq_parallel_axis="seq"), tx,
+        {"fsdp": 2, "seq": 2}),
+    "tensor_axis": lambda c, tx: _step_under_mesh(
+        dataclasses.replace(c, pipeline_axis="pipe"), tx,
+        {"data": 2, "tensor": 2, "pipe": 2}),
 }
 
 
