@@ -147,6 +147,16 @@ each printing JSON lines:
             against the one-rank step, greedy serving over {tensor: 2} and
             {data: 2}, the fine-tune CLI at --mesh_fsdp=2 --mesh_tensor=2
             (whole-tensor checkpoints, resume, eval-WER).
+17. composed the mesh's parallel axes composed, in four processes on the
+            card over a gloo group (CUDA tensors' ring and pipeline hops
+            staged through pinned host memory): the LoRA step over {pipe:
+            2, seq: 2} (ring attention inside GPipe stages) and {tensor: 2,
+            seq: 2}, the --ft_full step over {fsdp: 2, pipe: 2} through the
+            trainer with a save and a resume, each against the one-rank
+            step, with K1-K4 launches as predicted; a greedy request under
+            {pipe: 2, seq: 2} through ``Transcriber(mesh=)``; then
+            ``perf/serve_bench``, ``perf/spec_bench`` and
+            ``perf/trace_step`` in process.
 
 Then it prints each phase's wall seconds, the kernel summary (with each kernel's bound: the least time
 the card could take for the same bytes or operations, from NVIDIA's H100 SXM
@@ -268,6 +278,9 @@ KERNEL_CASES = (
     # 4 of the 8 heads
     dict(name="tp_train_encoder", b=64, t=1500, h=4, d=64, bwd=True),
     dict(name="tp_train_cross", b=64, t=64, t_kv=1500, h=4, d=64, bwd=True),
+    # the decoder's cross-attention on a microbatch of 16 rows: GPipe's 2
+    # microbatches of the composed phase's batch of 32
+    dict(name="pp_train_cross", b=16, t=64, t_kv=1500, h=8, d=64, bwd=True),
     dict(name="d32", b=2, t=300, h=4, d=32, bwd=True),
     dict(name="d128_causal", b=2, t=300, h=4, d=128, causal=True, bwd=True),
 )
@@ -280,6 +293,10 @@ LORA_CASES = (
     # fc1's and fc2's blocks on one of 2 tensor ranks
     ("tp_fc1", 96000, 512, 1024, 32),
     ("tp_fc2", 96000, 1024, 512, 32),
+    # the composed phase's: a GPipe microbatch of 16 rows on a 768-frame
+    # sequence shard, and 32 rows on one beside 2 tensor ranks
+    ("pp_sp_fc1", 12288, 512, 2048, 32),
+    ("tp_sp_fc1", 24576, 512, 1024, 32),
     ("ragged_r12", 10007, 512, 2048, 12),
 )
 # (name, B, Tq, T, kv_len, layout): K6 at the serving paths' shapes,
@@ -466,6 +483,11 @@ BIAS_CASES = (
     ("sp_step_n1", 64, 1536, 8, 64, 36),
     ("ring_n4_masked_block", 8, 384, 8, 64, 384),
     ("ring_n4_partial_block", 8, 384, 8, 64, 152),
+    # the composed phase's ring of 2 over 1536 frames, the second shard's
+    # block (its last 36 keys masked): a GPipe microbatch of 16 rows with
+    # 8 heads, and 32 rows with the 4 heads of a tensor rank
+    ("pp_sp_block", 16, 768, 8, 64, 36),
+    ("tp_sp_block", 32, 768, 4, 64, 36),
 )
 # The ring phase: a LocalRing of RING_N threads on the card at whisper-base
 # widths, 1500 frames padded to 1536, and kv_valid_len 1000, which masks the
@@ -569,6 +591,17 @@ SHARD_LOSS_RTOL, SHARD_GRAD_NORM_RTOL = LOSS_TOL, 5e-3
 SHARD_CLIPS, SHARD_NEW_TOKENS = 8, 16
 SHARD_CLI_STEPS, SHARD_CLI_BATCH, SHARD_EVAL_BATCH = 4, 32, 8
 SHARD_GROUP_TIMEOUT_S, SHARD_TIMEOUT_S = 300, 900
+# The composed phase: COMPOSED_PROCS processes share the card over a gloo
+# group, as the sharded phase's do, on the grids of COMPOSED_GRIDS (name,
+# axes, --ft_full): the LoRA 'fc' step or the --ft_full step at
+# COMPOSED_BATCH, COMPOSED_STEPS steps, GPipe at COMPOSED_M (= P)
+# microbatches, against the one-rank step with the sharded phase's bounds
+# (the --ft_full grid through the trainer: a step, a save, a resume, a
+# step); a greedy request of SHARD_CLIPS clips, SHARD_NEW_TOKENS new tokens
+COMPOSED_PROCS, COMPOSED_BATCH, COMPOSED_STEPS, COMPOSED_M = 4, 32, 2, 2
+COMPOSED_GRIDS = (("pipe_seq", {"pipe": 2, "seq": 2}, False),
+                  ("tensor_seq", {"tensor": 2, "seq": 2}, False),
+                  ("fsdp_pipe", {"fsdp": 2, "pipe": 2}, True))
 DP_N, DP_STEPS, DP_LOSS_RTOL = 2, 2, LOSS_TOL
 DP_GRAD_NORM_RTOL = 5e-3
 PIPE_N, PIPE_M = 2, 4
@@ -3033,13 +3066,15 @@ def phase_bench() -> dict:
 
 def _train_setup(batch_size: int, device: str = "cuda",
                  seq_parallel_axis=None, shard: bool = False,
-                 ft_full: bool = False):
+                 ft_full: bool = False, pipeline_axis=None):
     """The bench configuration on the card: whisper-base with the 'base'
     stem over 208 channels, f32 masters computing in bf16, LoRA r=32 alpha=64
     on encoder q/k/v/out/fc1/fc2 from seeds, AdamW with warmup, and a
     synthetic batch from a seeded numpy generator (bench.py's recipe);
     with ``seq_parallel_axis`` the encoder's self-attention runs the ring
-    over that axis of the ambient mesh; with ``shard`` the model is split
+    over that axis of the ambient mesh, with ``pipeline_axis`` both stacks
+    run GPipe over that axis (P microbatches); with ``shard`` the model is
+    split
     over the ambient mesh's fsdp and tensor axes
     (``parallel/sharding.py::shard_params``); with ``ft_full`` every leaf
     trains and there are no adapters."""
@@ -3052,7 +3087,8 @@ def _train_setup(batch_size: int, device: str = "cuda",
     from neuspeech1_tpu_torch.train import optimizer, trainstep
 
     config, stem = common.preset_model("base", "base", in_channels=208)
-    config = dataclasses.replace(config, seq_parallel_axis=seq_parallel_axis)
+    config = dataclasses.replace(config, seq_parallel_axis=seq_parallel_axis,
+                                 pipeline_axis=pipeline_axis)
     model = module_from_params(init_params(config, stem, seed=0), config, stem,
                                device=device, dtype=torch.float32)
     if shard:
@@ -5433,18 +5469,23 @@ def phase_parallel(device: str = "cuda") -> dict:
 # the sharded phase: FSDP and tensor parallelism in processes on one card
 # --------------------------------------------------------------------------
 
-def _shard_steps(step, state, frozen, batch, device: str, ring=None) -> dict:
-    """SHARD_STEPS train steps: per step the ce loss, the pre-clip
-    gradient norm, the kernels' launches and the ms (host clock, the
-    device synchronized and, with ``ring``, the ranks at a barrier on each
-    side: the step of every rank sharing the card), then the peak memory."""
-    out = {"ce_loss": [], "grad_norm": [], "ms": [], "launches": []}
-    _sync(device)
-    _reset_peak(device)
-    for _ in range(SHARD_STEPS):
+def _measured(step, device: str, ring, out: dict):
+    """``step`` recording into ``out`` per call: the ce loss, the pre-clip
+    gradient norm, the kernels' launches, the ms (host clock, the device
+    synchronized and, with ``ring``, the ranks at a barrier on each side:
+    the step of every rank sharing the card) and the ms and bytes of the
+    hops staged through host memory (``ring_attention.staged``)."""
+    from neuspeech1_tpu_torch.parallel import ring_attention as ra
+
+    for key in ("ce_loss", "grad_norm", "ms", "launches", "staged_ms",
+                "staged_bytes"):
+        out.setdefault(key, [])
+
+    def timed(state, frozen, batch):
         if ring is not None:
             ring.barrier()
         _reset_counts()
+        ra.reset_staged()
         t0 = time.perf_counter()
         m = step(state, frozen, batch)
         out["ce_loss"].append(float(m["ce_loss"]))
@@ -5455,6 +5496,21 @@ def _shard_steps(step, state, frozen, batch, device: str, ring=None) -> dict:
         out["ms"].append(1e3 * (time.perf_counter() - t0))
         out["launches"].append({k: v for k, v in _kernel_counts().items()
                                 if v})
+        out["staged_ms"].append(1e3 * ra.staged["seconds"])
+        out["staged_bytes"].append(ra.staged["bytes"])
+        return m
+
+    return timed
+
+
+def _shard_steps(step, state, frozen, batch, device: str, ring=None) -> dict:
+    """SHARD_STEPS train steps `_measured`, then the peak memory."""
+    out = {}
+    _sync(device)
+    _reset_peak(device)
+    timed = _measured(step, device, ring, out)
+    for _ in range(SHARD_STEPS):
+        timed(state, frozen, batch)
     out["peak_mem_gb"] = _peak_gb(device)
     return out
 
@@ -5694,18 +5750,16 @@ def _whole_shapes(run: str) -> dict:
     return out
 
 
-def _sharded_worker(rank: int, world: int, store: str, out_dir: str,
-                    corpus: str, tokenizer: str, device: str) -> None:
-    """One of the sharded phase's processes, all on the one card: a gloo
-    group from a FileStore (collectives on CUDA tensors; a collective that
-    waits past SHARD_GROUP_TIMEOUT_S raises), pairs of ranks (0, 1) and
-    (2, 3) as subgroups, then the phase's parts in order; its output goes
-    to ``rank{rank}.log``, its results to ``rank{rank}.json``."""
+@contextlib.contextmanager
+def _gloo_process(rank: int, world: int, store: str, out_dir: str,
+                  device: str):
+    """One of ``world`` processes on the one card: its output to
+    ``rank{rank}.log``, a gloo group from a FileStore (collectives on CUDA
+    tensors; a collective that waits past SHARD_GROUP_TIMEOUT_S raises),
+    destroyed on leaving."""
     import datetime
 
     import torch.distributed as dist
-
-    from neuspeech1_tpu_torch.parallel.ring_attention import DistRing
 
     log = open(os.path.join(out_dir, f"rank{rank}.log"), "w", buffering=1)
     os.dup2(log.fileno(), 1)
@@ -5719,6 +5773,21 @@ def _sharded_worker(rank: int, world: int, store: str, out_dir: str,
         world_size=world,
         timeout=datetime.timedelta(seconds=SHARD_GROUP_TIMEOUT_S))
     try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_worker(rank: int, world: int, store: str, out_dir: str,
+                    corpus: str, tokenizer: str, device: str) -> None:
+    """One of the sharded phase's processes (`_gloo_process`): pairs of
+    ranks (0, 1) and (2, 3) as subgroups, then the phase's parts in order;
+    its results go to ``rank{rank}.json``."""
+    import torch.distributed as dist
+
+    from neuspeech1_tpu_torch.parallel.ring_attention import DistRing
+
+    with _gloo_process(rank, world, store, out_dir, device):
         pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
         pair = DistRing(pairs[rank // 2])
         out = {"rank": rank}
@@ -5729,11 +5798,10 @@ def _sharded_worker(rank: int, world: int, store: str, out_dir: str,
         out["jax_imported"] = not _jax_free()
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
-    finally:
-        dist.destroy_process_group()
 
 
-def _run_ranks(fn, args: tuple, n: int, out_dir: str) -> float:
+def _run_ranks(fn, args: tuple, n: int, out_dir: str,
+               phase: str = "sharded") -> float:
     """``fn(rank, *args)`` in ``n`` spawned processes; the wall seconds. A
     rank that raises fails the run with its traceback, after the others
     are stopped; ranks still running after SHARD_TIMEOUT_S are killed and
@@ -5744,7 +5812,7 @@ def _run_ranks(fn, args: tuple, n: int, out_dir: str) -> float:
     try:
         while not ctx.join(timeout=5):
             if time.perf_counter() - t0 > SHARD_TIMEOUT_S:
-                raise RuntimeError(f"sharded phase: ranks still running "
+                raise RuntimeError(f"{phase} phase: ranks still running "
                                    f"after {SHARD_TIMEOUT_S} s")
     except BaseException:
         for p in ctx.processes:
@@ -5755,7 +5823,7 @@ def _run_ranks(fn, args: tuple, n: int, out_dir: str) -> float:
             if os.path.exists(path):
                 with open(path) as f:
                     tail = f.read()[-3000:]
-                print(f"--- sharded rank {r} log tail ---\n{tail}",
+                print(f"--- {phase} rank {r} log tail ---\n{tail}",
                       file=sys.stderr, flush=True)
         raise
     return time.perf_counter() - t0
@@ -5902,8 +5970,402 @@ def phase_sharded(device: str = "cuda") -> dict:
     return out
 
 
+def _composed_want(axes: dict, ft_full: bool, n_layers: int) -> dict:
+    """The launches per rank and step the composed grid ``axes`` predicts:
+    each rank runs L/P layers of each stack on each of its M microbatches
+    (M = 1 without a pipe axis); K1 and K2 in the decoder's
+    cross-attention, and in the encoder's self-attention unless the ring
+    takes it, where K4 runs n rounds a layer each way; K3 in the encoder's
+    two fc adapters (none under --ft_full)."""
+    p = axes.get("pipe", 1)
+    per = n_layers // p * (COMPOSED_M if p > 1 else 1)
+    seq = axes.get("seq", 1)
+    want = {"K1": per * (1 if seq > 1 else 2)}
+    want["K2"] = want["K1"]
+    if not ft_full:
+        want["K3"] = 2 * per
+    if seq > 1:
+        want["K4"] = want["K4_bwd"] = per * seq
+    return want
+
+
+def _composed_trainer(run: str, kw: dict, device: str, world,
+                      rec: dict) -> dict:
+    """The --ft_full step through ``train/trainer.py`` under the ambient
+    mesh, each rank on its rows: one step and a save of whole tensors,
+    then a trainer on fresh weights resuming from it for the second step
+    (and its save), every step `_measured` into ``rec``. Returns the
+    resumed state and model, the restored step and the rows a rank."""
+    from neuspeech1_tpu_torch.cli import common
+    from neuspeech1_tpu_torch.parallel import mesh as pmesh
+    from neuspeech1_tpu_torch.train.trainer import Trainer
+
+    stem = common.preset_model("base", "base", in_channels=208)[1]
+    out = {}
+    for max_steps in (1, COMPOSED_STEPS):
+        before = len(rec.get("ce_loss", ()))
+        config, tx, st, fz, _, batch = _train_setup(COMPOSED_BATCH, device,
+                                                    **kw)
+        shard = pmesh.batch_sharding()
+        rows = {k: shard.shard(v) for k, v in batch.items()}
+        tr = Trainer(config, stem, tx, st, fz, [rows], output_dir=run,
+                     max_steps=max_steps, save_steps=COMPOSED_STEPS + 1,
+                     logging_steps=COMPOSED_STEPS + 1)
+        tr.train_step = _measured(tr.train_step, device, world, rec)
+        resume = max_steps > 1
+        state = tr.train(resume_from_checkpoint=resume)
+        tr.ckpt.close()
+        if resume:
+            ran = len(rec["ce_loss"]) - before
+            out.update(state=state, frozen=fz, rows=rows["labels"].shape[0],
+                       restored_step=state.step - ran)
+        del tr, st, fz, batch, rows
+        gc.collect()
+        _empty_cache(device)
+    return out
+
+
+def _composed_grid(name: str, axes: dict, ft_full: bool, out_dir: str,
+                   device: str) -> dict:
+    """One grid of the composed phase on this rank: COMPOSED_STEPS steps
+    at COMPOSED_BATCH rows (split over fsdp where the grid has it; the
+    pipe, seq and tensor ranks share them), the peak memory, and the
+    leaves no axis splits compared bit for bit across the four ranks."""
+    import torch.distributed as dist
+
+    from neuspeech1_tpu_torch.parallel import mesh as pmesh
+    from neuspeech1_tpu_torch.parallel import sharding
+    from neuspeech1_tpu_torch.parallel.ring_attention import DistRing
+
+    world = DistRing(dist.group.WORLD)
+    kw = {"seq_parallel_axis": "seq" if "seq" in axes else None,
+          "pipeline_axis": "pipe" if "pipe" in axes else None,
+          "shard": bool({"fsdp", "tensor"} & set(axes)), "ft_full": ft_full}
+    rec, out = {}, {"mesh": axes}
+    with pmesh.set_mesh(pmesh.make_mesh(device, **axes)):
+        _sync(device)
+        _reset_peak(device)
+        if ft_full:
+            run = _composed_trainer(os.path.join(out_dir, name), kw, device,
+                                    world, rec)
+            st, fz = run.pop("state"), run.pop("frozen")
+            out.update(run)
+        else:
+            _, _, st, fz, stp, batch = _train_setup(COMPOSED_BATCH, device,
+                                                    **kw)
+            shard = pmesh.batch_sharding()
+            rows = {k: shard.shard(v) for k, v in batch.items()}
+            timed = _measured(stp, device, world, rec)
+            for _ in range(COMPOSED_STEPS):
+                timed(st, fz, rows)
+            out["rows"] = rows["labels"].shape[0]
+            del stp, batch, rows
+        rec["peak_mem_gb"] = _peak_gb(device)
+        specs = sharding.leaf_specs(fz.model)
+        out["replicated_bits_equal"] = _bits_equal_over(
+            world, [t for k, t in st.trainable.items() if k not in specs])
+    out["steps"] = rec
+    del st, fz
+    gc.collect()
+    _empty_cache(device)
+    dist.barrier()
+    if ft_full and dist.get_rank() == 0:
+        out["checkpoints"] = _whole_shapes(os.path.join(out_dir, name))
+    return out
+
+
+@contextlib.contextmanager
+def _recorded_tokens():
+    """The token ids of every ``generate_over_mesh`` call the Transcriber
+    makes while the context is open, in a list."""
+    from neuspeech1_tpu_torch import serve
+
+    seen, decode = [], serve.generate_over_mesh
+
+    def recording(*args, **kwargs):
+        tokens = decode(*args, **kwargs)
+        seen.append(tokens.cpu().tolist())
+        return tokens
+
+    serve.generate_over_mesh = recording
+    try:
+        yield seen
+    finally:
+        serve.generate_over_mesh = decode
+
+
+def _composed_request(model_dir: str, tokenizer: str, device: str,
+                      mesh=None) -> dict:
+    """One greedy request of SHARD_CLIPS clips, SHARD_NEW_TOKENS new tokens
+    through ``Transcriber(mesh=)``: its ms, the kernels' launches and every
+    clip's tokens."""
+    from neuspeech1_tpu_torch.serve import Transcriber
+
+    tr = Transcriber(model_dir, tokenizer=tokenizer, batch_size=SHARD_CLIPS,
+                     max_new_tokens=SHARD_NEW_TOKENS, device=device,
+                     mesh=mesh)
+    signals = _signals(tr.stem.in_channels, tr.expected_samples)
+    _reset_counts()
+    _sync(device)
+    with _recorded_tokens() as seen:
+        t0 = time.perf_counter()
+        tr.transcribe(signals[:SHARD_CLIPS])
+        _sync(device)
+        ms = 1e3 * (time.perf_counter() - t0)
+    return {"ms": ms, "launches": {k: v for k, v in _kernel_counts().items()
+                                   if v}, "tokens": seen[0]}
+
+
+def _composed_serving(model_dir: str, tokenizer: str, device: str) -> dict:
+    """`_composed_request` on the four ranks as {pipe: 2, seq: 2}: the
+    encoder pass as ring attention inside GPipe stages, the cached decoder
+    on every rank; whether the ranks' tokens agree."""
+    import torch.distributed as dist
+
+    from neuspeech1_tpu_torch.parallel import mesh as pmesh
+    from neuspeech1_tpu_torch.parallel.ring_attention import DistRing
+
+    out = _composed_request(model_dir, tokenizer, device,
+                            pmesh.make_mesh(device, pipe=2, seq=2))
+    out["ranks_agree"] = _bits_equal_over(DistRing(dist.group.WORLD),
+                                          [torch.tensor(out["tokens"])])
+    _empty_cache(device)
+    return out
+
+
+def _composed_worker(rank: int, world: int, store: str, out_dir: str,
+                     model_dir: str, tokenizer: str, device: str) -> None:
+    """One of the composed phase's processes (`_gloo_process`): the grids,
+    then the greedy request; its results go to ``rank{rank}.json``."""
+    with _gloo_process(rank, world, store, out_dir, device):
+        out = {"rank": rank}
+        for name, axes, ft_full in COMPOSED_GRIDS:
+            out[name] = _composed_grid(name, axes, ft_full, out_dir, device)
+        out["serving"] = _composed_serving(model_dir, tokenizer, device)
+        out["jax_imported"] = not _jax_free()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+
+
+def _composed_references(device: str, model_dir: str,
+                         tokenizer: str) -> dict:
+    """The one-rank runs the composed phase holds its grids to, in this
+    process before the ranks start: the LoRA 'fc' step and the --ft_full
+    step at COMPOSED_BATCH, COMPOSED_STEPS steps each, and the greedy
+    request without a mesh."""
+    out = {}
+    for name, ft_full in (("lora", False), ("ft_full", True)):
+        _, _, st, fz, stp, batch = _train_setup(COMPOSED_BATCH, device,
+                                                ft_full=ft_full)
+        rec = {}
+        _sync(device)
+        _reset_peak(device)
+        timed = _measured(stp, device, None, rec)
+        for _ in range(COMPOSED_STEPS):
+            timed(st, fz, batch)
+        rec["peak_mem_gb"] = _peak_gb(device)
+        out[name] = rec
+        del st, fz, stp, batch
+        gc.collect()
+        _empty_cache(device)
+    out["serving"] = _composed_request(model_dir, tokenizer, device)
+    _empty_cache(device)
+    return out
+
+
+def _composed_model(tmp: str):
+    """`serving_model`'s directory and tokenizer, and a second directory
+    with the same weights whose config names the {pipe: 2, seq: 2} mesh's
+    axes (``seq_parallel_axis``, ``pipeline_axis``)."""
+    _, model_dir, tokenizer = serving_model(tmp)
+    composed = os.path.join(tmp, "composed_model")
+    os.makedirs(composed)
+    os.symlink(os.path.join(model_dir, "params.npz"),
+               os.path.join(composed, "params.npz"))
+    with open(os.path.join(model_dir, "config.json")) as f:
+        meta = json.load(f)
+    meta["config"].update(seq_parallel_axis="seq", pipeline_axis="pipe")
+    with open(os.path.join(composed, "config.json"), "w") as f:
+        json.dump(meta, f)
+    return model_dir, composed, tokenizer
+
+
+def _perf_script(main, argv) -> dict:
+    """``main(argv)`` of a perf script in this process: its JSON lines and
+    its wall seconds."""
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    check(rc == 0, f"{main.__module__}: exit code {rc}")
+    lines = [json.loads(s) for s in buf.getvalue().splitlines()
+             if s.startswith("{")]
+    return {"seconds": time.perf_counter() - t0, "lines": lines}
+
+
+def _composed_perf(tmp: str) -> dict:
+    """serve_bench, spec_bench (greedy, one token an iteration, and gamma
+    4) and trace_step --steps 2 once each in process at one timed
+    repetition: their lines parse, their rates are finite, and
+    trace_step's busy and idle times add up to its span."""
+    from neuspeech1_tpu_torch.perf import serve_bench, spec_bench, trace_step
+
+    out = {
+        "serve_bench": _perf_script(serve_bench.main, ["--repeats", "1"]),
+        "spec_bench": _perf_script(spec_bench.main, [
+            "--repeats", "1", "--gammas", "4"]),
+        "trace_step": _perf_script(trace_step.main, [
+            "--steps", "2", "--top", "10",
+            "--tracedir", os.path.join(tmp, "trace_step")])}
+    serve = out["serve_bench"]["lines"]
+    check([r["config"] for r in serve] == [
+        "greedy", "greedy_int8kv", "beam5_rp5_ngram2",
+        "beam5_rp5_ngram2_int8kv"], f"serve_bench lines {serve}")
+    spec = out["spec_bench"]["lines"]
+    check([r["config"] for r in spec] == [
+        "greedy_int8kv", "spec_greedy_int8kv_g4", "spec_g4_analysis"],
+        f"spec_bench lines {spec}")
+    for r in serve + spec[:2]:
+        check(math.isfinite(r["utterances_per_sec"])
+              and r["utterances_per_sec"] > 0, f"perf line {r}")
+    check(math.isfinite(spec[2]["iter_cost_ratio_vs_greedy_step"]),
+          f"spec analysis {spec[2]}")
+    trace = out["trace_step"]["lines"][-1]
+    check(trace["kernels"] > 0 and trace["span_ms"] > 0
+          and math.isclose(trace["busy_ms"] + trace["idle_ms"],
+                           trace["span_ms"], rel_tol=1e-9)
+          and 0 < trace["busy_share"] <= 1, f"trace_step {trace}")
+    return out
+
+
+def phase_composed(device: str = "cuda") -> dict:
+    """The compositions of the mesh's parallel axes at whisper-base width
+    in COMPOSED_PROCS processes sharing the one card over a gloo group (as
+    the sharded phase's): the LoRA 'fc' step at batch COMPOSED_BATCH over
+    {pipe: 2, seq: 2} (ring attention inside GPipe stages) and {tensor: 2,
+    seq: 2}, the --ft_full step over {fsdp: 2, pipe: 2} through the
+    trainer with a save and a resume, each against the one-rank step run
+    in this process first (ce loss within SHARD_LOSS_RTOL, pre-clip
+    gradient norm within SHARD_GRAD_NORM_RTOL, the leaves no axis splits
+    the same bits on every rank, K1-K4 launches per rank and step as
+    `_composed_want` predicts), ms per step with the ranks sharing the card
+    (not a multi-card figure) and the share of it the host-staged ring and
+    pipeline hops took, peak memory per rank; one greedy request under
+    {pipe: 2, seq: 2} through ``Transcriber(mesh=)`` (the ranks agree; the
+    share of tokens equal to one rank's); then the three perf scripts."""
+    from neuspeech1_tpu_torch.cli import common
+
+    _sync(device)
+    gc.collect()
+    _empty_cache(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir, composed_dir, tokenizer = _composed_model(tmp)
+        refs = _composed_references(device, model_dir, tokenizer)
+        gc.collect()
+        _empty_cache(device)
+        out_dir = os.path.join(tmp, "ranks")
+        os.makedirs(out_dir)
+        wall = _run_ranks(_composed_worker, (
+            COMPOSED_PROCS, os.path.join(tmp, "store"), out_dir,
+            composed_dir, tokenizer, device), COMPOSED_PROCS, out_dir,
+            "composed")
+        runs = []
+        for r in range(COMPOSED_PROCS):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                runs.append(json.load(f))
+        perf = _composed_perf(tmp) if device == "cuda" else None
+    n_layers = common.preset_model("base", "base")[0].encoder_layers
+    out = {"procs": COMPOSED_PROCS, "wall_s": wall,
+           "card": card() if device == "cuda" else None}
+    for name, axes, ft_full in COMPOSED_GRIDS:
+        one = refs["ft_full" if ft_full else "lora"]
+        part = runs[0][name]
+        sh = part["steps"]
+        want = _composed_want(axes, ft_full, n_layers)
+        rec = {"mesh": axes, "batch": COMPOSED_BATCH,
+               "rows_per_rank": part["rows"],
+               "ce_loss": {"one_rank": one["ce_loss"],
+                           "composed": sh["ce_loss"]},
+               "grad_norm": {"one_rank": one["grad_norm"],
+                             "composed": sh["grad_norm"]},
+               "loss_rtol": SHARD_LOSS_RTOL,
+               "grad_norm_rtol": SHARD_GRAD_NORM_RTOL,
+               "launches_per_rank_per_step": sh["launches"][-1],
+               "predicted_launches": want,
+               "one_rank_launches_per_step": one["launches"][-1],
+               "step_ms_ranks_sharing_one_card": sh["ms"],
+               "staged_hop_ms": sh["staged_ms"],
+               "staged_hop_share": [a / b for a, b in zip(sh["staged_ms"],
+                                                          sh["ms"])],
+               "staged_hop_bytes": sh["staged_bytes"],
+               "one_rank_step_ms": one["ms"],
+               "peak_mem_gb_per_rank": [r[name]["steps"]["peak_mem_gb"]
+                                        for r in runs],
+               "one_rank_peak_mem_gb": one["peak_mem_gb"],
+               "replicated_bits_equal": part["replicated_bits_equal"]}
+        if ft_full:
+            rec["restored_step"] = part["restored_step"]
+            rec["checkpoints"] = part["checkpoints"]
+        out[name] = rec
+        emit({"phase": "composed", "part": name, **rec})
+        for a, b in zip(sh["ce_loss"], one["ce_loss"]):
+            check(_rel(a, b) <= SHARD_LOSS_RTOL,
+                  f"composed {name}: ce_loss {a}, one-rank {b}")
+        for a, b in zip(sh["grad_norm"], one["grad_norm"]):
+            check(_rel(a, b) <= SHARD_GRAD_NORM_RTOL,
+                  f"composed {name}: grad_norm {a}, one-rank {b}")
+        check(len(sh["ce_loss"]) == COMPOSED_STEPS,
+              f"composed {name}: {len(sh['ce_loss'])} steps")
+        check(part["replicated_bits_equal"],
+              f"composed {name}: replicated leaves differ across ranks")
+        check(all(r[name]["steps"]["ce_loss"] == sh["ce_loss"]
+                  for r in runs), f"composed {name}: the ranks' losses "
+              "differ")
+        for r in runs:
+            got = r[name]["steps"]["launches"]
+            check(all(g == want for g in got),
+                  f"composed {name}: rank {r['rank']} launches {got}, "
+                  f"expected {want} a step")
+        if ft_full:
+            check(part["restored_step"] == 1,
+                  f"composed {name}: resumed from {part['restored_step']}")
+            check(sorted(part["checkpoints"]) == ["1", "2"] and all(
+                c["whole"] for c in part["checkpoints"].values()),
+                f"composed {name}: checkpoints {part['checkpoints']}")
+    sv, ref = runs[0]["serving"], refs["serving"]
+    flat = [a == b for ra, rb in zip(sv["tokens"], ref["tokens"])
+            for a, b in zip(ra[4:], rb[4:])]
+    serving = {"mesh": {"pipe": 2, "seq": 2},
+               "ms_ranks_sharing_one_card": sv["ms"],
+               "one_rank_ms": ref["ms"],
+               "launches_per_rank": sv["launches"],
+               "one_rank_launches": ref["launches"],
+               "equal_token_share": sum(flat) / len(flat),
+               "ranks_agree": all(r["serving"]["ranks_agree"]
+                                  for r in runs)}
+    out["serving"] = serving
+    emit({"phase": "composed", "part": "serving", **serving})
+    check(serving["ranks_agree"], "composed serving: the ranks' tokens "
+          "differ")
+    check(len(sv["tokens"]) == SHARD_CLIPS, f"composed serving: "
+          f"{len(sv['tokens'])} rows, expected {SHARD_CLIPS}")
+    for k in ("K4", "K6", "K7"):
+        check(sv["launches"].get(k, 0) > 0,
+              f"composed serving: no {k} launch")
+    check(not any(r["jax_imported"] for r in runs),
+          "a composed rank imported jax or the JAX package")
+    if perf is not None:
+        out["perf"] = perf
+        for name, r in perf.items():
+            emit({"phase": "composed", "part": name, **r})
+    emit({"phase": "composed", "wall_s": wall, "card": out["card"]})
+    return out
+
+
 def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl,
-            sh) -> dict:
+            sh, cp) -> dict:
     """One entry per kernel: launches on its path (training for K1, K2, K3;
     the sequence-parallel training step for K4; beam serving for K6, K7;
     speculative serving with the self-prefix drafter for K8; the perf
@@ -5917,7 +6379,10 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl,
     K3, K6, K7: ``speech_finetune_launches``), and the parallel phase's
     runs (K1, K2, K3, K4: ``parallel_launches``), and the sharded phase's
     (K1, K2, K3, K6, K7: ``sharded_launches``, per rank, with the times of
-    its case at the sharded shape as ``sharded_shape``)), the error and the
+    its case at the sharded shape as ``sharded_shape``), and the composed
+    phase's (K1, K2, K3, K4, K6, K7: ``composed_launches``, per rank and
+    step of each grid and per rank of the greedy request, with the times of
+    its case at a composed shape as ``composed_shape``)), the error and the
     times of its case
     at that path's shape, its
     bound and the library call's time (for a probe kernel, of one variant
@@ -6002,6 +6467,25 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl,
                 "sharded_shape": {"case": case, "max_abs_err": r.get(
                     "max_abs_err", r.get("o_max_abs_err")), **timing(r)}}
 
+    def composed(kernel, case=None):
+        """The kernel's launches per rank in the composed phase's grids (a
+        step) and greedy request, and its kernels-phase case at a composed
+        shape."""
+        out = {f"{name}_per_rank_per_step":
+               cp[name]["launches_per_rank_per_step"][kernel]
+               for name, _, _ in COMPOSED_GRIDS
+               if kernel in cp[name]["launches_per_rank_per_step"]}
+        n = cp["serving"]["launches_per_rank"].get(kernel)
+        if n:
+            out["serving_pipe_seq_per_rank"] = n
+        res = {"composed_launches": out}
+        if case is not None:
+            r = first(kernel, case)
+            res["composed_shape"] = {
+                "case": case, "max_abs_err": r.get(
+                    "max_abs_err", r.get("o_max_abs_err")), **timing(r)}
+        return res
+
     fa_py = "neuspeech1_tpu/ops/flash_attention.py"
     k5_bwd = {"ms": k5["bwd_ms"], "plain_ms": k5["bwd_plain_ms"],
               "bound_ms": k5["bwd_bound_ms"], "bound_by": k5["bwd_bound_by"],
@@ -6030,7 +6514,7 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl,
     ]
     return {"kernels": [
         {"name": "flash_fwd_btc (K1)", "route": "cuda",
-         "source": src + "flash_fwd_btc.cu", "replaces": fa_py + ":494",
+         "source": src + "flash_fwd_btc.cu", "replaces": fa_py + ":570",
          "launches": launches["K1"], "serving_launches": sl["launches"]["K1"],
          "beam_launches": bm["launches"]["K1"],
          "eval_launches": ev["launches"]["K1"],
@@ -6038,12 +6522,14 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl,
          "modes_launches_per_request": modes("K1"),
          **speech("K1"), **parallel("K1"),
          **sharded("K1", "tp_train_encoder"),
+         **composed("K1", "pp_train_cross"),
          "max_abs_err": k1["o_max_abs_err"], **timing(k1)},
         {"name": "flash_bwd_btc (K2)", "route": "cuda",
-         "source": src + "flash_bwd_btc.cu", "replaces": fa_py + ":599",
+         "source": src + "flash_bwd_btc.cu", "replaces": fa_py + ":700",
          "launches": launches["K2"],
          "finetune_launches": ft["launches"]["K2"], **speech("K2"),
          **parallel("K2"), **sharded("K2", "tp_train_encoder"),
+         **composed("K2", "pp_train_cross"),
          "max_abs_err": k2["max_abs_err"], **timing(k2)},
         # K5: the same two kernels on [B, H, T, D] strides. No path of the
         # port calls that entry; its launches are those of its own run in
@@ -6058,53 +6544,54 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl,
          "max_abs_err": k5["grad_max_abs_err"], **k5_bwd},
         {"name": "lora_bwd (K3)", "route": "cuda",
          "source": src + "lora_bwd.cu",
-         "replaces": "neuspeech1_tpu/ops/lora_bwd.py:47",
+         "replaces": "neuspeech1_tpu/ops/lora_bwd.py:133",
          "launches": launches["K3"],
          "finetune_launches": ft["launches"]["K3"], **speech("K3"),
          **parallel("K3"), **sharded("K3", "tp_fc1"),
+         **composed("K3", "pp_sp_fc1"),
          "max_abs_err": k3["max_abs_err"], **timing(k3), **device(k3)},
         {"name": "flash_fwd_btc_bias (K4 forward)", "route": "cuda",
-         "source": src + "flash_fwd_btc.cu", "replaces": fa_py + ":742",
+         "source": src + "flash_fwd_btc.cu", "replaces": fa_py + ":755",
          "launches": sp_launches["K4"],
          "local_ring_launches": [r["K4"] for r in ring_launches],
-         **parallel("K4"),
+         **parallel("K4"), **composed("K4", "pp_sp_block"),
          "max_abs_err": k4["o_max_abs_err"], **timing(k4)},
         {"name": "flash_bwd_btc_bias (K4 backward)", "route": "cuda",
-         "source": src + "flash_bwd_btc.cu", "replaces": fa_py + ":786",
+         "source": src + "flash_bwd_btc.cu", "replaces": fa_py + ":800",
          "launches": sp_launches["K4_bwd"],
          "local_ring_launches": [r["K4_bwd"] for r in ring_launches],
-         **parallel("K4_bwd"),
+         **parallel("K4_bwd"), **composed("K4_bwd", "pp_sp_block"),
          "max_abs_err": k4_bwd["max_abs_err"], **timing(k4_bwd)},
         {"name": "decode_cross (K6, [B,H,T,D] cache)", "route": "cuda",
-         "source": src + "decode_cross.cu", "replaces": fa_py + ":869",
+         "source": src + "decode_cross.cu", "replaces": fa_py + ":901",
          "launches": bm["launches"]["K6"],
          "greedy_launches": sl["launches"]["K6"],
          "eval_launches": ev["launches"]["K6"],
          "finetune_launches": ft["launches"]["K6"],
          "modes_launches_per_request": modes("K6"), **speech("K6"),
-         **sharded("K6", "tp_greedy"),
+         **sharded("K6", "tp_greedy"), **composed("K6"),
          "max_abs_err": k6["max_abs_err"], **timing(k6),
          **device(k6)},
         # the [B, T, H*D] cache entry: no serving path holds that layout,
         # so its launches are those of its own run (counted from 0)
         {"name": "decode_cross_btc (K6, [B,T,H*D] cache)", "route": "cuda",
-         "source": src + "decode_cross.cu", "replaces": fa_py + ":940",
+         "source": src + "decode_cross.cu", "replaces": fa_py + ":986",
          "launches": k6_btc["launches"], "path": "decode_cross_btc entry",
          "max_abs_err": k6_btc["max_abs_err"], **timing(k6_btc),
          **device(k6_btc)},
         {"name": "decode_step (K7)", "route": "cuda",
          "source": src + "decode_step.cu",
-         "replaces": "neuspeech1_tpu/ops/decode_step.py:106",
+         "replaces": "neuspeech1_tpu/ops/decode_step.py:161",
          "launches": bm["launches"]["K7"],
          "greedy_launches": sl["launches"]["K7"],
          "eval_launches": ev["launches"]["K7"],
          "finetune_launches": ft["launches"]["K7"],
          "modes_launches_per_request": modes("K7"), **speech("K7"),
-         **sharded("K7", "tp_greedy_last"),
+         **sharded("K7", "tp_greedy_last"), **composed("K7"),
          "max_abs_err": k7["max_abs_err"], **timing(k7), **device(k7)},
         {"name": "decode_step_multi (K8)", "route": "cuda",
          "source": src + "decode_step_multi.cu",
-         "replaces": "neuspeech1_tpu/ops/decode_step.py:189",
+         "replaces": "neuspeech1_tpu/ops/decode_step.py:244",
          "launches": spec_launches["spec_self"],
          "table_drafter_launches": spec_launches["spec_table"],
          "int8_launches": spec_launches["spec_int8"],
@@ -6157,8 +6644,10 @@ def main(argv) -> int:
     timed("bench", phase_bench)
     pl = timed("parallel", phase_parallel)
     sh = timed("sharded", phase_sharded)
+    cp = timed("composed", phase_composed)
     emit({"phase_seconds": seconds})
-    emit(summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl, sh))
+    emit(summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl, sh,
+                 cp))
     print(card(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

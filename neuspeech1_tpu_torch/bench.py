@@ -21,8 +21,8 @@ and data from seeds. Prints ONE JSON line with the JAX bench's keys:
   the encoder at 48 tokens.
 
 ``vs_baseline`` is the ratio to BASELINE.md's analytic A100 estimate (550
-samples/s), not a measurement. Remat is not ported (it raises), so the step
-runs without it and ``remat`` says so. There is no fallback: a failing step
+samples/s), not a measurement. The step runs at the config's ``remat``
+(off in the presets, as in the JAX bench), which ``remat`` reports. There is no fallback: a failing step
 or decode fails the run. `run` takes the config, batch size, K and device,
 so a test can run it on the CPU at a tiny size.
 """
@@ -72,13 +72,10 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run(config: WhisperConfig, stem: StemConfig, batch_size: int = 64,
-        steps: int = 20, device: str = "cuda") -> dict:
-    """Times ``steps`` chained training steps (median of 3 runs) and the
-    greedy decode slope with the trained adapters; returns the JSON
-    result."""
-    from neuspeech1_tpu_torch.decode.generate import (GenerationConfig,
-                                                      greedy_decode)
+def train_setup(config: WhisperConfig, stem: StemConfig,
+                batch_size: int = 64, device: str = "cuda"):
+    """(step, state, frozen, batch): the timed configuration's training
+    step, its state and one batch from seeds, on ``device``."""
     from neuspeech1_tpu_torch.models.convert import module_from_params
     from neuspeech1_tpu_torch.models.init import init_params
     from neuspeech1_tpu_torch.models.lora import init_lora
@@ -103,6 +100,20 @@ def run(config: WhisperConfig, stem: StemConfig, batch_size: int = 64,
     for key in ("labels", "decoder_input_ids"):
         batch[key] = torch.from_numpy(
             rng.integers(0, high, (batch_size, LABEL_LEN))).to(dev)
+    return step, state, frozen, batch
+
+
+def run(config: WhisperConfig, stem: StemConfig, batch_size: int = 64,
+        steps: int = 20, device: str = "cuda") -> dict:
+    """Times ``steps`` chained training steps (median of 3 runs) and the
+    greedy decode slope with the trained adapters; returns the JSON
+    result."""
+    from neuspeech1_tpu_torch.decode.generate import (GenerationConfig,
+                                                      greedy_decode)
+
+    dev = torch.device(device)
+    step, state, frozen, batch = train_setup(config, stem, batch_size, dev)
+    feats = batch["input_features"]
 
     for _ in range(2):  # allocator, library handles, the schedule's lr 0
         float(step(state, frozen, batch)["loss"])

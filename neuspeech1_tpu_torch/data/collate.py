@@ -99,3 +99,9 @@ class Collator:
             "labels": labels,
             "decoder_input_ids": dec_in,
         }
+
+
+def get_part_of_dataset(rows: list, data_ratio: float) -> list:
+    """The first ``data_ratio`` of a dataset's rows (reference
+    `utils/data_utils.py:15-17`)."""
+    return rows[: int(len(rows) * data_ratio)]

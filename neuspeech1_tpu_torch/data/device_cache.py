@@ -79,6 +79,21 @@ class DeviceCache:
                     self.decoder_input_ids.index_select(0, idx),
                 "_indices": idx}
 
+    def make_sampler(self, batch_size: int):
+        """``sample(generator) -> batch``: ``batch_size`` rows drawn
+        uniformly with replacement, on the device, from an explicit
+        ``torch.Generator`` on the cache's device (the JAX package's
+        ``key -> batch`` sampler). The batch dict is `gather`'s without
+        its indices."""
+        def sample(generator: torch.Generator) -> dict:
+            idx = torch.randint(0, self.n, (batch_size,),
+                                generator=generator, device=self.device)
+            batch = self.gather(idx)
+            del batch["_indices"]
+            return batch
+
+        return sample
+
     def epoch_batches(self, generator: torch.Generator, batch_size: int):
         """One shuffled epoch of full batches, gathered on the device (no
         host sync: the permutation stays there)."""

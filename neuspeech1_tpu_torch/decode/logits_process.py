@@ -1,7 +1,7 @@
 """Logits processors and warpers for decoding: the port of the dense forms
 in ``neuspeech1_tpu/decode/logits_process.py`` (HF's SuppressTokens,
-SuppressTokensAtBegin, MinNewTokens, RepetitionPenalty, NoRepeatNGram and
-SequenceBias processors, and the Temperature, TopK and TopP warpers that
+SuppressTokensAtBegin, ForceTokens, MinNewTokens, RepetitionPenalty,
+NoRepeatNGram and SequenceBias processors, and the Temperature, TopK and TopP warpers that
 sampling and beam-sample apply after them).
 
 Each takes scores [B, V] (greedy's logits, or beam search's log-probs) and,
@@ -49,6 +49,23 @@ def suppress_tokens_at_begin(logits, cur_len: int, begin_index: int,
     if not len(ids) or cur_len != begin_index:
         return logits
     return suppress_tokens(logits, ids)
+
+
+def force_tokens(logits, cur_len: int, forced_positions: Sequence[int],
+                 forced_ids: Sequence[int]):
+    """At the positions listed in ``forced_positions`` every score but the
+    paired id's goes to ``NEG_INF`` and that one to 0 (HF's
+    ForceTokensLogitsProcessor; whisper's <|lang|><|task|><|nots|>).
+    ``forced_positions`` and ``forced_ids``: int sequences of equal
+    length."""
+    hits = [i for p, i in zip(forced_positions, forced_ids) if p == cur_len]
+    if not hits:
+        return logits
+    # the JAX package sums the ids of every matching position
+    row = torch.full((logits.shape[-1],), NEG_INF, dtype=logits.dtype,
+                     device=logits.device)
+    row[sum(hits)] = 0.0
+    return row.expand_as(logits).clone()
 
 
 def apply_min_new_tokens(logits, cur_len: int, begin_index: int,

@@ -657,21 +657,27 @@ def _stack_xs(layers, lora_layers) -> list:
             for i, layer in enumerate(layers)]
 
 
-def encoder_stack(model: Whisper, lora=None):
+def encoder_stack(model: Whisper, lora=None, ring=None,
+                  kv_valid_len: Optional[int] = None):
     """(body, xs): the encoder's layer stack as `parallel/pipeline.py`
     takes it. ``body(h, layer_xs)`` runs one layer on the layer's weights
     and adapters in ``layer_xs`` (under the config's remat when grad is
-    on), with the attention of the plain stack."""
+    on), with the attention of the plain stack: with ``ring``, ring
+    attention over it on this rank's sequence shard, masking keys at or
+    past ``kv_valid_len``."""
     layers = model.encoder.layers
     flash = resolve_flash(model)
     remat = model.config.remat and torch.is_grad_enabled()
     policy = remat_policy(model.config)
+    ring_kw = {} if ring is None else {"ring": ring,
+                                       "kv_valid_len": kv_valid_len}
 
     def body(h, x):
         if remat:
             return _remat_layer(layers[x["i"]], h, flash, x["lora"], policy,
-                                x["w"])
-        return _run_layer(layers[x["i"]], x["w"], (h, flash, x["lora"]), {})
+                                x["w"], **ring_kw)
+        return _run_layer(layers[x["i"]], x["w"], (h, flash, x["lora"]),
+                          ring_kw)
 
     return body, _stack_xs(layers, _layer_lora(lora, "encoder"))
 
@@ -704,19 +710,6 @@ def _layer_lora(lora, part: str):
     return ((lora or {}).get(part) or {}).get("layers")
 
 
-def check_split_alone(model: Whisper) -> None:
-    """Raises for a model split by FSDP or tensor parallelism
-    (``parallel/sharding.py``) under a config's ``seq_parallel_axis`` or
-    ``pipeline_axis``: those combinations are not ported."""
-    config = model.config
-    if sharding.leaf_specs(model) and (config.seq_parallel_axis is not None
-                                       or config.pipeline_axis is not None):
-        raise NotImplementedError(
-            "FSDP or tensor parallelism together with sequence or pipeline "
-            "parallelism is not ported yet; ROADMAP.md queue 1 item 10 "
-            "lists it")
-
-
 def encoder_apply(model: Whisper, features, lora=None, dropout=None):
     """[B, ch, T] -> [B, T', d] encoder states, T' == max_source_positions;
     ``lora`` is an adapter tree (``models/lora.py``). ``dropout``
@@ -742,12 +735,18 @@ def encoder_apply(model: Whisper, features, lora=None, dropout=None):
     microbatches (default P), with the same attention, adapters and remat
     as the plain stack, and every rank gets the stack's output. A stage's
     layers take gradients on that stage alone; the training step sums them
-    over the ring. Sequence and pipeline parallelism together are not
-    ported and raise, and so is either on a model split by FSDP or tensor
-    parallelism (`check_split_alone`).
+    over the ring. Under both axes (the JAX package's SP inside GPipe
+    stages, ``pipeline_scan(auto_axes=)``) the states are padded and
+    sharded along T once, before the pipeline; each (pipe, seq) rank runs
+    its stage's layers with ring attention on its [B/M, T'/n, d] shard of
+    each microbatch, the pipeline's hops carry the shard to the same seq
+    coordinate of the next stage, and the shards are gathered after the
+    stack.
 
     A model split by ``parallel/sharding.py::shard_params`` runs each
-    linear on this rank's block (`linear`) and attention on its heads."""
+    linear on this rank's block (`linear`) and attention on its heads, in
+    the plain stack, the ring's layers and the pipeline's stages alike
+    (the JAX package's GSPMD splits compose with both axes)."""
     config = model.config
     remat = config.remat and torch.is_grad_enabled()
     policy = remat_policy(config)
@@ -763,17 +762,6 @@ def encoder_apply(model: Whisper, features, lora=None, dropout=None):
     flash = resolve_flash(model)
     layers = model.encoder.layers
     layers_lora = _layer_lora(lora, "encoder")
-    check_split_alone(model)
-    if config.pipeline_axis is not None:
-        if config.seq_parallel_axis is not None:
-            raise NotImplementedError(
-                "sequence and pipeline parallelism together are not ported "
-                "yet; ROADMAP.md queue 1 item 10 lists it")
-
-        body, xs = encoder_stack(model, lora)
-        h = pipeline(body, xs, h, axis_ring(config.pipeline_axis),
-                     config.pipeline_microbatches or None)
-        return layer_norm(h, model.encoder.ln_post)
     ring, kv_valid_len = None, None
     if config.seq_parallel_axis is not None:
         ring = axis_ring(config.seq_parallel_axis)
@@ -785,12 +773,18 @@ def encoder_apply(model: Whisper, features, lora=None, dropout=None):
         h = shard_seq(h, ring)
     ring_kw = {} if ring is None else {"ring": ring,
                                        "kv_valid_len": kv_valid_len}
-    for i, layer in enumerate(layers):
-        layer_lora = None if layers_lora is None else layers_lora[i]
-        if remat:
-            h = _remat_layer(layer, h, flash, layer_lora, policy, **ring_kw)
-        else:
-            h = layer(h, flash, layer_lora, **ring_kw)
+    if config.pipeline_axis is not None:
+        body, xs = encoder_stack(model, lora, **ring_kw)
+        h = pipeline(body, xs, h, axis_ring(config.pipeline_axis),
+                     config.pipeline_microbatches or None)
+    else:
+        for i, layer in enumerate(layers):
+            layer_lora = None if layers_lora is None else layers_lora[i]
+            if remat:
+                h = _remat_layer(layer, h, flash, layer_lora, policy,
+                                 **ring_kw)
+            else:
+                h = layer(h, flash, layer_lora, **ring_kw)
     if ring is not None:
         h = gather_seq(h, ring)[:, :t]
     return layer_norm(h, model.encoder.ln_post)

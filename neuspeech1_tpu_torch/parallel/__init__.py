@@ -15,4 +15,7 @@
 - ``sharding``: FSDP and tensor parallelism over the mesh's ``fsdp`` and
   ``tensor`` axes: the weights' splits, ``shard_params`` and
   ``gather_params``, and the collectives of the split linears.
+
+The axes compose as the JAX package's do: the ring inside pipeline
+stages, the split linears inside either, and ``data`` beside all of them.
 """

@@ -27,6 +27,17 @@ backward node on one worker thread) run the schedule: `pipeline_fwd` and
 Function for the CPU and for a ``DistRing``, where collectives may run
 inside a backward.
 
+The body may run collectives of its own on other rings of the mesh: ring
+attention's rounds over ``seq`` (SP inside the stages), FSDP's weight
+gathers and tensor parallelism's sums, and in a tick's
+``torch.autograd.backward`` their backward collectives (the ring's K/V
+rounds and dk/dv hops, FSDP's reduce-scatters, tensor parallelism's "f").
+Those rings join ranks of one pipe coordinate, which run the same
+schedule: the same ticks, the same microbatches, idle at the same ticks,
+so their collectives meet in the same order. A ``LocalRing`` of CUDA
+tensors refuses the backward ones (``ring_attention.py::check_backward``);
+on the card such a stage runs one process per rank.
+
 The bubble is (P-1)/(M+P-1). Unlike the JAX schedule the idle ticks run no
 layers (JAX runs them on zeros and never reads the result). The layers'
 weights stay whole on every rank (the caller passes every layer; each rank
@@ -227,6 +238,9 @@ def pipeline(body: Callable, xs: Sequence[Any], h: torch.Tensor, ring: Ring,
         for layer in xs:
             h = body(h, layer, *sample_consts, *consts)
         return h
+    if not torch.is_grad_enabled():
+        return pipeline_fwd(body, stage_layers(xs, ring), h, ring, m, consts,
+                            sample_consts)[0]
     flat, spec = tree_flatten(stage_layers(xs, ring))
     tensors = [t for t in flat if isinstance(t, torch.Tensor)]
     others = [_TENSOR if isinstance(t, torch.Tensor) else t for t in flat]

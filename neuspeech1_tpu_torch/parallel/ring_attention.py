@@ -18,7 +18,9 @@ as ``lax.ppermute`` with the JAX package's ``_ring_perm``):
             ones; dq accumulates locally in f32, dk and dv ride the ring
             with their block and arrive home after n hops.
 
-Rings: ``DistRing`` over a ``torch.distributed`` process group, and
+Rings: ``DistRing`` over a ``torch.distributed`` process group (its hops
+of CUDA tensors over gloo, which sends host tensors only, go through
+pinned host memory and are counted in ``staged``), and
 ``LocalRing``, n ranks as n Python threads on one device, the counterpart of
 the JAX tests' virtual CPU mesh (``LocalRing.run_mesh`` builds a grid of
 them, one ring per mesh axis). Besides the hop to rank + 1 a ring has the
@@ -45,6 +47,7 @@ from __future__ import annotations
 import itertools
 import math
 import threading
+import time
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -121,15 +124,26 @@ class DistRing(Ring):
         return self._shift(tensors, -1)
 
     def _shift(self, tensors, hop: int) -> tuple:
-        """Sends each tensor to rank + hop; returns those of rank - hop."""
+        """Sends each tensor to rank + hop; returns those of rank - hop.
+        CUDA tensors on a gloo group go through pinned host memory
+        (`_staged_shift`): gloo sends and receives host tensors only."""
         if self.size == 1:
             return tensors
+        if host_staged(self.group, tensors):
+            return _staged_shift(self, tensors, hop)
+        return self._send_recv(tensors, hop)
+
+    def _send_recv(self, tensors, hop: int, outs=None) -> tuple:
+        """One ``batch_isend_irecv`` of a send to rank + hop and a receive
+        from rank - hop per tensor, into ``outs`` (default: new tensors
+        like ``tensors``)."""
         import torch.distributed as dist
 
         dst = dist.get_global_rank(self.group, (self.rank + hop) % self.size)
         src = dist.get_global_rank(self.group, (self.rank - hop) % self.size)
-        outs = tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
-                     for t in tensors)
+        if outs is None:
+            outs = tuple(torch.empty_like(
+                t, memory_format=torch.contiguous_format) for t in tensors)
         ops = []
         for t, out in zip(tensors, outs):
             ops.append(dist.P2POp(dist.isend, t.contiguous(), dst, self.group))
@@ -186,6 +200,53 @@ class DistRing(Ring):
         import torch.distributed as dist
 
         dist.barrier(group=self.group)
+
+
+# The hops of `DistRing` that went through host memory in this process
+# (CUDA tensors on a gloo group): their count, the bytes sent, and the
+# seconds they took on the host clock, from the device's stream being
+# idle to the received tensors being back on the device. `reset_staged`
+# zeroes them.
+staged = {"hops": 0, "bytes": 0, "seconds": 0.0}
+
+
+def reset_staged() -> None:
+    staged.update(hops=0, bytes=0, seconds=0.0)
+
+
+def host_staged(group, tensors) -> bool:
+    """Whether a hop of ``tensors`` over ``group`` stages them through
+    host memory: CUDA tensors on a gloo group. Under NCCL the hop stays a
+    send and receive on the device."""
+    import torch.distributed as dist
+
+    return (any(t.is_cuda for t in tensors)
+            and dist.get_backend(group) == dist.Backend.GLOO)
+
+
+def _pinned(t):
+    """An empty pinned host tensor of ``t``'s shape and dtype."""
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+
+
+def _synchronize(t) -> None:
+    """Waits until the work queued on ``t``'s device stream is done."""
+    torch.cuda.current_stream(t.device).synchronize()
+
+
+def _staged_shift(ring: "DistRing", tensors, hop: int) -> tuple:
+    """`DistRing._shift` of device tensors over gloo: each tensor copied to
+    pinned host memory, the host copies sent and received, the received
+    ones copied back to the tensor's device. Counted in `staged`."""
+    _synchronize(tensors[0])
+    t0 = time.perf_counter()
+    sends = tuple(_pinned(t).copy_(t) for t in tensors)
+    outs = ring._send_recv(sends, hop, tuple(_pinned(t) for t in tensors))
+    outs = tuple(o.to(t.device) for o, t in zip(outs, tensors))
+    staged["hops"] += 1
+    staged["bytes"] += sum(t.numel() * t.element_size() for t in tensors)
+    staged["seconds"] += time.perf_counter() - t0
+    return outs
 
 
 class _LocalState:

@@ -43,6 +43,13 @@ linear``, the training step, the optimizer's norm and the checkpoints read
 it; attention layers keep their local head count. `gather_params` gives
 the whole model back, `gather_leaf` and `shard_leaf` one tensor.
 
+The split linears run alike in the plain stack, in ring attention's layers
+(``seq_parallel_axis``: each ring then carries its tensor rank's heads)
+and in pipeline stages (``pipeline_axis``: each tick gathers its stage's
+weights and reduce-scatters their gradients, so the ticks' reduce-scatters
+add up to that of the summed gradient), as GSPMD composes the JAX
+package's splits with its ring and its pipeline.
+
 The collectives inside autograd's backward ("f", FSDP's reduce-scatter,
 remat's recompute of "g") need one autograd engine per rank: a
 ``LocalRing`` of CUDA tensors refuses them at once
@@ -395,7 +402,11 @@ def global_norm(grads: Dict[str, torch.Tensor], specs: Dict[str, Spec]
                 ) -> torch.Tensor:
     """The global norm of whole gradients from this rank's shards: each
     split leaf's sum of squares summed over the axes that split it, each
-    replicated leaf counted once; the same bits on every rank. Leaves are
+    replicated leaf counted once; the same bits on every rank. ``grads``
+    are the training step's reduced gradients: a pipeline stage's leaves
+    after the sum over ``pipe`` and the encoder's after the sum over
+    ``seq`` are the same on every rank of those rings, which the norm
+    therefore does not sum over. Leaves are
     grouped by their split axes, each group one sum (and one collective
     per axis), the groups added in sorted order."""
     groups: Dict[tuple, list] = {}

@@ -22,11 +22,15 @@ Inputs are padded to ``batch_size`` rows, as in the JAX package. With
 mapping, every rank building its own ``Transcriber``) the weights are split
 over its ``fsdp`` and ``tensor`` axes (``parallel/sharding.py``), each
 batch's rows over ``data`` x ``fsdp``, and every rank returns the whole
-batch's texts (``decode/generate.py::generate_over_mesh``).
+batch's texts (``decode/generate.py::generate_over_mesh``). A model whose
+config names a ``seq_parallel_axis`` or a ``pipeline_axis`` of the mesh
+runs its encoder pass over those axes (ring attention, GPipe stages, or
+both), beside the splits; the cached decoder runs on every rank.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import List, Optional
 
@@ -178,12 +182,16 @@ class Transcriber:
         path): each clip alone, decoded greedily (one beam; the other
         settings as configured), trimmed after its first eot past the
         prompt, then `decode.timestamps.word_timestamps`. With a ``mesh``
-        every rank runs it on the whole weights, gathered for the call."""
+        every rank runs it alone on the whole weights, gathered for the
+        call, and its encoder on one device (a clip alone is one row, which
+        a pipeline's microbatches do not split)."""
         model = self.model
         if self.mesh is not None:
             from neuspeech1_tpu_torch.parallel import sharding
 
-            model = sharding.gather_params(self.model, self.mesh)
+            model = copy.copy(sharding.gather_params(self.model, self.mesh))
+            model.config = dataclasses.replace(
+                model.config, seq_parallel_axis=None, pipeline_axis=None)
         signals = self._prepare(signals)
         gen = dataclasses.replace(self.gen, num_beams=1)
         prompt = torch.as_tensor(self.prompt, device=self.device)

@@ -52,9 +52,17 @@ leaf not split over ``fsdp`` over ``fsdp`` (an fsdp-split leaf's gradient
 was reduce-scattered in the backward), then every leaf over ``data``. The
 norm sums each split leaf's squares over its axes (``parallel/sharding.py::
 global_norm``), so the clip sees the same norm on every rank, and AdamW's
-moments have each leaf's shape: a rank keeps its shards' moments. FSDP or
-tensor parallelism together with sequence or pipeline parallelism is not
-ported and raises.
+moments have each leaf's shape: a rank keeps its shards' moments.
+
+The axes compose as the JAX package's do (its GSPMD splits beside its ring
+and its pipeline): sequence parallelism inside GPipe stages, and FSDP and
+tensor parallelism beside either or both. Rows are split over ``data`` x
+``fsdp`` only; the ranks of a ``seq``, ``pipe`` or ``tensor`` ring share
+them. `reduce_grads` sums in a fixed order that every composition shares:
+seq, then pipe (on an FSDP-split stage leaf the pipe sum runs on the
+rank's shard, which its pipe peers hold at the same fsdp coordinate), then
+tensor, fsdp and data; after it every rank of a seq, pipe or tensor ring
+holds the same gradients, so the norm counts each leaf once.
 
 The step makes no host sync: its metrics stay 0-d device tensors, and the
 importance EMAs' stop test reads the host's step count.
@@ -243,13 +251,6 @@ def make_train_step(config: WhisperConfig, stem: StemConfig, tx: Optimizer,
     def step(state: TrainState, frozen: Frozen, batch: Batch):
         data = pmesh.data_ring()
         fsdp, tensor = pmesh.fsdp_ring(), pmesh.tensor_ring()
-        if (fsdp is not None or tensor is not None) and (
-                config.seq_parallel_axis is not None
-                or config.pipeline_axis is not None):
-            raise NotImplementedError(
-                "FSDP or tensor parallelism together with sequence or "
-                "pipeline parallelism is not ported yet; ROADMAP.md queue 1 "
-                "item 10 lists it")
         rank, n = pmesh.batch_coordinate()
         row_rings = pmesh.batch_rings()
         specs = sharding.leaf_specs(frozen.model)

@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import re
+import string
 from typing import List
 
 _PUNCT = "!,.;:?、！，。；：？"
@@ -50,3 +51,13 @@ def to_simple(texts) -> List[str]:
         from neuspeech1_tpu_torch.utils.zh_t2s import convert_t2s
 
         return [convert_t2s(t) for t in texts]
+
+
+def generate_random_string(length: int = 24) -> str:
+    """A random id of ASCII letters and digits for metric caches
+    (reference `utils/data_utils.py:19-29`), drawn from Python's
+    ``random``."""
+    import random
+
+    chars = string.ascii_letters + string.digits
+    return "".join(random.choice(chars) for _ in range(length))

@@ -13,8 +13,9 @@ one-rank step, in f32 on the CPU, with the ranks as LocalRing threads
   global);
 - AdaLoRA's orthogonality loss and importance EMAs, augmentation and
   dropout, against the one-rank port step on the same generator;
-- data x sequence parallelism ({data: 2, seq: 2}) against the one-rank
-  step."""
+- data x sequence parallelism ({data: 2, seq: 2}), and FSDP or tensor
+  parallelism beside sequence or pipeline parallelism, against the
+  one-rank step."""
 
 import dataclasses
 
@@ -30,6 +31,7 @@ from neuspeech1_tpu.parallel.sharding import shard_params
 from neuspeech1_tpu.train import optimizer as jopt
 from neuspeech1_tpu.train import trainstep as jts
 from neuspeech1_tpu_torch.parallel import mesh as pmesh
+from neuspeech1_tpu_torch.parallel import sharding
 from neuspeech1_tpu_torch.parallel.ring_attention import LocalRing
 from neuspeech1_tpu_torch.train import optimizer as topt
 from neuspeech1_tpu_torch.train import trainstep as tts
@@ -78,13 +80,17 @@ def _jax_run(jconfig, params, lora, batches, mesh=None):
     return losses, jax.device_get(state.trainable)
 
 
-def _port_run(tconfig, params, lora, batches, stem=STEM, **step_kw):
+def _port_run(tconfig, params, lora, batches, stem=STEM, split=False,
+              **step_kw):
     """The port's step on this thread's ambient mesh, each rank on its
-    block of every batch: per step the metrics, then the trainable leaves,
+    block of every batch (with ``split``, on a model split over the mesh's
+    fsdp and tensor axes): per step the metrics, then the trainable leaves,
     the importance EMAs and the generator's state."""
     tx = topt.make_optimizer(peak_lr=1e-3, warmup_steps=0, total_steps=10,
                              grad_clip=step_kw.pop("grad_clip", None))
     state, frozen = _port(params, lora, tconfig, stem, tx)
+    if split:  # the trainable leaves (adapters, stem, conv2) stay whole
+        sharding.shard_params(frozen.model)
     step = tts.make_train_step(tconfig, port(stem), tx, fold_lora=True,
                                **step_kw)
     shard = pmesh.batch_sharding()
@@ -248,12 +254,20 @@ def test_data_by_sequence_parallel_matches_the_one_rank_step():
 
 
 def test_fsdp_and_tensor_axes_still_raise(setup):
-    """FSDP and tensor parallelism run (tests/test_torch_fsdp.py); beside
-    sequence or pipeline parallelism they still raise."""
+    """FSDP and tensor parallelism beside sequence or pipeline parallelism,
+    which raised until the mesh's axes composed: {fsdp: 2, seq: 2} and
+    {tensor: 2, pipe: 2} (the ring's layers and the pipeline's stages on
+    the split linears) give the one-rank step's losses and leaves, the
+    same bits on every rank. Against the JAX package's compositions:
+    tests/test_torch_composed_*.py."""
     _, tconfig, params, lora, batches, _ = setup
+    one = _port_run(tconfig, params, lora, batches)
     for axes, axis in (({"fsdp": 2, "seq": 2}, "seq_parallel_axis"),
                        ({"tensor": 2, "pipe": 2}, "pipeline_axis")):
         config = dataclasses.replace(tconfig, **{axis: list(axes)[1]})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _dp(4, lambda: _port_run(config, params, lora, batches[:1]),
-                **axes)
+        runs = _dp(4, lambda: _port_run(config, params, lora, batches,
+                                        split=True), **axes)
+        _same_on_every_rank(runs)
+        for a, b in zip(runs[0][0], one[0]):
+            assert a["loss"] == pytest.approx(b["loss"], rel=LOSS_REL)
+        _close_leaves(runs[0][1], one[1])

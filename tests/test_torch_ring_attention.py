@@ -322,9 +322,11 @@ def test_encoder_routes_self_attention_through_the_ring(monkeypatch):
     """Under ``seq_parallel_axis`` the encoder's self-attention calls K4's
     entry (2 ranks x 2 rounds x 2 layers) and never K1's; without an
     ambient mesh, or with a mesh lacking the axis, it raises; with a
-    ``pipeline_axis`` as well it raises as not ported. A ``pipeline_axis``
-    alone calls K1's entry once per layer and microbatch, and gives the
-    plain stack's output on every rank."""
+    ``pipeline_axis`` as well (it raised until the axes composed) K4's
+    entry runs in every stage's rounds, 4 ranks x 2 microbatches x 2
+    rounds x 1 layer, and every rank gets the SP encoder's states. A
+    ``pipeline_axis`` alone calls K1's entry once per layer and
+    microbatch, and gives the plain stack's output on every rank."""
     calls = {"k1": 0, "k4": 0}
     k1, k4 = tw.flash_attention_bthd, tfa.flash_bias_fwd
 
@@ -356,13 +358,21 @@ def test_encoder_routes_self_attention_through_the_ring(monkeypatch):
     with pmesh.set_mesh({"data": types.SimpleNamespace(size=1)}), \
             pytest.raises(ValueError, match="no axis 'seq'"), torch.no_grad():
         tw.encoder_apply(model, feats)
-    # sequence and pipeline parallelism together are not ported
+    # sequence parallelism inside pipeline stages: each (pipe, seq) rank
+    # runs its stage's layer on its shard of each of two microbatches, two
+    # rounds of K4 each, and every rank gets the SP encoder's states
+    sp = outs[0]
     model.config = port(tiny(seq_parallel_axis="seq", pipeline_axis="pipe"))
-    one = types.SimpleNamespace(size=1)
-    with pmesh.set_mesh({"seq": one, "pipe": one}), \
-            pytest.raises(NotImplementedError, match="ROADMAP"), \
-            torch.no_grad():
-        tw.encoder_apply(model, feats)
+    calls.update(k1=0, k4=0)
+
+    def sp_stage(mesh):
+        with pmesh.set_mesh(mesh), torch.no_grad():
+            return tw.encoder_apply(model, feats)
+
+    outs = LocalRing.run_mesh(sp_stage, pipe=2, seq=2)
+    assert calls == {"k1": 0, "k4": 4 * 2 * 2 * config.encoder_layers // 2}
+    for o in outs:
+        torch.testing.assert_close(o, sp, rtol=0, atol=0)
     # a pipeline_axis alone: two stages of one layer, two microbatches, the
     # stages' self-attention on K1's entry as in the plain stack
     model.config = port(tiny())

@@ -269,39 +269,72 @@ def test_eval_step_matches_jax():
     assert int(got["n_tokens"]) == int(ref["n_tokens"]) == 12
 
 
+def _fold_merge_raises(runs):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tts.make_loss_fn(port(tiny()), TSTEM, fold_lora=True,
+                         fold_impl="merge")
+
+
+def _composed_steps_match_jax(runs, sizes, **axes):
+    """N_STEPS of the port's step with the config's ``axes`` under LocalRing
+    threads of a mesh of ``sizes``, on a model split over its fsdp and
+    tensor axes: every rank's metrics and leaves within the bounds of the
+    JAX package's one-device steps (``runs``)."""
+    from neuspeech1_tpu_torch.parallel import mesh as pmesh
+    from neuspeech1_tpu_torch.parallel import sharding
+    from neuspeech1_tpu_torch.parallel.ring_attention import LocalRing
+
+    config = port(tiny(**axes))
+
+    def rank(mesh):
+        with pmesh.set_mesh(mesh):
+            _, _, model, t_lora = _setup(tiny())
+            model.config = config  # the forward reads the model's axes
+            sharding.shard_params(model)
+            ttx = _optimizers()[1]
+            state, frozen = tts.init_train_state(model, t_lora, ttx)
+            step = tts.make_train_step(config, TSTEM, ttx, fold_lora=True)
+            rows = pmesh.batch_sharding()
+            tb = {k: rows.shard(v)
+                  for k, v in _torch_batch(_batch(tiny())).items()}
+            out = []
+            for _ in range(N_STEPS):
+                m = step(state, frozen, tb)
+                out.append(({k: float(m[k]) for k in ("loss", "ce_loss",
+                                                      "grad_norm")},
+                            _leaves(params_from_lora(t_lora), model)))
+        return out
+
+    for run in LocalRing.run_mesh(rank, **sizes):
+        for (got, leaves), ref in zip(run, runs):
+            for k, v in got.items():
+                np.testing.assert_allclose(v, ref["jax"][k], rtol=RTOL,
+                                           atol=ATOL, err_msg=k)
+            for (path, a), b in zip(
+                    jax.tree_util.tree_leaves_with_path(leaves),
+                    jax.tree_util.tree_leaves(ref["jax_leaves"])):
+                np.testing.assert_allclose(
+                    a, b, rtol=RTOL, atol=ATOL,
+                    err_msg=jax.tree_util.keystr(path))
+
+
 UNPORTED = {
-    "fold_merge": lambda c, tx: tts.make_loss_fn(c, TSTEM, fold_lora=True,
-                                                 fold_impl="merge"),
+    "fold_merge": _fold_merge_raises,
     # FSDP and tensor parallelism beside sequence or pipeline parallelism
-    # (ROADMAP queue 1 item 10)
-    "fsdp_axis": lambda c, tx: _step_under_mesh(
-        dataclasses.replace(c, seq_parallel_axis="seq"), tx,
-        {"fsdp": 2, "seq": 2}),
-    "tensor_axis": lambda c, tx: _step_under_mesh(
-        dataclasses.replace(c, pipeline_axis="pipe"), tx,
-        {"data": 2, "tensor": 2, "pipe": 2}),
+    # raised until the mesh's axes composed (ROADMAP queue 1 item 10);
+    # they now run and match the JAX package's steps
+    "fsdp_axis": lambda runs: _composed_steps_match_jax(
+        runs, {"fsdp": 2, "seq": 2}, seq_parallel_axis="seq"),
+    "tensor_axis": lambda runs: _composed_steps_match_jax(
+        runs, {"tensor": 2, "pipe": 2}, pipeline_axis="pipe"),
 }
 
 
-def _step_under_mesh(config, tx, sizes):
-    """One train step under an ambient mesh of rings of ``sizes``; the
-    step raises before any ring is used."""
-    import types
-
-    from neuspeech1_tpu_torch.parallel import mesh as pmesh
-
-    _, _, model, t_lora = _setup(tiny())
-    state, frozen = tts.init_train_state(model, t_lora, tx)
-    step = tts.make_train_step(config, TSTEM, tx)
-    mesh = {a: types.SimpleNamespace(size=n, rank=0) for a, n in sizes.items()}
-    with pmesh.set_mesh(mesh):
-        step(state, frozen, _torch_batch(_batch(tiny())))
-
-
 @pytest.mark.parametrize("option", list(UNPORTED))
-def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        UNPORTED[option](port(tiny()), topt.make_optimizer())
+def test_unported_options_raise(option, runs):
+    """The 'merge' fold regime raises; FSDP beside sequence parallelism and
+    tensor parallelism beside GPipe, which raised here too, run."""
+    UNPORTED[option](runs)
 
 
 def test_loss_fn_refuses_another_stem_kind():

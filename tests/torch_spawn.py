@@ -72,3 +72,43 @@ def dp_step_rank(rank, world, store_path, out_dir, params, shards, config,
                     for k, t in state.trainable.items()})
     finally:
         dist.destroy_process_group()
+
+
+def staged_hop_rank(rank, world, store_path, out_dir):
+    """One process of a gloo group hopping tensors around the ring both
+    ways, once on the group's own send and receive and once through the
+    host staging that CUDA tensors take over gloo (here host tensors stand
+    in for device ones: the staging's device checks and copies are
+    replaced); the results and the staging's counters go to
+    ``out_dir/rank{rank}.npz``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from neuspeech1_tpu_torch.parallel import mesh as pmesh
+    from neuspeech1_tpu_torch.parallel import ring_attention as ra
+
+    torch.set_num_threads(1)
+    pmesh.initialize_distributed("gloo", store=dist.FileStore(store_path,
+                                                              world),
+                                 rank=rank, world_size=world)
+    try:
+        ring = pmesh.axis_ring("seq", pmesh.make_mesh("cpu", seq=world))
+        x = torch.arange(6, dtype=torch.float32).view(2, 3) + 10 * rank
+        y = torch.full((4,), rank, dtype=torch.int64)
+        assert not ra.host_staged(ring.group, (x, y))
+        plain = ring.permute(x, y) + ring.permute_back(x, y)
+        ra.reset_staged()
+        ra.host_staged = lambda group, tensors: True
+        ra._pinned = lambda t: torch.empty(t.shape, dtype=t.dtype)
+        ra._synchronize = lambda t: None
+        staged = ring.permute(x, y) + ring.permute_back(x, y)
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
+                 plain=np.stack([t.double().numpy().ravel()[:4]
+                                 for t in plain]),
+                 staged=np.stack([t.double().numpy().ravel()[:4]
+                                  for t in staged]),
+                 counts=np.asarray([ra.staged["hops"], ra.staged["bytes"],
+                                    ra.staged["seconds"] > 0]))
+    finally:
+        dist.destroy_process_group()
