@@ -30,13 +30,13 @@ each printing JSON lines:
             holds the encoder states against the plain attention path, and
             checks the token ids.
 4. beam     the eval CLI's decode (beam 5, repetition penalty 5.0,
-            no-repeat-ngram 2, batch 16, 128 new tokens) on the same model:
+            no-repeat-ngram 2, batch 16, 64 new tokens) on the same model:
             latency and utterances/s, launches of K1, K6 and K7 against the
             encoder, cached decoder and width-1 calls, the cached decoder's
             logits over 8 teacher-forced steps against the plain versions,
             and the share of tokens equal to the plain path's and to an
             f32 reference's.
-5. spec     self-speculative greedy serving (gamma 4, batch 16, 128 new
+5. spec     self-speculative greedy serving (gamma 4, batch 16, 64 new
             tokens) on the same model, with the self-prefix drafter and with
             a corpus-table drafter built from the greedy outputs of the same
             signals, beside a plain greedy request, and greedy and spec with
@@ -114,8 +114,8 @@ each printing JSON lines:
             same bits on the card as on the CPU at the beam step's shape
             (timed beside the beam step).
 12. modes   every other decode mode of serving on the same model, 16
-            clips and 128 new tokens a request, each request timed (median
-            of 3) with K1/K6/K7 launches held against the model calls:
+            clips and 64 new tokens a request, each request timed (median
+            of 2) with K1/K6/K7 launches held against the model calls:
             sampling (temperature 0.7, top-k 50, top-p 0.9; one seed gives
             one set of tokens, top-k 1 gives greedy's up to ties, tokens
             against the plain versions on one noise source), beam-sample
@@ -157,6 +157,23 @@ each printing JSON lines:
             {pipe: 2, seq: 2} through ``Transcriber(mesh=)``; then
             ``perf/serve_bench``, ``perf/spec_bench`` and
             ``perf/trace_step`` in process.
+18. family  the Whisper sizes past whisper-base and the drives of
+            ``perf/model_panel.py`` and ``perf/flagship_drive.py``: K1/K2,
+            K3, K6 and K7 against their plain versions at 12 and 20 heads,
+            fc panels 768/3072 and 1280/5120, and head dim 24; the panel's
+            whisper-small (batch 32) and large-v3 (batch 8, remat) training
+            rows, a few steps each with K1/K2/K3 counted per step and a
+            falling loss, then timed; its large-v3 greedy rows (128 mel
+            bins, batch 8 with the bf16 cross cache, batch 32 with the
+            int8 one), tokens against the plain versions; a greedy request
+            through each stem kind ('base' over 208 and 273 channels,
+            'replace', 'premel', 'speech'); the Schoffelen transfer
+            (``flagship_drive`` phase S: a 208-channel adapter, the
+            recipe's flags on 273 channels, merge_lora, the eval CLI); the
+            CPU-scale convergence gate of tests/test_convergence.py (400
+            steps, held-out WER at most 0.15) and flagship phase A
+            (whisper-base --ft_full, 600 steps at batch 32: the eval loss
+            falls from 300 to 600, held-out WER at 600 at most 0.5).
 
 Then it prints each phase's wall seconds, the kernel summary (with each kernel's bound: the least time
 the card could take for the same bytes or operations, from NVIDIA's H100 SXM
@@ -392,15 +409,15 @@ SLICE_REPEATS = 3
 BEAM_SETTINGS = dict(num_beams=5, repetition_penalty=5.0,
                      no_repeat_ngram_size=2)
 BEAM_BATCH = 16
-BEAM_NEW_TOKENS = 128
-BEAM_REPEATS = 3
+BEAM_NEW_TOKENS = 64
+BEAM_REPEATS = 2
 BEAM_FORCED_STEPS = 8
 # Speculative serving: the JAX package's measured gamma, at the beam phase's
 # batch and budget
 SPEC_BATCH = 16
-SPEC_NEW_TOKENS = 128
+SPEC_NEW_TOKENS = 64
 SPEC_GAMMA = 4
-SPEC_REPEATS = 3
+SPEC_REPEATS = 2
 # tokens accepted in each forced verify iteration of the logits check: the
 # 4 - m rejected columns of each iteration stay as holes
 SPEC_FORCED_ACCEPTS = (1, 4, 2, 3, 1)
@@ -453,8 +470,8 @@ EVAL_BIAS_WEIGHTS = (-1.0, 0.1)
 # penalty_alpha 1, top_k 5); int8 weights greedily; token timestamps on
 # MODES_TS_CLIPS clips
 MODES_BATCH = 16
-MODES_NEW_TOKENS = 128
-MODES_REPEATS = 3
+MODES_NEW_TOKENS = 64
+MODES_REPEATS = 2
 SAMPLE_SETTINGS = dict(do_sample=True, temperature=0.7, top_k=50, top_p=0.9,
                        sample_seed=0)
 CONTRASTIVE_SETTINGS = dict(penalty_alpha=1.0, top_k=5)
@@ -532,7 +549,7 @@ MEL_RTOL, MEL_ATOL = 1e-3, 1e-4
 # options: the training step's options at the train phase's setup
 # (whisper-base, batch 64, 64 labels, LoRA r=32, the fold). Each timed
 # setting runs OPT_WARM steps, then OPT_TIMED timed ones (median).
-OPT_WARM, OPT_TIMED = 3, 7
+OPT_WARM, OPT_TIMED = 3, 4
 OPT_AUGMENT = {
     "noise": {"prob": 0.5, "min_snr_dB": 5, "max_snr_dB": 20},
     "mask": {"prob": 0.5, "kwargs": {"unit": [1, 40], "mask_prob": 0.25,
@@ -616,6 +633,60 @@ RING_N = 4
 RING_BATCH = 8
 RING_T = 1536
 RING_KV_VALID = (1500, 1000)
+# The family phase: the Whisper sizes past whisper-base
+# (perf/model_panel.py's rows), every stem kind, the Schoffelen transfer
+# and the convergence drives. Kernel cases at the new shapes: whisper-small's
+# training step at batch 32 (12 heads of 64) and large-v3's at batch 8 (20
+# heads; its serving encoder has the same shape), and the CPU-scale
+# convergence gate's head dim 24, which the wrappers pad to 32
+FAMILY_KERNEL_CASES = (
+    dict(name="small_train_encoder", b=32, t=1500, h=12, d=64, bwd=True),
+    dict(name="small_train_cross", b=32, t=64, t_kv=1500, h=12, d=64,
+         bwd=True),
+    dict(name="large_train_encoder", b=8, t=1500, h=20, d=64, bwd=True),
+    dict(name="large_train_cross", b=8, t=64, t_kv=1500, h=20, d=64,
+         bwd=True),
+    dict(name="gate_encoder_d24", b=16, t=80, h=2, d=24, bwd=True),
+    dict(name="gate_cross_d24", b=16, t=32, t_kv=80, h=2, d=24, bwd=True),
+)
+# K3 at the fc adapters of both steps: N = batch x 1500 tokens (large-v3's
+# 1280 + 5120 columns take the kernel's wide path)
+FAMILY_LORA_CASES = (
+    ("small_fc1", 48000, 768, 3072, 32),
+    ("small_fc2", 48000, 3072, 768, 32),
+    ("large_fc1", 12000, 1280, 5120, 32),
+    ("large_fc2", 12000, 5120, 1280, 32),
+)
+# K6 and K7 at large-v3's greedy decode (20 heads of 64, 4 prompt + 32 new
+# tokens: batch 8, and batch 32 of the int8-cache row, whose cross
+# attention runs plain PyTorch), and at the gate's eval decode (2 heads of
+# 24, batch 16, 48 positions)
+FAMILY_HEADS = 20
+FAMILY_DECODE_CROSS_CASES = (("large_greedy", 8, 1, 1500, None, "bhtd"),)
+FAMILY_DECODE_STEP_CASES = (("large_greedy_last", 8, 36, 35),
+                            ("large_bs32_last", 32, 36, 35))
+GATE_HEADS, GATE_HEAD_DIM = 2, 24
+GATE_DECODE_CROSS_CASES = (("gate_greedy_d24", 16, 1, 80, None, "bhtd"),)
+GATE_DECODE_STEP_CASES = (("gate_greedy_d24_last", 16, 48, 47),)
+# the training rows' own steps before the panel times them: the schedule
+# warms up over FAMILY_WARMUP steps (step 1 at lr 0), then the loss on the
+# fixed batch must fall
+FAMILY_WARMUP, FAMILY_STEPS = 1, 4
+FAMILY_NEW_TOKENS = 32
+# greedy requests through each stem kind at whisper-base width
+FAMILY_STEMS = (("base", 208), ("base", 273), ("replace", 208),
+                ("premel", 208), ("speech", None))
+FAMILY_STEM_CLIPS, FAMILY_STEM_TOKENS = 4, 16
+# the transfer at a few steps on 96-clip corpora
+FAMILY_TRANSFER_CLIPS = 96
+FAMILY_TRANSFER_FLAGS = (
+    "--max_steps=6", "--eval_steps=6", "--save_steps=6", "--logging_steps=1",
+    "--warmup_steps=1", "--adalora_tinit=1", "--adalora_tfinal=2",
+    "--adalora_deltaT=1")
+# flagship phase A at 600 steps: the eval loss must fall from step 300 to
+# 600 and the held-out WER at 600 stay at most this (the JAX package's
+# runs at 600 steps: 0.104-0.51, BASELINE.md)
+PHASE_A_WER = 0.5
 
 
 def emit(obj) -> None:
@@ -716,13 +787,31 @@ def _sdpa_inputs(q, k, v, kv_len):
 
 
 def phase_kernels() -> list:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = _check_flash(gen)
+    results.append(_check_bhtd_layout(gen))
+    results.extend(_check_lora_bwd(gen))
+    results.extend(_check_flash_bias(gen))
+    results.extend(_check_decode_cross(gen))
+    results.extend(_check_decode_cross(gen, SHARDED_DECODE_CROSS_CASES,
+                                       SHARDED_DECODE_HEADS))
+    results.extend(_check_decode_step(gen))
+    results.extend(_check_decode_step(gen, SHARDED_DECODE_STEP_CASES,
+                                      SHARDED_DECODE_HEADS))
+    results.extend(_check_decode_step_multi(gen))
+    return results
+
+
+def _check_flash(gen, cases=KERNEL_CASES, profiled: bool = True) -> list:
+    """K1 (and K2 where a case says ``bwd``, with its kernels' device times
+    where ``profiled``) against the plain versions at ``cases``' shapes,
+    timed beside SDPA."""
     import torch.nn.functional as F
 
     from neuspeech1_tpu_torch.ops import flash_attention as fa
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
     results = []
-    for case in KERNEL_CASES:
+    for case in cases:
         b, t, h, d = case["b"], case["t"], case["h"], case["d"]
         t_kv = case.get("t_kv", t)
         causal, kv_len = case.get("causal", False), case.get("kv_len")
@@ -764,17 +853,8 @@ def phase_kernels() -> list:
               f"K1 {case['name']}: a second run gave other bits")
         results.append(res)
         if case.get("bwd"):
-            results.append(_check_flash_bwd(case, q, k, v, o_k, lse_k, gen))
-    results.append(_check_bhtd_layout(gen))
-    results.extend(_check_lora_bwd(gen))
-    results.extend(_check_flash_bias(gen))
-    results.extend(_check_decode_cross(gen))
-    results.extend(_check_decode_cross(gen, SHARDED_DECODE_CROSS_CASES,
-                                       SHARDED_DECODE_HEADS))
-    results.extend(_check_decode_step(gen))
-    results.extend(_check_decode_step(gen, SHARDED_DECODE_STEP_CASES,
-                                      SHARDED_DECODE_HEADS))
-    results.extend(_check_decode_step_multi(gen))
+            results.append(_check_flash_bwd(case, q, k, v, o_k, lse_k, gen,
+                                            profiled))
     return results
 
 
@@ -873,8 +953,10 @@ def _tflops(flops: float, ms: float) -> float:
     return flops / ms / 1e9
 
 
-def _check_flash_bwd(case, q, k, v, o, lse, gen) -> dict:
-    """K2 against its plain version on the forward kernel's o and lse."""
+def _check_flash_bwd(case, q, k, v, o, lse, gen,
+                     profiled: bool = True) -> dict:
+    """K2 against its plain version on the forward kernel's o and lse;
+    with ``profiled``, its three kernels' device times."""
     from neuspeech1_tpu_torch.ops import flash_attention as fa
 
     causal, kv_len = case.get("causal", False), case.get("kv_len")
@@ -904,7 +986,8 @@ def _check_flash_bwd(case, q, k, v, o, lse, gen) -> dict:
            "plain_ms": cuda_ms(lambda: fa.flash_attention_bthd_bwd_plain(
                *args)),
            "library_ms": _sdpa_bwd_ms(q, k, v, do, causal, kv_len),
-           "split_ms": _bwd_split_ms(lambda: fa._flash_bwd_cuda(*args)),
+           **({"split_ms": _bwd_split_ms(lambda: fa._flash_bwd_cuda(*args))}
+              if profiled else {}),
            "same_bits": _same_bits(grads, again),
            **bound(n_bytes, 2.5 * fwd_flops)}
     if kv_len is not None:
@@ -982,15 +1065,16 @@ def _check_bhtd_layout(gen) -> dict:
     return res
 
 
-def _check_lora_bwd(gen) -> list:
+def _check_lora_bwd(gen, cases=LORA_CASES, profiled: bool = True) -> list:
     """K3 against its plain version at the fc1 / fc2 shapes of the training
     step (N = 64 x 1500 tokens) and at a ragged N with rank 12: CUDA
-    events, device time under torch.profiler (both of the call's launches)
-    and the wrapper's host time; a second call gives the same bits."""
+    events and, with ``profiled``, device time under torch.profiler (both
+    of the call's launches) and the wrapper's host time; a second call
+    gives the same bits."""
     from neuspeech1_tpu_torch.ops import lora_bwd as lb
 
     out = []
-    for name, n, din, dout, r in LORA_CASES:
+    for name, n, din, dout, r in cases:
         x, dy = (torch.randn((n, w), generator=gen, device="cuda")
                  .to(torch.bfloat16) for w in (din, dout))
         a, bm = (0.1 * torch.randn(s, generator=gen, device="cuda")
@@ -1015,12 +1099,14 @@ def _check_lora_bwd(gen) -> list:
                "plain_ms": cuda_ms(lambda: lb.lora_adapter_bwd_plain(
                    x, dy, a, bm)),
                "library_ms": None,
-               "device_ms": _device_ms(lambda: lb.lora_adapter_bwd(
+               **({"device_ms": _device_ms(lambda: lb.lora_adapter_bwd(
                    x, dy, a, bm)),
-               "host_us": _host_us(lambda: lb.lora_adapter_bwd(x, dy, a, bm)),
+                   "host_us": _host_us(lambda: lb.lora_adapter_bwd(
+                       x, dy, a, bm))} if profiled else {}),
                "same_bits": same,
-               "plan": plan._asdict(),
-               "resident_clusters": lb.resident_clusters(plan),
+               # None: past the one-pass plan, the wide path
+               "plan": plan and plan._asdict(),
+               "resident_clusters": plan and lb.resident_clusters(plan),
                **bound(n_bytes, 4 * n * r * (din + dout))}
         emit(res)
         check(all(torch.isfinite(g).all() for g in got),
@@ -1170,7 +1256,8 @@ def _sdpa_bias_bwd_ms(q, k, v, mask, do) -> float:
 
 
 def _check_decode_cross(gen, cases=DECODE_CROSS_CASES,
-                        h: int = DECODE_HEADS) -> list:
+                        h: int = DECODE_HEADS, d: int = DECODE_HEAD_DIM,
+                        profiled: bool = True) -> list:
     """K6 against its plain version at the greedy and beam decoder's shapes
     (``cases``, at ``h`` heads), through both cache layouts; timed over
     CACHE_COPIES caches in turn, beside SDPA on the same [B, H, Tq, D] x
@@ -1181,7 +1268,6 @@ def _check_decode_cross(gen, cases=DECODE_CROSS_CASES,
 
     from neuspeech1_tpu_torch.ops import decode_cross as dc
 
-    d = DECODE_HEAD_DIM
     out = []
     for name, b, t_q, t, kv_len, layout in cases:
         kvl = kv_len or t
@@ -1227,9 +1313,10 @@ def _check_decode_cross(gen, cases=DECODE_CROSS_CASES,
                "plain_ms": cuda_ms(lambda: dc.decode_cross_plain(
                    q, *bhtd(next(cycle)), kv_len)),
                "library_ms": cuda_ms(sdpa),
-               "device_ms": _device_ms(lambda: kernel(next(cycle))),
-               "library_device_ms": _device_ms(sdpa),
-               "host_us": _host_us(lambda: kernel(next(cycle))),
+               **({"device_ms": _device_ms(lambda: kernel(next(cycle))),
+                   "library_device_ms": _device_ms(sdpa),
+                   "host_us": _host_us(lambda: kernel(next(cycle)))}
+                  if profiled else {}),
                "same_bits": same,
                # K and V rows up to kv_len read, q read and o written
                **bound(2 * b * h * d * (2 * kvl + 2 * t_q),
@@ -1245,7 +1332,8 @@ def _check_decode_cross(gen, cases=DECODE_CROSS_CASES,
 
 
 def _check_decode_step(gen, cases=DECODE_STEP_CASES,
-                       h: int = DECODE_HEADS) -> list:
+                       h: int = DECODE_HEADS, d: int = DECODE_HEAD_DIM,
+                       profiled: bool = True) -> list:
     """K7 against its plain version at the beam and greedy steps' shapes
     (``cases``, at ``h`` heads): the context within K7_TOL and the caches
     after the in-place write equal, the same bits from a second call; timed
@@ -1254,7 +1342,6 @@ def _check_decode_step(gen, cases=DECODE_STEP_CASES,
     computes this function (a cache write and a masked attention)."""
     from neuspeech1_tpu_torch.ops import decode_step as ds
 
-    d = DECODE_HEAD_DIM
     out = []
     for name, rows, t_max, idx in cases:
         q, kn, vn = (torch.randn((rows, 1, h * d), generator=gen,
@@ -1281,10 +1368,10 @@ def _check_decode_step(gen, cases=DECODE_STEP_CASES,
                "plain_ms": cuda_ms(lambda: ds.decode_step_plain(
                    q, kn, vn, *next(cycle), idx)),
                "library_ms": None,
-               "device_ms": _device_ms(lambda: ds.decode_step(
+               **({"device_ms": _device_ms(lambda: ds.decode_step(
                    q, kn, vn, *next(cycle), idx)),
-               "host_us": _host_us(lambda: ds.decode_step(
-                   q, kn, vn, *next(cycle), idx)),
+                   "host_us": _host_us(lambda: ds.decode_step(
+                       q, kn, vn, *next(cycle), idx))} if profiled else {}),
                "same_bits": same,
                # K and V columns 0..idx-1 read, column idx written, q, k_new,
                # v_new read and the context written
@@ -1573,14 +1660,15 @@ def phase_slice(model) -> dict:
 
 
 def _forced_logits(model, enc, tokens, prompt_len: int, steps: int,
-                   lora=None):
+                   lora=None, int8_cross: bool = False):
     """The cached decoder's logits for B*K rows of ``tokens`` [B*K, L]: the
     prompt's prefill, then ``steps`` width-1 steps on the given tokens,
-    with the decoder adapters of ``lora``; [B*K, prompt_len + steps, V]."""
+    with the decoder adapters of ``lora`` (on an int8 cross cache with
+    ``int8_cross``); [B*K, prompt_len + steps, V]."""
     from neuspeech1_tpu_torch.models import whisper as tw
 
     cache = tw.init_cache(model, enc, max_len=prompt_len + steps,
-                          self_batch=tokens.shape[0])
+                          self_batch=tokens.shape[0], int8_cross=int8_cross)
     logits, cache = tw.decoder_apply(model, tokens[:, :prompt_len], enc,
                                      cache=cache, cache_index=0, lora=lora)
     out = [logits]
@@ -1650,7 +1738,7 @@ def _profile_request(fn) -> dict:
 
 def phase_beam(model) -> dict:
     """The eval CLI's decode at full width: beam 5, repetition penalty 5.0,
-    no-repeat-ngram 2, batch 16, 128 new tokens, one request of 16
+    no-repeat-ngram 2, batch 16, 64 new tokens, one request of 16
     signals."""
     from neuspeech1_tpu_torch.cli import common
     from neuspeech1_tpu_torch.decode.generate import generate
@@ -1829,7 +1917,7 @@ def _spec_f32_ties(trs, feats, prompt) -> dict:
 
 def phase_spec(model) -> dict:
     """Self-speculative greedy serving at full width: gamma 4, batch 16,
-    128 new tokens, one request of 16 signals per reading, with the
+    64 new tokens, one request of 16 signals per reading, with the
     self-prefix drafter and with the corpus-table drafter, beside plain
     greedy, and greedy and spec with the int8 cross cache."""
     from neuspeech1_tpu_torch.cli import common
@@ -2016,7 +2104,7 @@ def serving_adapters(config, seed: int = 5):
 
 
 def _bf16_ties(model, enc, tokens, tokens_p, prompt_len: int, gen,
-               lora) -> dict:
+               lora, name: str = "lora") -> dict:
     """The kernels' greedy tokens against the plain versions', in bf16 with
     adapters. The cached decoder's logits along the plain tokens, kernels
     against plain versions, must stay within LOGITS_REL_TOL of the largest
@@ -2030,13 +2118,15 @@ def _bf16_ties(model, enc, tokens, tokens_p, prompt_len: int, gen,
 
     p = prompt_len
     steps = tokens_p.shape[1] - p - 1
-    logits_k = _forced_logits(model, enc, tokens_p, p, steps, lora).float()
+    int8 = gen.int8_kv_cache
+    logits_k = _forced_logits(model, enc, tokens_p, p, steps, lora,
+                              int8).float()
     with _plain_kernels():
-        logits_p = _forced_logits(model, enc, tokens_p, p, steps,
-                                  lora).float()
+        logits_p = _forced_logits(model, enc, tokens_p, p, steps, lora,
+                                  int8).float()
     rel = ((logits_k - logits_p).abs().max().item()
            / logits_p.abs().max().item())
-    check(rel <= LOGITS_REL_TOL, f"lora: cached decoder logits along the "
+    check(rel <= LOGITS_REL_TOL, f"{name}: cached decoder logits along the "
           f"plain tokens with the kernels {rel} of the largest logit off "
           f"the plain versions")
     parts = []
@@ -2048,7 +2138,7 @@ def _bf16_ties(model, enc, tokens, tokens_p, prompt_len: int, gen,
         tol = LOGITS_REL_TOL * logits_p[r, j - 1].abs().max().item()
         parts.append({"row": r, "generated_position": j - p, "gap": gap,
                       "tie_bound": tol})
-        check(gap <= tol, f"lora: row {r} parts from the plain versions at "
+        check(gap <= tol, f"{name}: row {r} parts from the plain versions at "
               f"generated position {j - p}, where the gap {gap} between "
               f"their token's score and the kernels' is no near-tie "
               f"(bound {tol})")
@@ -3187,13 +3277,15 @@ def _plain_kernels():
 
 @contextlib.contextmanager
 def _replaced_config(model, **changes):
-    """The model with its config's ``changes`` while the context is open."""
+    """The model with its config's ``changes`` while the context is open;
+    yields that config, the one a loss or step on the model must be built
+    from (`train/trainstep.py::check_model_config`)."""
     import dataclasses
 
     config = model.config
     model.config = dataclasses.replace(config, **changes)
     try:
-        yield
+        yield model.config
     finally:
         model.config = config
 
@@ -3229,20 +3321,23 @@ def _leaf_errs(got, ref) -> dict:
             "stem": max(v for k, v in rel.items() if k.startswith("model/"))}
 
 
-def _grad_check(name, loss_fn, state, frozen, batch, expect) -> dict:
+def _grad_check(name, make_loss, state, frozen, batch, expect) -> dict:
     """One step's gradients on the kernels, on the plain versions and on
-    the f32 reference, at the adapters' present state. Checks the kernels
+    the f32 reference, at the adapters' present state, through the loss
+    ``make_loss`` builds from a config (the model's, then the f32
+    reference's). Checks the kernels
     against the plain versions (GRAD_REL_TOL, LOSS_TOL), and that the
     kernels lie no further from the f32 reference than WITNESS_FACTOR
     times the plain versions do (worst leaf)."""
     _reset_counts()
+    loss_fn = make_loss(frozen.model.config)
     loss_k, g_k = _grads(loss_fn, state, frozen, batch)
     check(_kernel_counts() == expect, f"gradient check {name} missed a kernel")
     _reset_counts()
     with _plain_kernels():
         loss_p, g_p = _grads(loss_fn, state, frozen, batch)
-        with _f32_compute(frozen.model):
-            loss_32, g_32 = _grads(loss_fn, state, frozen, batch)
+        with _f32_compute(frozen.model) as c32:
+            loss_32, g_32 = _grads(make_loss(c32), state, frozen, batch)
     check(not any(_kernel_counts().values()),
           "a kernel ran while the plain versions were swapped in")
     check(set(g_k) == set(g_p) == set(g_32),
@@ -3311,15 +3406,15 @@ def phase_train() -> dict:
     from neuspeech1_tpu_torch.models.lora import entries
 
     small = {k: v[:GRAD_CHECK_BATCH] for k, v in batch.items()}
-    loss_fn = make_loss_fn(config, stem, fold_lora=True)
-    checks = [_grad_check("after_timed_steps", loss_fn, state, frozen, small,
+    make_loss = functools.partial(make_loss_fn, stem=stem, fold_lora=True)
+    checks = [_grad_check("after_timed_steps", make_loss, state, frozen, small,
                           expect)]
     gen = torch.Generator().manual_seed(3)
     with torch.no_grad():
         for _, e in entries(frozen.lora):
             e["B"].copy_(TRAINED_B_STD * torch.randn(e["B"].shape,
                                                      generator=gen))
-    checks.append(_grad_check("trained_b", loss_fn, state, frozen, small,
+    checks.append(_grad_check("trained_b", make_loss, state, frozen, small,
                               expect))
     torch.cuda.synchronize()
     check(_jax_free(), "jax or the JAX package was imported")
@@ -3561,10 +3656,11 @@ def _sp_train_step(tr) -> dict:
                 e["B"].copy_(TRAINED_B_STD * torch.randn(e["B"].shape,
                                                          generator=gen))
         small = {k: v[:GRAD_CHECK_BATCH] for k, v in batch.items()}
-        loss_fn = make_loss_fn(config, stem, fold_lora=True)
-        loss_sp, g_sp = _grads(loss_fn, state, frozen, small)
-        with _replaced_config(frozen.model, seq_parallel_axis=None):
-            loss_1, g_1 = _grads(loss_fn, state, frozen, small)
+        loss_sp, g_sp = _grads(make_loss_fn(config, stem, fold_lora=True),
+                               state, frozen, small)
+        with _replaced_config(frozen.model, seq_parallel_axis=None) as c1:
+            loss_1, g_1 = _grads(make_loss_fn(c1, stem, fold_lora=True),
+                                 state, frozen, small)
     ms = [1e3 * t[1] for t in timed]
     med = statistics.median(ms)
     errs = _leaf_errs(g_sp, g_1)
@@ -4142,15 +4238,15 @@ def phase_finetune(tr, bm, device: str = "cuda") -> dict:
                           device)
         state, frozen = _ft_model(base_npz, config, stem, adapter, device)
         remat_check = _remat_grad_check(config, stem, state, frozen, batch)
-        loss_fn = make_loss_fn(config, stem, orth_reg_weight=0.5,
-                               fold_lora=True)
-        checks = [_grad_check("adalora_trained", loss_fn, state, frozen,
+        make_loss = functools.partial(make_loss_fn, stem=stem,
+                                      orth_reg_weight=0.5, fold_lora=True)
+        checks = [_grad_check("adalora_trained", make_loss, state, frozen,
                               batch, expect)]
         split = _adalora_split(config, stem, state, frozen, _ft_batch(
             corpus, tokenizer, config, FT_BATCH, device))
         del state, frozen
         state, frozen = _ft_model(base_npz, config, stem, device=device)
-        checks.insert(0, _grad_check("adalora_e0", loss_fn, state, frozen,
+        checks.insert(0, _grad_check("adalora_e0", make_loss, state, frozen,
                                      batch, expect))
         del state, frozen
         torch.cuda.empty_cache()
@@ -5248,11 +5344,12 @@ def _remat_sp(device: str = "cuda") -> dict:
     (the ring's forward runs again in the backward under both policies:
     nothing of it is kept), then ms per step and peak memory of each."""
     from neuspeech1_tpu_torch.models.lora import entries
-    from neuspeech1_tpu_torch.train.trainstep import make_loss_fn
+    from neuspeech1_tpu_torch.train.trainstep import (make_loss_fn,
+                                                      make_train_step)
 
     out = {}
     with _one_rank_mesh():
-        config, _, state, frozen, step, batch = _train_setup(
+        config, tx, state, frozen, step, batch = _train_setup(
             TRAIN_BATCH, device, seq_parallel_axis="seq")
         stem = frozen.model.stem_config
         n_layers = config.encoder_layers
@@ -5261,15 +5358,15 @@ def _remat_sp(device: str = "cuda") -> dict:
             for _, e in entries(frozen.lora):
                 e["B"].copy_(TRAINED_B_STD * torch.randn(e["B"].shape,
                                                          generator=gen))
-        loss_fn = make_loss_fn(config, stem, fold_lora=True)
         settings = [("none", {})] + [
             (p or "full", {"remat": True, "remat_policy": p})
             for p in REMAT_SP_POLICIES]
         ref = None
         for name, changes in settings:
-            with _replaced_config(frozen.model, **changes):
+            with _replaced_config(frozen.model, **changes) as c:
                 _reset_counts()
-                loss, grads = _grads(loss_fn, state, frozen, batch)
+                loss, grads = _grads(make_loss_fn(c, stem, fold_lora=True),
+                                     state, frozen, batch)
                 counts = _kernel_counts()
             rec = {"loss": loss, "K4": counts["K4"],
                    "K4_bwd": counts["K4_bwd"]}
@@ -5292,8 +5389,10 @@ def _remat_sp(device: str = "cuda") -> dict:
                       f"{ref[0]}")
             out[name] = rec
         for name, changes in settings:
-            with _replaced_config(frozen.model, **changes):
-                timed = _timed_steps(step, state, frozen, batch)
+            with _replaced_config(frozen.model, **changes) as c:
+                timed = _timed_steps(make_train_step(c, stem, tx,
+                                                     fold_lora=True),
+                                     state, frozen, batch)
             out[name].update({k: timed[k] for k in (
                 "step_ms", "step_ms_all", "peak_mem_gb")})
             emit({"phase": "parallel", "part": "remat_sp", "policy": name,
@@ -6364,8 +6463,397 @@ def phase_composed(device: str = "cuda") -> dict:
     return out
 
 
+def _family_kernels() -> list:
+    """K1/K2, K3, K6 and K7 against their plain versions at the family's
+    shapes (FAMILY_* and GATE_* cases), with the kernels phase's bounds,
+    timed by CUDA events. (The kernels phase adds profiler device times;
+    here the profiler is left out: late in the run, after the spawned
+    phases, it has handed back eight empty windows in a row.)"""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = _check_flash(gen, FAMILY_KERNEL_CASES, profiled=False)
+    out.extend(_check_lora_bwd(gen, FAMILY_LORA_CASES, profiled=False))
+    out.extend(_check_decode_cross(gen, FAMILY_DECODE_CROSS_CASES,
+                                   FAMILY_HEADS, profiled=False))
+    out.extend(_check_decode_step(gen, FAMILY_DECODE_STEP_CASES,
+                                  FAMILY_HEADS, profiled=False))
+    out.extend(_check_decode_cross(gen, GATE_DECODE_CROSS_CASES, GATE_HEADS,
+                                   GATE_HEAD_DIM, profiled=False))
+    out.extend(_check_decode_step(gen, GATE_DECODE_STEP_CASES, GATE_HEADS,
+                                  GATE_HEAD_DIM, profiled=False))
+    return out
+
+
+def _family_train(row: str, device: str = "cuda") -> dict:
+    """A training row of perf/model_panel.py on the card: the 'fc' LoRA
+    step (r=32, the stem, f32 masters computing in bf16) of whisper-small
+    at batch 32 (remat as the CLI's --remat=auto picks it) or of large-v3
+    at batch 8 (remat on), FAMILY_STEPS steps on one batch with K1, K2 and
+    K3 counted per step against the attention blocks and fc adapters
+    (finite losses that fall once the schedule's warm-up is past), then
+    the panel's timing on the same state (`model_panel.train_row`)."""
+    from neuspeech1_tpu_torch import bench
+    from neuspeech1_tpu_torch.config import StemConfig
+    from neuspeech1_tpu_torch.perf import model_panel as mp
+
+    p = mp.PANELS["family"]
+    stem = StemConfig("base", in_channels=p["channels"])
+    if row == "small_train":
+        bs, k, name = p["small_batch"], p["small_k"], "small_train"
+        config = p["small"](remat=mp.small_remat(p["small"](), stem, bs,
+                                                 device))
+    else:
+        bs, k, name = p["large_batches"][0], p["large_k"], "large_v3_train"
+        config = p["large"](remat=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    setup = bench.train_setup(config, stem, bs, device,
+                              warmup_steps=FAMILY_WARMUP)
+    setup_s = time.perf_counter() - t0
+    step, state, frozen, batch = setup
+    blocks = config.encoder_layers + config.decoder_layers
+    expect = {"K1": blocks, "K2": blocks, "K3": 2 * config.encoder_layers,
+              "K4": 0, "K4_bwd": 0, "K6": 0, "K7": 0, "K8": 0}
+    losses = []
+    for _ in range(FAMILY_STEPS):
+        _reset_counts()
+        m = step(state, frozen, batch)
+        losses.append(float(m["loss"]))
+        counts = _kernel_counts()
+        check(counts == expect, f"{row}: launches {counts} in a step, "
+              f"expected {expect}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"{row}: losses {losses} not finite and falling")
+    timed = mp.train_row(name, config, stem, bs, k, device, setup=setup)
+    check(all(math.isfinite(x) for x in timed["losses"]),
+          f"{row}: non-finite loss in the timed steps")
+    out = {"phase": "family", "part": row, "batch": bs,
+           "layers": [config.encoder_layers, config.decoder_layers],
+           "d_model": config.d_model, "heads": config.encoder_heads,
+           "remat": config.remat, "stem": f"base/{stem.in_channels}",
+           "launches_per_step": counts, "losses": losses,
+           "timed_losses": timed["losses"],
+           "panel_row": {key: timed[key] for key in (
+               "config", "batch", "remat", "step_ms", "samples_per_sec",
+               "mfu", "fwd_gflops_per_sample")},
+           "setup_s": setup_s,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    emit(out)
+    del setup, step, state, frozen, batch
+    gc.collect()
+    _empty_cache(device)
+    return out
+
+
+def _family_decode(inputs, batch: int, int8: bool,
+                   device: str = "cuda") -> dict:
+    """perf/model_panel.py's large-v3 decode row on the card: the 'speech'
+    stem over 128 mel bins, greedy, FAMILY_NEW_TOKENS new tokens on the
+    first ``batch`` rows of ``inputs`` (`model_panel.decode_inputs`; the
+    int8 cross cache with ``int8``): K1, K6 (bf16 cache only) and K7
+    counted against the model calls, tokens against the same decode on the
+    plain versions (equal, or parting at a near-tie of the cached
+    decoder's logits: `_bf16_ties`), then the panel's timing."""
+    from neuspeech1_tpu_torch.decode.generate import (GenerationConfig,
+                                                      greedy_decode)
+    from neuspeech1_tpu_torch.models import whisper as tw
+    from neuspeech1_tpu_torch.perf import model_panel as mp
+
+    model, feats, prompt = inputs
+    feats, prompt = feats[:batch], prompt[:batch]
+    config = model.config
+    name = "large_v3_decode" + ("_int8kv" if int8 else "")
+    p = prompt.shape[1]
+    gen = GenerationConfig.for_model(config, max_length=p + FAMILY_NEW_TOKENS,
+                                     int8_kv_cache=int8)
+    with torch.no_grad():
+        greedy_decode(model, feats, prompt, gen)
+        torch.cuda.synchronize()
+        _reset_counts()
+        with count_model_calls() as calls:
+            tokens = greedy_decode(model, feats, prompt, gen)
+            torch.cuda.synchronize()
+        launches = _kernel_counts()
+        _check_serving_launches(name, config, calls, launches,
+                                ("K1", "K7") if int8 else ("K1", "K6", "K7"))
+        with _plain_kernels():
+            tokens_p = greedy_decode(model, feats, prompt, gen)
+        ties = _bf16_ties(model, tw.encoder_apply(model, feats), tokens,
+                          tokens_p, p, gen, None, name)
+    check(tuple(tokens.shape) == (batch, p + FAMILY_NEW_TOKENS)
+          and bool(((tokens >= 0) & (tokens < config.vocab_size)).all()),
+          f"{name}: tokens {tuple(tokens.shape)} or ids outside the "
+          "vocabulary")
+    row = mp.decode_row(model, feats, prompt, int8)
+    out = {"phase": "family", "part": name, "batch": batch,
+           "new_tokens": FAMILY_NEW_TOKENS, "launches": launches,
+           "model_calls": calls,
+           "token_agreement_vs_plain": _agreement(tokens, tokens_p, p),
+           "plain_tokens_logits_rel_err": ties["logits_rel_err"],
+           "rows_parting_from_plain": ties["rows_parting"],
+           "panel_row": row}
+    emit(out)
+    return out
+
+
+def _family_stems(tmp: str, device: str = "cuda") -> dict:
+    """A greedy request of FAMILY_STEM_CLIPS clips through each stem kind
+    at whisper-base width, weights from seeds: the EEG stems through
+    ``serve.Transcriber`` on 2-10 s synthetic signals, the 'speech' stem
+    through ``greedy_decode`` on [80, 3000] features; K1, K6 and K7
+    counted against the model calls."""
+    from neuspeech1_tpu_torch.cli import common
+    from neuspeech1_tpu_torch.config import StemConfig
+    from neuspeech1_tpu_torch.decode.generate import (GenerationConfig,
+                                                      greedy_decode)
+    from neuspeech1_tpu_torch.models.convert import module_from_params
+    from neuspeech1_tpu_torch.models.init import init_params
+    from neuspeech1_tpu_torch.serve import Transcriber
+
+    config, _ = common.preset_model("base")
+    vocab = os.path.join(tmp, "stems_vocab.txt")
+    with open(vocab, "w") as f:
+        f.write("\n".join(f"w{i}" for i in range(config.eot_id)) + "\n")
+    t = config.max_source_positions
+    out = {}
+    for kind, ch in FAMILY_STEMS:
+        stem = StemConfig(kind) if ch is None else StemConfig(kind,
+                                                              in_channels=ch)
+        tag = kind if ch is None else f"{kind}_{ch}"
+        params = init_params(config, stem, seed=0)
+        if kind == "speech":
+            model = module_from_params(params, config, stem, device=device)
+            feats = torch.from_numpy(np.random.default_rng(0).standard_normal(
+                (FAMILY_STEM_CLIPS, config.num_mel_bins, 2 * t)).astype(
+                np.float32)).to(device, model.dtype)
+            prompt = torch.tensor(
+                [[config.sot_id, config.first_language_id,
+                  config.transcribe_id, config.notimestamps_id]]
+                * FAMILY_STEM_CLIPS, device=device)
+            gen = GenerationConfig.for_model(
+                config, max_length=prompt.shape[1] + FAMILY_STEM_TOKENS)
+
+            def run(model=model, feats=feats, prompt=prompt, gen=gen):
+                with torch.no_grad():
+                    return greedy_decode(model, feats, prompt, gen).tolist()
+        else:
+            model_dir = common.save_full_model(
+                os.path.join(tmp, f"stem_{tag}"), params, config, stem)
+            tr = Transcriber(model_dir, tokenizer=f"word:{vocab}",
+                             batch_size=FAMILY_STEM_CLIPS,
+                             max_new_tokens=FAMILY_STEM_TOKENS,
+                             device=device)
+            signals = _signals(ch, 4 * t)[:FAMILY_STEM_CLIPS]
+
+            def run(tr=tr, signals=signals):
+                return tr.transcribe(signals)
+        run()  # warm-up
+        torch.cuda.synchronize()
+        _reset_counts()
+        with count_model_calls() as calls:
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = _kernel_counts()
+        _check_serving_launches(f"stem {tag}", config, calls, launches)
+        check(len(res) == FAMILY_STEM_CLIPS,
+              f"stem {tag}: {len(res)} outputs for {FAMILY_STEM_CLIPS} clips")
+        out[tag] = {"launches": launches, "model_calls": calls,
+                    "latency_s": wall, "sample": str(res[0])[:60]}
+        emit({"phase": "family", "part": "stem", "stem": tag, **out[tag]})
+    gc.collect()
+    _empty_cache(device)
+    return out
+
+
+def _quiet(fn, *args, **kw):
+    """``fn(*args, **kw)`` with its standard output kept: (result, text)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn(*args, **kw)
+    return res, buf.getvalue()
+
+
+def _family_transfer(tmp: str, device: str = "cuda") -> dict:
+    """perf/flagship_drive.py's phase S (the Schoffelen transfer) at
+    whisper-base width, a few steps each on FAMILY_TRANSFER_CLIPS-clip
+    corpora: the base, the 208-channel adapter, the recipe's fine-tune
+    flags on 301 channels cut to the schoffelen slice (the adapter merged,
+    the stem re-initialized for 273 channels), merge_lora, and the eval
+    CLI at beam 5, rp 5.0, ngram 2 writing its result files; K1, K2, K3,
+    K6 and K7 all launched."""
+    from neuspeech1_tpu_torch.perf import flagship_drive as fd
+
+    root = os.path.join(tmp, "transfer")
+    lines = []
+    _reset_counts()
+    t0 = time.perf_counter()
+    _, text = _quiet(fd.main, [
+        "S", "--root", root, "--clips", str(FAMILY_TRANSFER_CLIPS),
+        "--device", device, *FAMILY_TRANSFER_FLAGS], emit=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _kernel_counts()
+    recs = [json.loads(x) for x in lines]
+    ev = next(r for r in recs if r["phase"] == "S_eval")
+    last = recs[-1]
+    shapes = {run: list(np.load(os.path.join(
+        root, run, "adapter_final.npz"))["model/encoder/stem/conv_a/w"].shape)
+        for run in ("runS208", "runS273")}
+    check("stem re-initialized: 208 -> 273 channels" in text,
+          "transfer: the stem was not re-initialized")
+    check(shapes == {"runS208": [512, 208, 3], "runS273": [512, 273, 3]},
+          f"transfer: stem shapes {shapes}")
+    check(ev["result_files"] == ["test_beam5.json", "test_beam5.jsonl",
+                                 "test_beam5.txt"],
+          f"transfer: eval files {ev['result_files']}")
+    check(all(math.isfinite(v) for v in ev["metrics"].values())
+          and all(math.isfinite(x) for _, x in last["eval_loss_trajectory"]),
+          f"transfer: non-finite metrics {ev['metrics']}")
+    check(all(launches[k] > 0 for k in ("K1", "K2", "K3", "K6", "K7")),
+          f"transfer: a kernel of the path never ran: {launches}")
+    out = {"phase": "family", "part": "transfer", "launches": launches,
+           "wall_s": wall, "stem_shapes": shapes, "eval": ev,
+           "summaries": [r for r in recs if r["phase"] != "S_eval"]}
+    emit(out)
+    gc.collect()
+    _empty_cache(device)
+    return out
+
+
+def _family_gate(tmp: str, device: str = "cuda") -> dict:
+    """The CPU-scale convergence gate of tests/test_convergence.py on the
+    card: its corpus, argv and 400 steps through the port's fine-tune CLI
+    (bf16, the card's compute type: the kernels take bf16; d_model 48 over
+    2 heads of 24, which K1, K2 and K6 pad to 32), held-out WER at step 400
+    at most CONVERGENCE_WER."""
+    from neuspeech1_tpu_torch.cli.finetune import main as finetune
+    from neuspeech1_tpu_torch.data.synthetic import make_separable_corpus
+    from neuspeech1_tpu_torch.perf.flagship_drive import (CONVERGENCE_WER,
+                                                          convergence_argv)
+
+    corpus, out_dir = os.path.join(tmp, "gate"), os.path.join(tmp, "gate_run")
+    make_separable_corpus(corpus, n_clips=300, n_channels=8, seed=3)
+    _reset_counts()
+    t0 = time.perf_counter()
+    _quiet(finetune, convergence_argv(corpus, out_dir)
+           + [f"--device={device}", "--bf16=True"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _kernel_counts()
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    wers = [(r["step"], r["eval_wer"]) for r in recs if "eval_wer" in r]
+    out = {"phase": "family", "part": "convergence_gate", "steps": 400,
+           "heldout_wer": wers, "wer_bound": CONVERGENCE_WER,
+           "losses": [(r["step"], r["loss"]) for r in recs if "loss" in r],
+           "launches": launches, "wall_s": wall}
+    emit(out)
+    check(wers and wers[-1][0] == 400 and wers[-1][1] <= CONVERGENCE_WER,
+          f"convergence gate: held-out WER {wers} past {CONVERGENCE_WER}")
+    check(all(launches[k] > 0 for k in ("K1", "K2", "K6", "K7")),
+          f"convergence gate: a kernel of the path never ran: {launches}")
+    return out
+
+
+def _family_phase_a(tmp: str, device: str = "cuda") -> dict:
+    """perf/flagship_drive.py's phase A on the card: whisper-base --ft_full
+    from seeded weights, 600 steps at batch 32 on the 240-clip separable
+    corpus; the eval loss at 600 below that at 300 and the held-out WER at
+    600 at most PHASE_A_WER."""
+    from neuspeech1_tpu_torch.perf import flagship_drive as fd
+
+    lines = []
+    _reset_counts()
+    t0 = time.perf_counter()
+    res, _ = _quiet(fd.main, ["A", "--root", os.path.join(tmp, "flagship"),
+                              "--device", device], emit=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _kernel_counts()
+    a = res["A"]
+    evl, wer = dict(a["eval_loss_trajectory"]), dict(a["heldout_wer_trajectory"])
+    out = {"phase": "family", "part": "flagship_A", **a,
+           "launches": launches, "wall_s": wall, "wer_bound": PHASE_A_WER}
+    emit(out)
+    check(300 in evl and 600 in evl and evl[600] < evl[300],
+          f"phase A: eval loss {evl} does not fall from 300 to 600")
+    check(600 in wer and wer[600] <= PHASE_A_WER,
+          f"phase A: held-out WER {wer} past {PHASE_A_WER} at 600")
+    check(all(launches[k] > 0 for k in ("K1", "K2", "K6", "K7")),
+          f"phase A: a kernel of the path never ran: {launches}")
+    return out
+
+
+def phase_family(device: str = "cuda") -> dict:
+    """The Whisper family past whisper-base, every stem kind, the
+    Schoffelen transfer and the convergence drives (see the module's
+    docstring, phase 18)."""
+    from neuspeech1_tpu_torch.perf import model_panel as mp
+
+    p = mp.PANELS["family"]
+    seconds = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args, device=device) if name != "kernels" else fn()
+        seconds[name] = time.perf_counter() - t0
+        return res
+
+    out = {"kernels": part("kernels", _family_kernels)}
+    for row in ("small_train", "large_train"):
+        out[row] = part(row, _family_train, row)
+    # one large-v3 model for both decode rows, inputs at the larger batch
+    large = part("large_decode_setup", mp.decode_inputs, p["large"](),
+                 p["int8_batch"])
+    out["large_decode"] = part("large_decode", _family_decode, large,
+                               p["decode_batch"], False)
+    out["large_decode_int8_bs32"] = part(
+        "large_decode_int8_bs32", _family_decode, large, p["int8_batch"],
+        True)
+    del large
+    gc.collect()
+    _empty_cache(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["stems"] = part("stems", _family_stems, tmp)
+        out["transfer"] = part("transfer", _family_transfer, tmp)
+        out["gate"] = part("gate", _family_gate, tmp)
+        out["phase_a"] = part("phase_a", _family_phase_a, tmp)
+    check(_jax_free(), "jax or the JAX package was imported")
+    emit({"phase": "family", "part": "seconds", **seconds, "card": card()})
+    return out
+
+
+def _family_entry(fm: dict, kernel: str) -> dict:
+    """A kernel's launches in the family phase's runs (per step of the
+    training rows, per decode and stem request, over the transfer, the
+    convergence gate and flagship phase A) and its cases at the family's
+    shapes, for the summary's kernel line."""
+    out = {}
+    for part in ("small_train", "large_train"):
+        if fm[part]["launches_per_step"][kernel]:
+            out[f"{part}_per_step"] = fm[part]["launches_per_step"][kernel]
+    for part in ("large_decode", "large_decode_int8_bs32"):
+        if fm[part]["launches"][kernel]:
+            out[f"{part}_per_request"] = fm[part]["launches"][kernel]
+    for tag, r in fm["stems"].items():
+        if r["launches"][kernel]:
+            out[f"stem_{tag}_per_request"] = r["launches"][kernel]
+    for part in ("transfer", "gate", "phase_a"):
+        if fm[part]["launches"][kernel]:
+            out[part] = fm[part]["launches"][kernel]
+    shapes = [{"case": r["case"],
+               "max_abs_err": r.get("max_abs_err", r.get("o_max_abs_err")),
+               **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}}
+              for r in fm["kernels"] if r["kernel"] == kernel]
+    return {"family_launches": out, "family_shapes": shapes}
+
+
 def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl,
-            sh, cp) -> dict:
+            sh, cp, fm) -> dict:
     """One entry per kernel: launches on its path (training for K1, K2, K3;
     the sequence-parallel training step for K4; beam serving for K6, K7;
     speculative serving with the self-prefix drafter for K8; the perf
@@ -6382,7 +6870,12 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl,
     its case at the sharded shape as ``sharded_shape``), and the composed
     phase's (K1, K2, K3, K4, K6, K7: ``composed_launches``, per rank and
     step of each grid and per rank of the greedy request, with the times of
-    its case at a composed shape as ``composed_shape``)), the error and the
+    its case at a composed shape as ``composed_shape``), and the family
+    phase's (K1, K2, K3, K6, K7: ``family_launches``, per step of the
+    small and large-v3 training rows, per large-v3 decode request, per
+    stem request, and over the transfer, the convergence gate and flagship
+    phase A, with the times of its cases at the family's shapes as
+    ``family_shapes``)), the error and the
     times of its case
     at that path's shape, its
     bound and the library call's time (for a probe kernel, of one variant
@@ -6522,14 +7015,14 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl,
          "modes_launches_per_request": modes("K1"),
          **speech("K1"), **parallel("K1"),
          **sharded("K1", "tp_train_encoder"),
-         **composed("K1", "pp_train_cross"),
+         **composed("K1", "pp_train_cross"), **_family_entry(fm, "K1"),
          "max_abs_err": k1["o_max_abs_err"], **timing(k1)},
         {"name": "flash_bwd_btc (K2)", "route": "cuda",
          "source": src + "flash_bwd_btc.cu", "replaces": fa_py + ":700",
          "launches": launches["K2"],
          "finetune_launches": ft["launches"]["K2"], **speech("K2"),
          **parallel("K2"), **sharded("K2", "tp_train_encoder"),
-         **composed("K2", "pp_train_cross"),
+         **composed("K2", "pp_train_cross"), **_family_entry(fm, "K2"),
          "max_abs_err": k2["max_abs_err"], **timing(k2)},
         # K5: the same two kernels on [B, H, T, D] strides. No path of the
         # port calls that entry; its launches are those of its own run in
@@ -6548,7 +7041,7 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl,
          "launches": launches["K3"],
          "finetune_launches": ft["launches"]["K3"], **speech("K3"),
          **parallel("K3"), **sharded("K3", "tp_fc1"),
-         **composed("K3", "pp_sp_fc1"),
+         **composed("K3", "pp_sp_fc1"), **_family_entry(fm, "K3"),
          "max_abs_err": k3["max_abs_err"], **timing(k3), **device(k3)},
         {"name": "flash_fwd_btc_bias (K4 forward)", "route": "cuda",
          "source": src + "flash_fwd_btc.cu", "replaces": fa_py + ":755",
@@ -6570,6 +7063,7 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl,
          "finetune_launches": ft["launches"]["K6"],
          "modes_launches_per_request": modes("K6"), **speech("K6"),
          **sharded("K6", "tp_greedy"), **composed("K6"),
+         **_family_entry(fm, "K6"),
          "max_abs_err": k6["max_abs_err"], **timing(k6),
          **device(k6)},
         # the [B, T, H*D] cache entry: no serving path holds that layout,
@@ -6588,6 +7082,7 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl,
          "finetune_launches": ft["launches"]["K7"],
          "modes_launches_per_request": modes("K7"), **speech("K7"),
          **sharded("K7", "tp_greedy_last"), **composed("K7"),
+         **_family_entry(fm, "K7"),
          "max_abs_err": k7["max_abs_err"], **timing(k7), **device(k7)},
         {"name": "decode_step_multi (K8)", "route": "cuda",
          "source": src + "decode_step_multi.cu",
@@ -6645,9 +7140,10 @@ def main(argv) -> int:
     pl = timed("parallel", phase_parallel)
     sh = timed("sharded", phase_sharded)
     cp = timed("composed", phase_composed)
+    fm = timed("family", phase_family)
     emit({"phase_seconds": seconds})
     emit(summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl, sh,
-                 cp))
+                 cp, fm))
     print(card(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -73,19 +73,21 @@ def _sync(device: torch.device) -> None:
 
 
 def train_setup(config: WhisperConfig, stem: StemConfig,
-                batch_size: int = 64, device: str = "cuda"):
+                batch_size: int = 64, device: str = "cuda",
+                warmup_steps: int = 500):
     """(step, state, frozen, batch): the timed configuration's training
-    step, its state and one batch from seeds, on ``device``."""
+    step, its state and one batch from seeds, on ``device``; the learning
+    rate warms up to 1e-3 over ``warmup_steps``."""
     from neuspeech1_tpu_torch.models.convert import module_from_params
     from neuspeech1_tpu_torch.models.init import init_params
     from neuspeech1_tpu_torch.models.lora import init_lora
     from neuspeech1_tpu_torch.train import optimizer, trainstep
 
     dev = torch.device(device)
-    model = module_from_params(init_params(config, stem, seed=0), config,
-                               stem, device=dev, dtype=torch.float32)
+    model = module_from_params(init_params(config, stem, seed=0, device=dev),
+                               config, stem, device=dev, dtype=torch.float32)
     lora = init_lora(config, rank=32, alpha=64, seed=1, device=dev)
-    tx = optimizer.make_optimizer(peak_lr=1e-3, warmup_steps=500,
+    tx = optimizer.make_optimizer(peak_lr=1e-3, warmup_steps=warmup_steps,
                                   total_steps=100_000)
     state, frozen = trainstep.init_train_state(model, lora, tx)
     step = trainstep.make_train_step(config, stem, tx, fold_lora=True)

@@ -126,8 +126,12 @@ def module_from_params(tree: Params, config: WhisperConfig, stem: StemConfig,
     leaves) on ``device`` in ``dtype`` (default: ``config.dtype``; pass
     ``torch.float32`` for a training model's f32 masters, which compute
     still casts to ``config.dtype``). Every parameter is frozen. Raises on
-    any missing, extra or misshapen leaf."""
-    model = Whisper(config, stem)
+    any missing, extra or misshapen leaf. The module is laid out on
+    ``device`` without an initialization of its own: every leaf comes from
+    ``tree``."""
+    with torch.device("meta"):
+        model = Whisper(config, stem)
+    model = model.to_empty(device=device)
     _fill(model, tree, "params")
     dtype = dtype or getattr(torch, config.dtype)
     return model.to(device=device, dtype=dtype).eval().requires_grad_(False)

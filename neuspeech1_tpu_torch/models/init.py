@@ -32,15 +32,17 @@ def sinusoids(length: int, channels: int) -> torch.Tensor:
 def init_stem(config: WhisperConfig, stem: StemConfig, seed: int = 0,
               generator=None):
     """The projection stem's tree alone: convs ~ N(0, 0.02), zero biases,
-    drawn from ``generator`` (or a new one seeded with ``seed``). The stem
-    swap of a stock speech checkpoint (`cli/common.py::load_base_params`)
-    takes it; `init_params` draws its stem through it first."""
+    drawn from ``generator`` (or a new CPU one seeded with ``seed``), on its
+    device. The stem swap of a stock speech checkpoint (`cli/common.py::
+    load_base_params`) takes it; `init_params` draws its stem through it
+    first."""
     gen = generator or torch.Generator().manual_seed(seed)
     d = config.d_model
 
     def conv(c_out, c_in, k):
-        return {"w": torch.randn((c_out, c_in, k), generator=gen) * INIT_STD,
-                "b": torch.zeros(c_out)}
+        return {"w": torch.randn((c_out, c_in, k), generator=gen,
+                                 device=gen.device) * INIT_STD,
+                "b": torch.zeros(c_out, device=gen.device)}
 
     if stem.kind == "speech":
         return {"conv1": conv(d, config.num_mel_bins, 3)}
@@ -55,26 +57,34 @@ def init_stem(config: WhisperConfig, stem: StemConfig, seed: int = 0,
     raise ValueError(stem.kind)
 
 
-def init_params(config: WhisperConfig, stem: StemConfig, seed: int = 0):
-    """The full tree of float32 CPU tensors, layers stacked on dim 0."""
-    gen = torch.Generator().manual_seed(seed)
+def init_params(config: WhisperConfig, stem: StemConfig, seed: int = 0,
+                device="cpu"):
+    """The full tree of float32 tensors on ``device``, layers stacked on
+    dim 0, drawn from a generator on that device (so the numbers depend on
+    the device; a large model's tree is drawn in a fraction of the CPU's
+    time on the card)."""
+    gen = torch.Generator(device).manual_seed(seed)
     d = config.d_model
     stem_p = init_stem(config, stem, generator=gen)
 
     def nrm(*shape):
-        return torch.randn(shape, generator=gen) * INIT_STD
+        return torch.randn(shape, generator=gen, device=device) * INIT_STD
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=device)
 
     def linear(d_in, d_out, n, bias=True):
         p = {"w": nrm(n, d_in, d_out)}
         if bias:
-            p["b"] = torch.zeros(n, d_out)
+            p["b"] = zeros(n, d_out)
         return p
 
     def ln(n):
-        return {"scale": torch.ones(n, d), "bias": torch.zeros(n, d)}
+        return {"scale": torch.ones(n, d, device=device),
+                "bias": zeros(n, d)}
 
     def conv(c_out, c_in, k):
-        return {"w": nrm(c_out, c_in, k), "b": torch.zeros(c_out)}
+        return {"w": nrm(c_out, c_in, k), "b": zeros(c_out)}
 
     def attn(n):
         return {"q": linear(d, d, n), "k": linear(d, d, n, bias=False),
@@ -84,7 +94,7 @@ def init_params(config: WhisperConfig, stem: StemConfig, seed: int = 0):
     encoder = {
         "stem": stem_p,
         "conv2": conv(d, d, 3),
-        "pos_embed": sinusoids(config.max_source_positions, d),
+        "pos_embed": sinusoids(config.max_source_positions, d).to(device),
         "layers": {
             "self_attn": attn(ne),
             "self_attn_ln": ln(ne),
@@ -92,7 +102,7 @@ def init_params(config: WhisperConfig, stem: StemConfig, seed: int = 0):
             "fc2": linear(config.encoder_ffn, d, ne),
             "final_ln": ln(ne),
         },
-        "ln_post": {"scale": torch.ones(d), "bias": torch.zeros(d)},
+        "ln_post": {"scale": torch.ones(d, device=device), "bias": zeros(d)},
     }
     decoder = {
         "token_embed": nrm(config.vocab_size, d),
@@ -106,6 +116,6 @@ def init_params(config: WhisperConfig, stem: StemConfig, seed: int = 0):
             "fc2": linear(config.decoder_ffn, d, nd),
             "final_ln": ln(nd),
         },
-        "ln": {"scale": torch.ones(d), "bias": torch.zeros(d)},
+        "ln": {"scale": torch.ones(d, device=device), "bias": zeros(d)},
     }
     return {"encoder": encoder, "decoder": decoder}

@@ -26,8 +26,9 @@ from typing import Optional
 import torch
 
 from neuspeech1_tpu_torch.ops import _build
+from neuspeech1_tpu_torch.ops.flash_attention import (kernel_head_dim,
+                                                      pad_head_dim)
 
-HEAD_DIMS = (32, 64, 128)
 MAX_TQ = 64
 # The kernel's plan (csrc/decode_cross.cu): a CTA takes up to GROUP_ROWS
 # query rows and a range of cache rows, a multiple of CHUNK_ROWS; the CTAs
@@ -130,10 +131,19 @@ def _check_cuda_operand(name: str, x, device, align: int) -> None:
 
 
 def _decode_cross_cuda(q, k, v, kv_len: int):
+    # a head dim the kernel is not built for runs zero-padded to the next
+    # (the flash kernels' rule): padded columns add exact zeros to the
+    # scores and to the output's dropped columns; the scale stays d^-1/2
+    d = q.shape[3]
+    dp = kernel_head_dim(d)
+    o = _decode_cross_cuda_at(*(pad_head_dim(x, dp) for x in (q, k, v)),
+                              kv_len, d ** -0.5)
+    return o if dp == d else o[..., :d].contiguous()
+
+
+def _decode_cross_cuda_at(q, k, v, kv_len: int, scale: float):
     global launches
     b, t_q, h, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"decode_cross kernel head dim {d} not in {HEAD_DIMS}")
     _check_cuda_operand("q", q, q.device, 4)
     for name, x in (("k", k), ("v", v)):
         _check_cuda_operand(name, x, q.device, 16)
@@ -146,7 +156,7 @@ def _decode_cross_cuda(q, k, v, kv_len: int):
                  b, h, t_q, kv_len, d, cluster, rows, *q.stride()[:3],
                  k.stride(0), k.stride(2), k.stride(1),
                  v.stride(0), v.stride(2), v.stride(1),
-                 *o.stride()[:3], d ** -0.5,
+                 *o.stride()[:3], scale,
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_cross launch failed: CUDA error {err}")
@@ -158,7 +168,8 @@ def decode_cross(q, k, v, kv_len: Optional[int] = None):
     """Cross-attention of q [B, Tq, H, D] over the cache k, v [B, H, T, D],
     rows at or past ``kv_len`` masked; returns [B, Tq, H, D] in q's dtype.
     CPU tensors run the plain version; CUDA tensors launch the kernel
-    (bfloat16, D in ``HEAD_DIMS``) or raise. The kernel holds at most
+    (bfloat16, D up to 128, zero-padded to the next of the flash kernels'
+    ``HEAD_DIMS``) or raise. The kernel holds at most
     ``MAX_TQ`` query rows: a longer query (a beam prefill with
     num_beams * prompt length > 64) runs in chunks, one launch each."""
     kv_len = _check(q, k, v, kv_len)

@@ -31,6 +31,10 @@ the kv_len mask does, so a row whose every column is masked gives lse = -inf
 and o = 0/0 = NaN, as the TPU kernel does; the ring's merge gates on it.
 These are plain functions, not an autograd Function: the ring calls the
 forward and the backward from its own.
+
+K1 and K2 take any head dim up to 128, as the TPU kernels do: the kernels
+are built for ``HEAD_DIMS``, and the wrappers zero-pad another D to the
+next of them and pass the scale of the unpadded D (`kernel_head_dim`).
 """
 
 from __future__ import annotations
@@ -180,6 +184,24 @@ def flash_attention_bthd_bwd_plain(q, k, v, o, do, lse, causal: bool = False,
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernels run a head dim ``d`` at: ``d`` where it is
+    one of ``HEAD_DIMS``, else the next larger one, the operands
+    zero-padded (a padded column adds exact zeros to every product, and the
+    softmax scale stays d^-1/2). Raises past the largest."""
+    for dp in HEAD_DIMS:
+        if dp >= d:
+            return dp
+    raise ValueError(f"flash kernel head dim {d} past {HEAD_DIMS[-1]}")
+
+
+def pad_head_dim(x, dp: int):
+    """``x`` [..., D] zero-padded to ``dp`` columns (itself where D is
+    ``dp``)."""
+    d = x.shape[-1]
+    return x if d == dp else torch.nn.functional.pad(x, (0, dp - d))
+
+
 def _check_cuda_operand(name: str, x, device) -> None:
     if x.dtype != torch.bfloat16:
         raise ValueError(f"flash kernel takes bfloat16; {name} is {x.dtype}")
@@ -194,24 +216,24 @@ def _check_cuda_operand(name: str, x, device) -> None:
 def _flash_fwd_cuda(q, k, v, causal: bool, kv_len: int):
     global launches
     b, t_q, h, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash kernel head dim {d} not in {HEAD_DIMS}")
+    dp = kernel_head_dim(d)
+    q, k, v = (pad_head_dim(x, dp) for x in (q, k, v))
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_cuda_operand(name, x, q.device)
     fn = getattr(_library(), _FWD[1])
-    o = torch.empty((b, t_q, h, d), dtype=q.dtype, device=q.device)
+    o = torch.empty((b, t_q, h, dp), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device)
     # the C entry launches on the current device: make it q's
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), b, h, t_q, kv_len, d, int(causal),
+                 lse.data_ptr(), b, h, t_q, kv_len, dp, int(causal),
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *o.stride()[:3], d ** -0.5,
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd_btc launch failed: CUDA error {err}")
     launches += 1
-    return o, lse
+    return (o if dp == d else o[..., :d].contiguous()), lse
 
 
 def _check_bwd_operands(q, k, v, o, do, lse):
@@ -243,10 +265,17 @@ def _bwd_outputs(q, k, v, o, do):
     return dq, dk, dv, delta, strides
 
 
-def _flash_bwd_cuda(q, k, v, o, do, lse, causal: bool, kv_len: int):
+def _flash_bwd_cuda(q, k, v, o, do, lse, causal: bool, kv_len: int,
+                    scale: Optional[float] = None):
     global bwd_launches
     b, t_q, h, d = q.shape
     t_kv = k.shape[1]
+    dp = kernel_head_dim(d)
+    if dp != d:
+        q, k, v, o, do = (pad_head_dim(x, dp) for x in (q, k, v, o, do))
+        dq, dk, dv = _flash_bwd_cuda(q, k, v, o, do, lse, causal, kv_len,
+                                     scale=d ** -0.5)
+        return tuple(g[..., :d].contiguous() for g in (dq, dk, dv))
     do = _check_bwd_operands(q, k, v, o, do, lse)
     fn = getattr(_bwd_library(), _BWD[1])
     dq, dk, dv, delta, strides = _bwd_outputs(q, k, v, o, do)
@@ -255,7 +284,7 @@ def _flash_bwd_cuda(q, k, v, o, do, lse, causal: bool, kv_len: int):
                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  b, h, t_q, t_kv, kv_len, d, int(causal),
-                 ctypes.addressof(strides), d ** -0.5,
+                 ctypes.addressof(strides), scale or d ** -0.5,
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd_btc launch failed: CUDA error {err}")
@@ -334,8 +363,9 @@ def flash_attention_bthd(q, k, v, causal: bool = False,
 
     When an input requires grad the call goes through ``FlashAttention``,
     whose backward is the backward kernel. CPU tensors run the plain
-    versions. CUDA tensors launch the kernels (bfloat16, D in
-    ``HEAD_DIMS``) or raise."""
+    versions. CUDA tensors launch the kernels (bfloat16, D up to 128; a D
+    outside ``HEAD_DIMS`` zero-padded to the next one, `kernel_head_dim`)
+    or raise."""
     kv_len = _check(q, k, v, causal, kv_len)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):

@@ -46,8 +46,9 @@ def model_and_inputs(config: WhisperConfig, stem: StemConfig, batch: int,
     from neuspeech1_tpu_torch.models.convert import module_from_params
     from neuspeech1_tpu_torch.models.init import init_params
 
-    model = module_from_params(init_params(config, stem, seed=0), config,
-                               stem, device=device)
+    model = module_from_params(init_params(config, stem, seed=0,
+                                           device=device), config, stem,
+                               device=device)
     rng = np.random.default_rng(0)
     shape = ((batch, config.num_mel_bins, 2 * config.max_source_positions)
              if stem.kind == "speech" else

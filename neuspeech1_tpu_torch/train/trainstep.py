@@ -113,6 +113,33 @@ STAGE_PREFIXES = SEQ_SHARDED_PREFIXES + ("model/decoder/layers/",
                                          "lora/decoder/layers/")
 
 
+# the config fields the model's forward reads (``models/whisper.py``, from
+# ``model.config``): a step or loss built on a config must agree with the
+# model's in each, since the JAX package runs its forward on that config
+FORWARD_FIELDS = (
+    "vocab_size", "num_mel_bins", "d_model", "encoder_layers",
+    "decoder_layers", "encoder_heads", "decoder_heads", "encoder_ffn",
+    "decoder_ffn", "max_source_positions", "max_target_positions", "dtype",
+    "remat", "remat_policy", "flash_attention", "decoder_flash_min_q",
+    "decoder_flash_self_min_q", "decoder_flash_cross_min_q",
+    "seq_parallel_axis", "pipeline_axis", "pipeline_microbatches")
+
+
+def check_model_config(config: WhisperConfig, model: tw.Whisper) -> None:
+    """Raise ValueError where ``config`` differs from ``model.config`` in a
+    field of ``FORWARD_FIELDS``: the forward would run on the model's
+    config while the step reduces, draws and schedules on ``config``."""
+    diff = {f: (getattr(config, f), getattr(model.config, f))
+            for f in FORWARD_FIELDS
+            if getattr(config, f) != getattr(model.config, f)}
+    if diff:
+        raise ValueError(
+            "the step's config differs from the model's in fields its "
+            "forward reads (step, model): " + ", ".join(
+                f"{f}={a!r} vs {b!r}" for f, (a, b) in diff.items())
+            + "; build the model from the step's config")
+
+
 class Frozen(NamedTuple):
     """The model and its adapter tree: every tensor of the step, trainable
     or not (the trainable ones are the same objects as in TrainState)."""
@@ -166,7 +193,9 @@ def make_loss_fn(config: WhisperConfig, stem: StemConfig,
     deterministic forward. ``int8_matmul`` ('off', 'fwd' or 'full'): the
     forward runs under ``ops.int8_matmul.int8_mode``.
 
-    The model runs its own stem; ``stem`` must name the same kind. The JAX
+    The model runs its own config and stem: ``config`` must agree with
+    ``model.config`` in every field of ``FORWARD_FIELDS`` (the loss raises
+    ValueError otherwise), and ``stem`` must name the same kind. The JAX
     forward reads the stem's weights by ``stem.kind``, so another kind
     fails there, and the loss raises here too rather than run the model's.
     Its other fields are inert in this loss: ``in_channels`` is read by
@@ -185,6 +214,7 @@ def make_loss_fn(config: WhisperConfig, stem: StemConfig,
         ce_loss`); ``reg_grad=False`` keeps the orthogonality loss out of
         the returned loss (it stays in ``aux``)."""
         model, lora = frozen
+        check_model_config(config, model)
         if model.stem_config.kind != stem.kind:
             raise ValueError(
                 f"stem kind {stem.kind!r} differs from the model's "
@@ -244,11 +274,15 @@ def make_train_step(config: WhisperConfig, stem: StemConfig, tx: Optimizer,
     spec_augment) augments the batch's signals on its device before the
     forward; ``use_dropout`` drops at ``stem.dropout`` (`models/whisper.py::
     draw_dropout`); both draw from ``state.generator``, in that order.
-    ``int8_matmul`` as in `make_loss_fn`."""
+    ``int8_matmul`` as in `make_loss_fn`. The step raises ValueError, before
+    any draw, where ``config`` differs from the model's in a field its
+    forward reads (`check_model_config`): its reductions over
+    ``config``'s axes would not match the forward's."""
     loss_fn = make_loss_fn(config, stem, orth_reg_weight,
                            fold_lora=fold_lora, int8_matmul=int8_matmul)
 
     def step(state: TrainState, frozen: Frozen, batch: Batch):
+        check_model_config(config, frozen.model)
         data = pmesh.data_ring()
         fsdp, tensor = pmesh.fsdp_ring(), pmesh.tensor_ring()
         rank, n = pmesh.batch_coordinate()

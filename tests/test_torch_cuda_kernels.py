@@ -53,6 +53,10 @@ FWD_CASES = [
     ((18, 300, 16, 128), 300, True, None, "bthd"),
     ((18, 300, 16, 128), 300, False, 200, "bthd"),
     ((18, 300, 16, 64), 300, False, 257, "bhtd"),
+    # head dims past HEAD_DIMS, zero-padded to the next by the wrapper
+    ((2, 130, 4, 24), 130, False, 100, "bthd"),
+    ((16, 32, 2, 24), 80, False, None, "bthd"),
+    ((2, 200, 4, 48), 200, True, None, "bthd"),
 ]
 
 
@@ -110,7 +114,10 @@ def _rel_err(got, ref):
     ((2, 300, 4, 64), 300, True, None),     # causal over 3+ tiles
     ((4, 64, 8, 64), 1500, False, None),    # the decoder's cross shape
     ((1, 129, 2, 128), 200, False, 150), ((1, 200, 4, 128), 200, True, None),
-    ((1, 129, 4, 32), 129, False, None), ((1, 200, 4, 32), 200, True, 190)])
+    ((1, 129, 4, 32), 129, False, None), ((1, 200, 4, 32), 200, True, 190),
+    # head dims past HEAD_DIMS, zero-padded by the wrapper
+    ((2, 130, 4, 24), 130, False, 100), ((16, 32, 2, 24), 80, False, None),
+    ((1, 129, 2, 80), 129, True, None)])
 def test_backward_kernel_matches_plain_on_card(cuda_device, shape, t_kv,
                                                causal, kv_len):
     b, t, h, d = shape
@@ -210,7 +217,9 @@ DECODE_CROSS_CASES = [
     (2, 16, 1600, 1535, 64), (2, 20, 1600, 1536, 32),
     (2, 63, 1600, 1537, 128), (2, 64, 300, 193, 128), (2, 65, 300, 191, 32),
     (4, 17, 1500, None, 64), (2, 33, 1500, 1400, 64),
-    (64, 4, 1500, 1499, 64)]
+    (64, 4, 1500, 1499, 64),
+    # head dims past HEAD_DIMS, zero-padded by the wrapper
+    (16, 1, 80, None, 24), (2, 5, 300, 193, 48)]
 
 
 @pytest.mark.cuda
@@ -264,7 +273,9 @@ DECODE_STEP_CASES = [
     (6, 134, 133, 64), (6, 134, 5, 64), (6, 136, 135, 64), (6, 136, 100, 64),
     (3, 40, 0, 32), (3, 40, 39, 32), (3, 131, 0, 64), (3, 131, 130, 64),
     (3, 134, 0, 128), (3, 134, 133, 128), (2, 448, 447, 128),
-    (2, 448, 446, 128), (3, 100, 50, 80), (3, 7, 6, 64)]
+    (2, 448, 446, 128), (3, 100, 50, 80), (3, 7, 6, 64),
+    # the convergence gate's decode: 2 heads of 24
+    (16, 48, 47, 24)]
 
 
 def _step_inputs(gen, device, rows, t_max, idx, dh):

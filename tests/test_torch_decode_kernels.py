@@ -204,7 +204,9 @@ def test_decode_cross_cuda_chunks_long_queries(monkeypatch, tq):
                                atol=F32_ATOL)
 
 
-CROSS_REJECTS = {"dtype": "takes bfloat16", "head_dim": "head dim 48",
+# a head dim past 128 is refused; one under it outside the kernel's head
+# dims is zero-padded to the next (`ops/flash_attention.py::kernel_head_dim`)
+CROSS_REJECTS = {"dtype": "takes bfloat16", "head_dim": "head dim 160",
                  "strided_head": "contiguous head dim"}
 
 
@@ -213,7 +215,7 @@ def test_decode_cross_cuda_rejects_what_kernel_does_not_take(monkeypatch,
                                                              bad):
     monkeypatch.setattr(tdc, "_library", _no_library)
     rng = np.random.default_rng(9)
-    d = 48 if bad == "head_dim" else 64
+    d = 160 if bad == "head_dim" else 64
     tq = 3
     dtype = torch.float32 if bad == "dtype" else torch.bfloat16
     q = _on_cuda(rng.standard_normal((2, tq, 4, d)), dtype)

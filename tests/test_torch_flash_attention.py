@@ -137,9 +137,11 @@ def test_cuda_tensor_never_takes_plain_path(monkeypatch):
 
 
 # requires_grad: an input that needs a gradient goes through the autograd
-# Function, whose forward validates like the plain call
-REJECTS = {"head_dim": "head dim 48", "dtype": "takes bfloat16",
-           "requires_grad": "head dim 48",
+# Function, whose forward validates like the plain call. A head dim past
+# 128 is refused; one under it outside HEAD_DIMS is zero-padded to the next
+# (`kernel_head_dim`), as the TPU kernels take any head dim.
+REJECTS = {"head_dim": "head dim 160", "dtype": "takes bfloat16",
+           "requires_grad": "head dim 160",
            "strided_head": "contiguous head dim",
            "causal_shape": "Tq == Tkv", "kv_len": "kv_len=0"}
 
@@ -150,7 +152,7 @@ def test_cuda_path_rejects_what_kernel_does_not_take(monkeypatch, bad):
         raise AssertionError("validation must fail before the launch")
 
     monkeypatch.setattr(tfa, "_library", no_library)
-    d = 48 if bad in ("head_dim", "requires_grad") else 64
+    d = 160 if bad in ("head_dim", "requires_grad") else 64
     dtype = torch.float32 if bad == "dtype" else torch.bfloat16
     t_kv = 80 if bad == "causal_shape" else 64
     q = _on_cuda(_inputs(64, 64, d=d)[0], dtype)

@@ -57,8 +57,7 @@ def _jax_step(config):
 
 def _port_step(config):
     """One step on this thread's ring: metrics and the adapter tree."""
-    _, _, model, t_lora = _setup(tiny())
-    model.config = config
+    _, _, model, t_lora = _setup(tiny(), config)
     tx = _optimizer(topt)
     state, frozen = tts.init_train_state(model, t_lora, tx)
     step = tts.make_train_step(config, TSTEM, tx, fold_lora=True)

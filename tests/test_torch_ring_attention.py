@@ -398,8 +398,7 @@ def _train_run(config, ring=None):
     """N_STEPS of the fold_lora step from test_torch_train's weights and
     batch: per step the metrics and the trainable leaves after the
     update."""
-    _, _, model, t_lora = _setup(tiny())
-    model.config = config
+    _, _, model, t_lora = _setup(tiny(), config)
     tx = topt.make_optimizer(peak_lr=1e-3, warmup_steps=1, total_steps=10)
     state, frozen = tts.init_train_state(model, t_lora, tx)
     step = tts.make_train_step(config, TSTEM, tx, fold_lora=True)
@@ -448,9 +447,8 @@ def test_sp_step_takes_a_data_axis():
     single = _train_run(port(tiny()))
 
     def rank(mesh):
-        _, _, model, t_lora = _setup(tiny())
         config = port(tiny(seq_parallel_axis="seq"))
-        model.config = config
+        _, _, model, t_lora = _setup(tiny(), config)
         tx = topt.make_optimizer(peak_lr=1e-3, warmup_steps=1, total_steps=10)
         state, frozen = tts.init_train_state(model, t_lora, tx)
         step = tts.make_train_step(config, TSTEM, tx, fold_lora=True)

@@ -52,12 +52,15 @@ def _torch_batch(batch):
             .long()}
 
 
-def _setup(config):
+def _setup(config, tconfig=None):
+    """JAX weights and adapters from ``config``, and the port's model on
+    them built from ``tconfig`` (default: ``config``'s port), the config a
+    port step on it must take."""
     params = jax.device_get(init_params(jax.random.key(0), config, STEM))
     lora = jax.device_get(init_lora(jax.random.key(1), config, rank=8,
                                     alpha=16))
-    model = module_from_params(params, port(config), TSTEM, device="cpu",
-                               dtype=torch.float32)
+    model = module_from_params(params, tconfig or port(config), TSTEM,
+                               device="cpu", dtype=torch.float32)
     return params, lora, model, lora_from_params(lora, device="cpu")
 
 
@@ -288,8 +291,7 @@ def _composed_steps_match_jax(runs, sizes, **axes):
 
     def rank(mesh):
         with pmesh.set_mesh(mesh):
-            _, _, model, t_lora = _setup(tiny())
-            model.config = config  # the forward reads the model's axes
+            _, _, model, t_lora = _setup(tiny(), config)
             sharding.shard_params(model)
             ttx = _optimizers()[1]
             state, frozen = tts.init_train_state(model, t_lora, ttx)
