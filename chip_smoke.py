@@ -5573,8 +5573,9 @@ def _measured(step, device: str, ring, out: dict):
     gradient norm, the kernels' launches, the ms (host clock, the device
     synchronized and, with ``ring``, the ranks at a barrier on each side:
     the step of every rank sharing the card) and the ms and bytes of the
-    hops staged through host memory (``ring_attention.staged``)."""
-    from neuspeech1_tpu_torch.parallel import ring_attention as ra
+    hops staged through host memory (the ``ring.staged_*`` counters of
+    ``train/profiling.py``)."""
+    from neuspeech1_tpu_torch.train import profiling
 
     for key in ("ce_loss", "grad_norm", "ms", "launches", "staged_ms",
                 "staged_bytes"):
@@ -5584,7 +5585,7 @@ def _measured(step, device: str, ring, out: dict):
         if ring is not None:
             ring.barrier()
         _reset_counts()
-        ra.reset_staged()
+        before = profiling.counters()
         t0 = time.perf_counter()
         m = step(state, frozen, batch)
         out["ce_loss"].append(float(m["ce_loss"]))
@@ -5595,8 +5596,9 @@ def _measured(step, device: str, ring, out: dict):
         out["ms"].append(1e3 * (time.perf_counter() - t0))
         out["launches"].append({k: v for k, v in _kernel_counts().items()
                                 if v})
-        out["staged_ms"].append(1e3 * ra.staged["seconds"])
-        out["staged_bytes"].append(ra.staged["bytes"])
+        staged = profiling.counter_changes(before)
+        out["staged_ms"].append(staged.get("ring.staged_ms", 0.0))
+        out["staged_bytes"].append(staged.get("ring.staged_bytes", 0))
         return m
 
     return timed

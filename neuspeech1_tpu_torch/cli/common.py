@@ -40,6 +40,7 @@ from neuspeech1_tpu_torch.models.convert import (
 from neuspeech1_tpu_torch.models.init import init_params, init_stem
 from neuspeech1_tpu_torch.models.lora import merge_lora
 from neuspeech1_tpu_torch.models.whisper import Whisper
+from neuspeech1_tpu_torch.train.profiling import count, span, tracing
 from neuspeech1_tpu_torch.utils.tokenizer import make_tokenizer
 
 # The WhisperConfig fields save_full_model writes (the JAX package's list).
@@ -289,17 +290,29 @@ def upload_features(feats: np.ndarray, dtype: torch.dtype, device,
     The zero tail is cropped before the copy and restored on the device
     (exact), and the cast to the model dtype happens on the host (the
     encoder's first step is that cast). For a CUDA device the host buffer is
-    pinned and the copy is asynchronous."""
+    pinned and the copy is asynchronous. Spans ``upload/scan``,
+    ``upload/cast``, ``upload/pin`` and ``upload/copy``; counters
+    ``upload.h2d_bytes`` and ``upload.pinned_bytes`` (``train/
+    profiling.py``)."""
     device = torch.device(device)
     t_full = feats.shape[-1]
-    n = feature_true_len(feats) if compact else t_full
-    host = torch.from_numpy(np.ascontiguousarray(feats[..., :n],
-                                                 dtype=np.float32)).to(dtype)
+    with span("upload/scan"):
+        n = feature_true_len(feats) if compact else t_full
+    with span("upload/cast"):
+        host = torch.from_numpy(np.ascontiguousarray(
+            feats[..., :n], dtype=np.float32)).to(dtype)
+    if tracing():
+        nbytes = host.numel() * host.element_size()
+        count("upload.h2d_bytes", nbytes)
+        if device.type == "cuda":
+            count("upload.pinned_bytes", nbytes)
     if device.type == "cuda":
-        host = host.pin_memory()
-    out = host.to(device, non_blocking=True)
-    if n < t_full:
-        out = F.pad(out, (0, t_full - n))
+        with span("upload/pin"):
+            host = host.pin_memory()
+    with span("upload/copy"):
+        out = host.to(device, non_blocking=True)
+        if n < t_full:
+            out = F.pad(out, (0, t_full - n))
     return out
 
 

@@ -21,6 +21,13 @@ with ``GenerationConfig.timestamps``, whisper's timestamp grammar last
 `teacher_forcing_predict`. `generate_over_mesh` decodes a global batch
 split over a mesh's ``data`` x ``fsdp`` ranks, on weights split over its
 ``fsdp`` and ``tensor`` axes.
+
+Greedy, sampling and beam search are the span ``ns/decode/generate`` of
+``train/profiling.py``, with ``decode/init_cache``, ``decode/prefill`` and,
+each step, ``decode/processors``, ``decode/select``, ``decode/finalize``
+and ``decode/alive`` (beam search's), ``decode/wait`` (`all_done`) and
+``decode/reorder`` inside it; while a profiler records they count
+``decode.steps`` and ``decode.waits``.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from neuspeech1_tpu_torch.decode import logits_process as lp
 from neuspeech1_tpu_torch.decode.timestamps import timestamp_rules
 from neuspeech1_tpu_torch.models import whisper as tw
 from neuspeech1_tpu_torch.parallel import mesh as pmesh
+from neuspeech1_tpu_torch.train.profiling import count, span, traced
 
 NEG = lp.NEG_INF  # the score of a banned token, a hit's demotion, an empty slot
 
@@ -194,12 +202,14 @@ def all_done(done) -> bool:
     weight together, so they leave a decode loop together; a row that
     finished keeps taking what a finished row takes, as it would in one
     batch holding every rank's rows. The one wait per step of the loops."""
+    count("decode.waits")
     ring = pmesh.fsdp_ring()
     if ring is None:
         return bool(done)
     return int(ring.all_reduce_sum((~done).reshape(1).int())) == 0
 
 
+@traced("decode/generate", as_unit=True)
 @torch.no_grad()
 def greedy_decode(model: tw.Whisper, features, prompt_ids,
                   gen: GenerationConfig, lora=None, bias_spec=None):
@@ -210,28 +220,37 @@ def greedy_decode(model: tw.Whisper, features, prompt_ids,
     enc = tw.encoder_apply(model, features, lora)
     b, p = prompt_ids.shape
     length = gen.max_length
-    cache = tw.init_cache(model, enc, max_len=length,
-                          int8_cross=gen.int8_kv_cache)
-    tokens = torch.full((b, length), gen.pad_id, dtype=torch.long,
-                        device=enc.device)
-    tokens[:, :p] = prompt_ids
-    logits, cache = tw.decoder_apply(model, tokens[:, :p], enc, cache=cache,
-                                     cache_index=0, lora=lora)
-    last = logits[:, -1]
-    seen = (lp.seen_from_tokens(tokens, p, last.shape[-1])
-            if gen.repetition_penalty != 1.0 else None)
-    finished = torch.zeros(b, dtype=torch.bool, device=enc.device)
+    with span("decode/init_cache"):
+        cache = tw.init_cache(model, enc, max_len=length,
+                              int8_cross=gen.int8_kv_cache)
+        tokens = torch.full((b, length), gen.pad_id, dtype=torch.long,
+                            device=enc.device)
+        tokens[:, :p] = prompt_ids
+    with span("decode/prefill"):
+        logits, cache = tw.decoder_apply(model, tokens[:, :p], enc,
+                                         cache=cache, cache_index=0,
+                                         lora=lora)
+        last = logits[:, -1]
+        seen = (lp.seen_from_tokens(tokens, p, last.shape[-1])
+                if gen.repetition_penalty != 1.0 else None)
+        finished = torch.zeros(b, dtype=torch.bool, device=enc.device)
     for cur_len in range(p, length):
-        scores = _process_logits(last, tokens, cur_len, gen, p, seen,
-                                 bias_spec)
-        nxt = torch.where(finished, gen.pad_id, scores.argmax(dim=-1))
-        tokens[:, cur_len] = nxt
-        finished |= nxt == gen.eos_id
+        count("decode.steps")
+        with span("decode/processors"):
+            scores = _process_logits(last, tokens, cur_len, gen, p, seen,
+                                     bias_spec)
+        with span("decode/select"):
+            nxt = torch.where(finished, gen.pad_id, scores.argmax(dim=-1))
+            tokens[:, cur_len] = nxt
+            finished |= nxt == gen.eos_id
         if seen is not None:
-            lp.update_seen(seen, nxt)
+            with span("decode/reorder"):
+                lp.update_seen(seen, nxt)
         # the step after the last position, or after every row finished,
         # would only feed logits nobody reads
-        if cur_len + 1 == length or all_done(finished.all()):
+        with span("decode/wait"):
+            stop = cur_len + 1 == length or all_done(finished.all())
+        if stop:
             break
         logits, cache = tw.decoder_apply(model, nxt[:, None], enc,
                                          cache=cache, cache_index=cur_len,
@@ -240,6 +259,7 @@ def greedy_decode(model: tw.Whisper, features, prompt_ids,
     return tokens
 
 
+@traced("decode/generate", as_unit=True)
 @torch.no_grad()
 def sample_decode(model: tw.Whisper, features, prompt_ids,
                   gen: GenerationConfig, generator=None, sample_noise=None,
@@ -255,27 +275,37 @@ def sample_decode(model: tw.Whisper, features, prompt_ids,
     b, p = prompt_ids.shape
     length = gen.max_length
     noise = _noise_source(generator, sample_noise, enc.device)
-    cache = tw.init_cache(model, enc, max_len=length,
-                          int8_cross=gen.int8_kv_cache)
-    tokens = torch.full((b, length), gen.pad_id, dtype=torch.long,
-                        device=enc.device)
-    tokens[:, :p] = prompt_ids
-    logits, cache = tw.decoder_apply(model, tokens[:, :p], enc, cache=cache,
-                                     cache_index=0, lora=lora)
-    last = logits[:, -1]
-    seen = (lp.seen_from_tokens(tokens, p, last.shape[-1])
-            if gen.repetition_penalty != 1.0 else None)
-    finished = torch.zeros(b, dtype=torch.bool, device=enc.device)
+    with span("decode/init_cache"):
+        cache = tw.init_cache(model, enc, max_len=length,
+                              int8_cross=gen.int8_kv_cache)
+        tokens = torch.full((b, length), gen.pad_id, dtype=torch.long,
+                            device=enc.device)
+        tokens[:, :p] = prompt_ids
+    with span("decode/prefill"):
+        logits, cache = tw.decoder_apply(model, tokens[:, :p], enc,
+                                         cache=cache, cache_index=0,
+                                         lora=lora)
+        last = logits[:, -1]
+        seen = (lp.seen_from_tokens(tokens, p, last.shape[-1])
+                if gen.repetition_penalty != 1.0 else None)
+        finished = torch.zeros(b, dtype=torch.bool, device=enc.device)
     for cur_len in range(p, length):
-        scores = _warp(_process_logits(last, tokens, cur_len, gen, p, seen,
-                                       bias_spec), gen)
-        drawn = (scores + noise(cur_len, tuple(scores.shape))).argmax(dim=-1)
-        nxt = torch.where(finished, gen.pad_id, drawn)
-        tokens[:, cur_len] = nxt
-        finished |= nxt == gen.eos_id
+        count("decode.steps")
+        with span("decode/processors"):
+            scores = _warp(_process_logits(last, tokens, cur_len, gen, p,
+                                           seen, bias_spec), gen)
+        with span("decode/select"):
+            drawn = (scores + noise(cur_len, tuple(scores.shape))
+                     ).argmax(dim=-1)
+            nxt = torch.where(finished, gen.pad_id, drawn)
+            tokens[:, cur_len] = nxt
+            finished |= nxt == gen.eos_id
         if seen is not None:
-            lp.update_seen(seen, nxt)
-        if cur_len + 1 == length or all_done(finished.all()):
+            with span("decode/reorder"):
+                lp.update_seen(seen, nxt)
+        with span("decode/wait"):
+            stop = cur_len + 1 == length or all_done(finished.all())
+        if stop:
             break
         logits, cache = tw.decoder_apply(model, nxt[:, None], enc,
                                          cache=cache, cache_index=cur_len,
@@ -302,6 +332,7 @@ def _gather_beams(layers: List[dict], beam_idx, batch: int, k: int):
             for layer in layers]
 
 
+@traced("decode/generate", as_unit=True)
 @torch.no_grad()
 def beam_search(model: tw.Whisper, features, prompt_ids,
                 gen: GenerationConfig, lora=None, bias_spec=None,
@@ -348,95 +379,109 @@ def beam_search(model: tw.Whisper, features, prompt_ids,
     dev = enc.device
     noise = (_noise_source(generator, sample_noise, dev) if gen.do_sample
              else None)
-    # one cross cache per utterance; the self cache holds B*K rows
-    cache = tw.init_cache(model, enc, max_len=length,
-                          int8_cross=gen.int8_kv_cache, self_batch=b * k)
-    tokens = torch.full((b, k, length), gen.pad_id, dtype=torch.long,
-                        device=dev)
-    tokens[:, :, :p] = prompt_ids[:, None, :]
-    logits, cache = tw.decoder_apply(model, tokens.view(b * k, length)[:, :p],
-                                     enc, cache=cache, cache_index=0,
-                                     lora=lora)
-    last = logits[:, -1]                                  # [B*K, V]
-    vocab = last.shape[-1]
+    with span("decode/init_cache"):
+        # one cross cache per utterance; the self cache holds B*K rows
+        cache = tw.init_cache(model, enc, max_len=length,
+                              int8_cross=gen.int8_kv_cache, self_batch=b * k)
+        tokens = torch.full((b, k, length), gen.pad_id, dtype=torch.long,
+                            device=dev)
+        tokens[:, :, :p] = prompt_ids[:, None, :]
+    with span("decode/prefill"):
+        logits, cache = tw.decoder_apply(
+            model, tokens.view(b * k, length)[:, :p], enc, cache=cache,
+            cache_index=0, lora=lora)
+        last = logits[:, -1]                              # [B*K, V]
+        vocab = last.shape[-1]
 
-    alive_logp = torch.full((b, k), NEG, dtype=torch.float32, device=dev)
-    alive_logp[:, 0] = 0.0
-    fin_seq = torch.full((b, k, length), gen.pad_id, dtype=torch.long,
-                         device=dev)
-    fin_scores = torch.full((b, k), NEG, dtype=torch.float32, device=dev)
-    fin_exists = torch.zeros((b, k), dtype=torch.bool, device=dev)
-    # sticky per-utterance "running beams could still improve the finished
-    # set" bit (HF's is_early_stop_heuristic_unsatisfied)
-    improve_unsat = torch.ones(b, dtype=torch.bool, device=dev)
-    seen = (lp.seen_from_tokens(tokens.view(b * k, length), p, vocab)
-            if gen.repetition_penalty != 1.0 else None)
-    offsets = k * torch.arange(b, device=dev)[:, None]
-    first_k = torch.arange(2 * k, device=dev)[None, :] < k
+        alive_logp = torch.full((b, k), NEG, dtype=torch.float32, device=dev)
+        alive_logp[:, 0] = 0.0
+        fin_seq = torch.full((b, k, length), gen.pad_id, dtype=torch.long,
+                             device=dev)
+        fin_scores = torch.full((b, k), NEG, dtype=torch.float32, device=dev)
+        fin_exists = torch.zeros((b, k), dtype=torch.bool, device=dev)
+        # sticky per-utterance "running beams could still improve the
+        # finished set" bit (HF's is_early_stop_heuristic_unsatisfied)
+        improve_unsat = torch.ones(b, dtype=torch.bool, device=dev)
+        seen = (lp.seen_from_tokens(tokens.view(b * k, length), p, vocab)
+                if gen.repetition_penalty != 1.0 else None)
+        offsets = k * torch.arange(b, device=dev)[:, None]
+        first_k = torch.arange(2 * k, device=dev)[None, :] < k
 
     for cur_len in range(p, length):
-        logp = torch.log_softmax(last.float(), dim=-1)
-        logp = _process_logits(logp, tokens.view(b * k, length), cur_len, gen,
-                               p, seen, bias_spec)
-        if noise is None:
-            total = alive_logp.reshape(b * k, 1) + logp   # [B*K, V]
-            row_vals, row_ids = _top_k(total, 2 * k)      # [B*K, 2K]
-            top_vals, pool_idx = _top_k(row_vals.reshape(b, 2 * k * k),
-                                        2 * k)
-        else:
-            total = alive_logp.reshape(b * k, 1) + _warp(logp, gen, 2)
-            drawn = noise(cur_len, (b, k * vocab)).reshape(b * k, vocab)
-            row_noised, row_ids = _top_k(total + drawn, 2 * k)
-            row_vals = total.gather(1, row_ids)           # un-noised
-            _, pool_idx = _top_k(row_noised.reshape(b, 2 * k * k), 2 * k)
-            top_vals = row_vals.reshape(b, 2 * k * k).gather(1, pool_idx)
-        top_beam = pool_idx // (2 * k)                    # [B, 2K]
-        top_tok = row_ids.reshape(b, 2 * k * k).gather(1, pool_idx)
-        if cur_len + 1 >= length:
-            hits = torch.ones_like(top_tok, dtype=torch.bool)
-        else:
-            hits = top_tok == gen.eos_id
+        count("decode.steps")
+        with span("decode/processors"):
+            logp = torch.log_softmax(last.float(), dim=-1)
+            logp = _process_logits(logp, tokens.view(b * k, length), cur_len,
+                                   gen, p, seen, bias_spec)
+        with span("decode/select"):
+            if noise is None:
+                total = alive_logp.reshape(b * k, 1) + logp   # [B*K, V]
+                row_vals, row_ids = _top_k(total, 2 * k)      # [B*K, 2K]
+                top_vals, pool_idx = _top_k(
+                    row_vals.reshape(b, 2 * k * k), 2 * k)
+            else:
+                total = alive_logp.reshape(b * k, 1) + _warp(logp, gen, 2)
+                drawn = noise(cur_len, (b, k * vocab)).reshape(b * k, vocab)
+                row_noised, row_ids = _top_k(total + drawn, 2 * k)
+                row_vals = total.gather(1, row_ids)           # un-noised
+                _, pool_idx = _top_k(row_noised.reshape(b, 2 * k * k), 2 * k)
+                top_vals = row_vals.reshape(b, 2 * k * k).gather(1, pool_idx)
+            top_beam = pool_idx // (2 * k)                    # [B, 2K]
+            top_tok = row_ids.reshape(b, 2 * k * k).gather(1, pool_idx)
+            if cur_len + 1 >= length:
+                hits = torch.ones_like(top_tok, dtype=torch.bool)
+            else:
+                hits = top_tok == gen.eos_id
 
         # finished update (HF _update_finished_beams)
-        cand_seq = tokens.gather(1, top_beam[..., None].expand(-1, -1, length))
-        cand_seq[:, :, cur_len] = top_tok
-        norm = float(cur_len + 1 - p) ** gen.length_penalty
-        eligible = hits & first_k & improve_unsat[:, None]
-        if gen.early_stopping:
-            eligible &= ~fin_exists.all(dim=1, keepdim=True)
-        all_exists = torch.cat([fin_exists, eligible], dim=1)
-        all_scores = torch.cat(
-            [fin_scores, torch.where(eligible, top_vals / norm, NEG)], dim=1)
-        fin_scores, keep = _top_k(torch.where(all_exists, all_scores, NEG), k)
-        fin_exists = all_exists.gather(1, keep)
-        fin_seq = torch.cat([fin_seq, cand_seq], dim=1).gather(
-            1, keep[..., None].expand(-1, -1, length))
+        with span("decode/finalize"):
+            cand_seq = tokens.gather(
+                1, top_beam[..., None].expand(-1, -1, length))
+            cand_seq[:, :, cur_len] = top_tok
+            norm = float(cur_len + 1 - p) ** gen.length_penalty
+            eligible = hits & first_k & improve_unsat[:, None]
+            if gen.early_stopping:
+                eligible &= ~fin_exists.all(dim=1, keepdim=True)
+            all_exists = torch.cat([fin_exists, eligible], dim=1)
+            all_scores = torch.cat(
+                [fin_scores, torch.where(eligible, top_vals / norm, NEG)],
+                dim=1)
+            fin_scores, keep = _top_k(
+                torch.where(all_exists, all_scores, NEG), k)
+            fin_exists = all_exists.gather(1, keep)
+            fin_seq = torch.cat([fin_seq, cand_seq], dim=1).gather(
+                1, keep[..., None].expand(-1, -1, length))
 
         # alive update: hits demoted additively (HF
         # _get_running_beams_for_next_iteration)
-        alive_logp, pick = _top_k(top_vals + hits.float() * NEG, k)
-        new_beam = top_beam.gather(1, pick)                # [B, K]
-        new_tok = top_tok.gather(1, pick)
-        tokens = tokens.gather(1, new_beam[..., None].expand(-1, -1, length))
-        tokens[:, :, cur_len] = new_tok
+        with span("decode/alive"):
+            alive_logp, pick = _top_k(top_vals + hits.float() * NEG, k)
+            new_beam = top_beam.gather(1, pick)                # [B, K]
+            new_tok = top_tok.gather(1, pick)
+            tokens = tokens.gather(
+                1, new_beam[..., None].expand(-1, -1, length))
+            tokens[:, :, cur_len] = new_tok
 
-        # stopping state (HF _check_early_stop_heuristic) on the updated
-        # finished set and the incremented length
-        best = alive_logp.amax(dim=1) / norm
-        improve_unsat &= torch.where(fin_exists.all(dim=1),
-                                     best > fin_scores.amin(dim=1), True)
-        go = improve_unsat.any() & ~hits.all()
-        if gen.early_stopping:
-            go &= ~fin_exists.all()
+            # stopping state (HF _check_early_stop_heuristic) on the
+            # updated finished set and the incremented length
+            best = alive_logp.amax(dim=1) / norm
+            improve_unsat &= torch.where(fin_exists.all(dim=1),
+                                         best > fin_scores.amin(dim=1), True)
+            go = improve_unsat.any() & ~hits.all()
+            if gen.early_stopping:
+                go &= ~fin_exists.all()
         # the one wait per step; the step after the last would only feed
         # logits nobody reads
-        if cur_len + 1 == length or all_done(~go):
+        with span("decode/wait"):
+            stop = cur_len + 1 == length or all_done(~go)
+        if stop:
             break
-        rows = (new_beam + offsets).reshape(-1)
-        if seen is not None:
-            seen = lp.update_seen(seen.index_select(0, rows),
-                                  new_tok.reshape(-1))
-        cache["self"] = _gather_beams(cache["self"], new_beam, b, k)
+        with span("decode/reorder"):
+            rows = (new_beam + offsets).reshape(-1)
+            if seen is not None:
+                seen = lp.update_seen(seen.index_select(0, rows),
+                                      new_tok.reshape(-1))
+            cache["self"] = _gather_beams(cache["self"], new_beam, b, k)
         logits, cache = tw.decoder_apply(model, new_tok.reshape(b * k, 1), enc,
                                          cache=cache, cache_index=cur_len,
                                          lora=lora)

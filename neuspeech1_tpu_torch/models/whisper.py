@@ -71,6 +71,7 @@ from neuspeech1_tpu_torch.parallel.mesh import axis_ring
 from neuspeech1_tpu_torch.parallel.pipeline import pipeline
 from neuspeech1_tpu_torch.parallel.ring_attention import (
     SHARD_QUANTUM, gather_seq, ring_attention_local, shard_seq)
+from neuspeech1_tpu_torch.train.profiling import traced
 
 # --------------------------------------------------------------------------
 # modules (parameter holders; attribute names follow the JAX tree)
@@ -710,6 +711,7 @@ def _layer_lora(lora, part: str):
     return ((lora or {}).get(part) or {}).get("layers")
 
 
+@traced("model/encoder")
 def encoder_apply(model: Whisper, features, lora=None, dropout=None):
     """[B, ch, T] -> [B, T', d] encoder states, T' == max_source_positions;
     ``lora`` is an adapter tree (``models/lora.py``). ``dropout``
@@ -790,6 +792,7 @@ def encoder_apply(model: Whisper, features, lora=None, dropout=None):
     return layer_norm(h, model.encoder.ln_post)
 
 
+@traced("model/decoder")
 def decoder_apply(model: Whisper, tokens, enc_out, cache=None,
                   cache_index: Optional[int] = None, lora=None, pos_ids=None,
                   self_attn_mask=None, return_hidden: bool = False):

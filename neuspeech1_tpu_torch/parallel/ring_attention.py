@@ -20,7 +20,7 @@ as ``lax.ppermute`` with the JAX package's ``_ring_perm``):
 
 Rings: ``DistRing`` over a ``torch.distributed`` process group (its hops
 of CUDA tensors over gloo, which sends host tensors only, go through
-pinned host memory and are counted in ``staged``), and
+pinned host memory and are counted in the ``ring.staged_*`` counters), and
 ``LocalRing``, n ranks as n Python threads on one device, the counterpart of
 the JAX tests' virtual CPU mesh (``LocalRing.run_mesh`` builds a grid of
 them, one ring per mesh axis). Besides the hop to rank + 1 a ring has the
@@ -53,6 +53,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from neuspeech1_tpu_torch.ops import flash_attention as fa
+from neuspeech1_tpu_torch.train.profiling import count
 
 # the shard quantum of the sequence dim (the JAX package's 128-lane block)
 SHARD_QUANTUM = 128
@@ -202,18 +203,6 @@ class DistRing(Ring):
         dist.barrier(group=self.group)
 
 
-# The hops of `DistRing` that went through host memory in this process
-# (CUDA tensors on a gloo group): their count, the bytes sent, and the
-# seconds they took on the host clock, from the device's stream being
-# idle to the received tensors being back on the device. `reset_staged`
-# zeroes them.
-staged = {"hops": 0, "bytes": 0, "seconds": 0.0}
-
-
-def reset_staged() -> None:
-    staged.update(hops=0, bytes=0, seconds=0.0)
-
-
 def host_staged(group, tensors) -> bool:
     """Whether a hop of ``tensors`` over ``group`` stages them through
     host memory: CUDA tensors on a gloo group. Under NCCL the hop stays a
@@ -237,15 +226,20 @@ def _synchronize(t) -> None:
 def _staged_shift(ring: "DistRing", tensors, hop: int) -> tuple:
     """`DistRing._shift` of device tensors over gloo: each tensor copied to
     pinned host memory, the host copies sent and received, the received
-    ones copied back to the tensor's device. Counted in `staged`."""
+    ones copied back to the tensor's device. Counted always, tracing or
+    not (``train/profiling.py::count``): ``ring.staged_hops``,
+    ``ring.staged_bytes`` sent, and ``ring.staged_ms`` on the host clock,
+    from the device's stream being idle to the received tensors being back
+    on the device."""
     _synchronize(tensors[0])
     t0 = time.perf_counter()
     sends = tuple(_pinned(t).copy_(t) for t in tensors)
     outs = ring._send_recv(sends, hop, tuple(_pinned(t) for t in tensors))
     outs = tuple(o.to(t.device) for o, t in zip(outs, tensors))
-    staged["hops"] += 1
-    staged["bytes"] += sum(t.numel() * t.element_size() for t in tensors)
-    staged["seconds"] += time.perf_counter() - t0
+    count("ring.staged_hops", always=True)
+    count("ring.staged_bytes",
+          sum(t.numel() * t.element_size() for t in tensors), always=True)
+    count("ring.staged_ms", 1e3 * (time.perf_counter() - t0), always=True)
     return outs
 
 

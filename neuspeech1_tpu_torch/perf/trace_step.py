@@ -8,79 +8,43 @@ Runs ``bench.py``'s configuration (whisper-base EEG, batch 64, bf16 compute
 on f32 masters, LoRA r=32 and the stem, the 'fc' fold, remat per
 ``--remat``): 3 warm-up steps, ``--steps`` steps timed by CUDA events (the
 host clock off the card), then ``--steps`` more under ``torch.profiler``
-through ``train/profiling.py``, whose chrome trace `parse_trace` reads:
+through ``train/profiling.py``'s `Profiler`, whose chrome trace its
+`parse_trace` reads:
 
 - the device's busy time over the traced span, as the union of the leaf
   device intervals (kernels, copies and sets), and the idle rest;
 - the top kernel groups (a kernel's name up to its template or argument
-  list) and the top kernel names, in ms per step.
+  list) and the top kernel names, in ms per step;
+- the table of the program's spans (``ns/train/step`` and the stages
+  inside it), from the Profiler's summary: per span its count and, in ms
+  per step, host time total and self, the device's idle time it names and
+  the device time of the kernels it launched.
 
-Prints the JAX script's report, then one JSON line: ``wall_ms_per_step``,
-``steps``, ``span_ms``, ``busy_ms``, ``idle_ms``, ``busy_share``,
-``kernels`` (device events in the span), ``top_groups`` and ``top_ops``
-([name, ms per step] pairs). There are no container events to leave out:
-the profiler's device rows hold kernels only.
+Prints the JAX script's report and the span table, then one JSON line:
+``wall_ms_per_step``, ``steps``, ``span_ms``, ``busy_ms``, ``idle_ms``,
+``busy_share``, ``kernels`` (device events in the span), ``top_groups`` and
+``top_ops`` ([name, ms per step] pairs), ``spans`` ({span: {count,
+host_ms, self_ms, idle_ms, device_ms}}, ms per step), ``idle_named_share``
+(the share of the window's idle time some span names), ``counters`` (their
+changes over the traced steps), ``trace`` and ``summary`` (the files).
+There are no container events to leave out: the profiler's device rows
+hold kernels only.
 """
 
 from __future__ import annotations
 
 import argparse
-import collections
 import dataclasses
 import json
 import os
-import re
 import tempfile
 from typing import List, Optional
 
 import torch
 
 from neuspeech1_tpu_torch.perf import serve_bench
-
-# the trace categories of work on the device
-DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
-
-
-def group_of(name: str) -> str:
-    """A kernel's group: its name without a leading ``void``, anonymous
-    namespaces, the template arguments and the argument list."""
-    name = re.sub(r"^void ", "", name).replace("(anonymous namespace)::", "")
-    return re.sub(r"[<(].*$", "", name).strip()
-
-
-def union_busy(intervals) -> float:
-    """The length of the union of (start, end) intervals."""
-    busy, cur_lo, cur_hi = 0.0, None, None
-    for lo, hi in sorted(intervals):
-        if cur_lo is None:
-            cur_lo, cur_hi = lo, hi
-        elif lo <= cur_hi:
-            cur_hi = max(cur_hi, hi)
-        else:
-            busy += cur_hi - cur_lo
-            cur_lo, cur_hi = lo, hi
-    if cur_lo is not None:
-        busy += cur_hi - cur_lo
-    return busy
-
-
-def parse_trace(path: str):
-    """(busy us, span us, us by kernel name, us by group, device events)
-    of a chrome trace."""
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    leafs = [e for e in events if e.get("ph") == "X"
-             and e.get("cat") in DEVICE_CATEGORIES
-             and e.get("dur") is not None]
-    iv = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in leafs]
-    span = (max(hi for _, hi in iv) - min(lo for lo, _ in iv)) if iv else 0.0
-    by_name = collections.Counter()
-    for e in leafs:
-        by_name[e["name"]] += float(e["dur"])
-    by_group = collections.Counter()
-    for name, d in by_name.items():
-        by_group[group_of(name)] += d
-    return union_busy(iv), span, by_name, by_group, len(leafs)
+from neuspeech1_tpu_torch.train.profiling import (Profiler, parse_trace,
+                                                  span_lines)
 
 
 def _timed_steps(step, state, frozen, batch, n: int, device) -> float:
@@ -108,7 +72,6 @@ def run(config, stem, steps: int = 8, top: int = 40, tracedir: str = "",
     """The report's lines, each passed to ``emit``; returns the JSON
     result."""
     from neuspeech1_tpu_torch.bench import train_setup
-    from neuspeech1_tpu_torch.train.profiling import Profiler
 
     device = torch.device(device)
     step, state, frozen, batch = train_setup(config, stem, batch_size, device)
@@ -136,13 +99,22 @@ def run(config, stem, steps: int = 8, top: int = 40, tracedir: str = "",
                        for k, d in by_group.most_common(top)],
         "top_ops": [[k, d / 1e3 / steps]
                     for k, d in by_name.most_common(top)],
+        "spans": {name: {k: v if k == "count" else v / steps
+                         for k, v in row.items()}
+                  for name, row in prof.summary["spans"].items()},
+        "idle_named_share": prof.summary["idle_named_share"],
+        "counters": prof.summary["counters"],
         "trace": prof.trace_path,
+        "summary": prof.summary_path,
     }
     for title, rows in (("top groups", result["top_groups"]),
                         ("top ops", result["top_ops"])):
         emit(f"\n-- {title} (ms/step over {steps} steps) --")
         for name, ms in rows:
             emit(f"{ms:8.3f}  {name[:160]}")
+    emit(f"\n-- spans (ms over {steps} steps) --")
+    for line in span_lines(prof.summary, top):
+        emit(line)
     emit(json.dumps(result))
     return result
 

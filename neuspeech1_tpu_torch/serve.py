@@ -46,6 +46,7 @@ from neuspeech1_tpu_torch.decode.timestamps import word_timestamps
 from neuspeech1_tpu_torch.models.quantize import (dequantize_params,
                                                   quantize_params)
 from neuspeech1_tpu_torch.parallel import mesh as pmesh
+from neuspeech1_tpu_torch.train.profiling import span
 
 
 class Transcriber:
@@ -161,19 +162,23 @@ class Transcriber:
         prompt = torch.as_tensor(np.repeat(self.prompt, bs, axis=0),
                                  device=self.device)
         for i in range(0, signals.shape[0], bs):
-            chunk = signals[i:i + bs]
-            n = chunk.shape[0]
-            if n < bs:
-                chunk = np.concatenate(
-                    [chunk, np.repeat(chunk[-1:], bs - n, axis=0)], axis=0)
-            feats = common.upload_features(chunk, self.model.dtype,
-                                           self.device)
-            with pmesh.set_mesh(self.mesh):
-                out = generate_over_mesh(
-                    self.model, feats, prompt, self.gen,
-                    draft_table=self._draft_table,
-                    generator=generator).cpu().numpy()
-            out_texts.extend(self.tokenizer.batch_decode(out[:n]))
+            with span("serve/batch"):
+                chunk = signals[i:i + bs]
+                n = chunk.shape[0]
+                if n < bs:
+                    chunk = np.concatenate(
+                        [chunk, np.repeat(chunk[-1:], bs - n, axis=0)],
+                        axis=0)
+                with span("serve/upload"):
+                    feats = common.upload_features(chunk, self.model.dtype,
+                                                   self.device)
+                with span("serve/generate"), pmesh.set_mesh(self.mesh):
+                    out = generate_over_mesh(
+                        self.model, feats, prompt, self.gen,
+                        draft_table=self._draft_table,
+                        generator=generator).cpu().numpy()
+                with span("serve/detokenize"):
+                    out_texts.extend(self.tokenizer.batch_decode(out[:n]))
         return out_texts
 
     def transcribe_with_timestamps(self, signals: np.ndarray

@@ -21,6 +21,9 @@ wherever both are installed).
 
 The loop reads the device only where the JAX trainer does: the loss and
 gradient norm at logging steps, the eval metrics, and a checkpoint's copy.
+The loop's stages are spans of ``train/profiling.py`` (``trainer/batch``,
+``trainer/step``, ``trainer/allocate``, ``trainer/log``, the loss's wait,
+and ``trainer/eval``), recorded while a profiler records.
 
 Under data parallelism (the ambient mesh's ``data`` axis larger than 1,
 ``parallel/mesh.py``) each rank's loader yields its rows of every global
@@ -57,6 +60,7 @@ from neuspeech1_tpu_torch.parallel import mesh as pmesh
 from neuspeech1_tpu_torch.parallel import sharding
 from neuspeech1_tpu_torch.train import trainstep as ts
 from neuspeech1_tpu_torch.train.checkpoint import CheckpointManager
+from neuspeech1_tpu_torch.train.profiling import span
 
 
 class Trainer:
@@ -287,21 +291,30 @@ class Trainer:
         while not done:
             if self.num_epochs is not None and epoch >= self.num_epochs:
                 break
-            for batch in self.train_loader:
-                bsz = _rows(batch) * self.row_blocks
-                batch = self._prep(batch)
-                metrics = self.train_step(self.state, self.frozen, batch)
+            batches = iter(self.train_loader)
+            while True:
+                with span("trainer/batch"):
+                    batch = next(batches, _END)
+                    if batch is not _END:
+                        bsz = _rows(batch) * self.row_blocks
+                        batch = self._prep(batch)
+                if batch is _END:
+                    break
+                with span("trainer/step"):
+                    metrics = self.train_step(self.state, self.frozen, batch)
                 step_num += 1
                 samples_since += bsz
 
                 if self.adalora:
-                    self._adalora_update(step_num)
+                    with span("trainer/allocate"):
+                        self._adalora_update(step_num)
 
                 if step_num % self.logging_steps == 0:
                     # the loss first: its copy to the host waits for every
                     # queued step, so the clock measures work done
-                    loss_val = float(metrics["loss"])
-                    grad_val = float(metrics["grad_norm"])
+                    with span("trainer/log"):
+                        loss_val = float(metrics["loss"])
+                        grad_val = float(metrics["grad_norm"])
                     dt = time.perf_counter() - t_last
                     self.log({
                         "step": step_num,
@@ -315,9 +328,11 @@ class Trainer:
 
                 if self.eval_loader is not None and \
                         step_num % self.eval_steps == 0:
-                    self._last_eval_loss = self.evaluate()
-                    rec = {"step": step_num, "eval_loss": self._last_eval_loss}
-                    rec.update(self.evaluate_generate())
+                    with span("trainer/eval"):
+                        self._last_eval_loss = self.evaluate()
+                        rec = {"step": step_num,
+                               "eval_loss": self._last_eval_loss}
+                        rec.update(self.evaluate_generate())
                     self.log(rec)
 
                 # saving is independent of the eval schedule; gating reads
@@ -372,6 +387,10 @@ class Trainer:
                 self.state.ipt), budget, init_bgt)
             if step_num >= total - tfinal:
                 self._adalora_pattern = adalora_pattern_of(lora)
+
+
+# the end of the train loader's batches in an epoch
+_END = object()
 
 
 def _eval_shares(loader):

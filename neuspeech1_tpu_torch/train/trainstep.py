@@ -67,6 +67,13 @@ holds the same gradients, so the norm counts each leaf once.
 The step makes no host sync: its metrics stay 0-d device tensors, and the
 importance EMAs' stop test reads the host's step count.
 
+The step is the span ``ns/train/step`` of ``train/profiling.py``, and its
+stages spans inside it (``train/augment``, ``train/dropout``,
+``train/fold``, ``train/forward``, ``train/loss``, ``train/backward``,
+``train/reduce``, ``train/clip``, ``train/update``, ``train/ipt``),
+recorded while a profiler records; none lies inside a checkpointed layer,
+so remat's recompute runs under ``train/backward``.
+
 The step's random draws come from the state's ``torch.Generator``, on the
 state's device: first the augmentation's (`ops/augment.py::draw_augment`),
 then the dropout's (`models/whisper.py::draw_dropout`). The JAX step splits
@@ -100,6 +107,7 @@ from neuspeech1_tpu_torch.parallel import sharding
 from neuspeech1_tpu_torch.train.optimizer import (
     AdamState, Optimizer, PathPred, default_trainable_pred, global_norm,
     named_leaves)
+from neuspeech1_tpu_torch.train.profiling import span, traced
 
 Params = Dict[str, Any]
 Batch = Dict[str, torch.Tensor]
@@ -225,27 +233,30 @@ def make_loss_fn(config: WhisperConfig, stem: StemConfig,
         feats, ids = batch["input_features"], batch["decoder_input_ids"]
         with i8.int8_mode(int8_matmul):
             if fold_lora and lora is not None:
-                merge_tree, fc_tree = split_lora_fc(lora)
-                merged = merge_lora(model, merge_tree)
+                with span("train/fold"):
+                    merge_tree, fc_tree = split_lora_fc(lora)
+                    merged = merge_lora(model, merge_tree)
                 fc = fc_tree if has_entries(fc_tree) else None
                 with (tw.fold_at_linear() if fc is not None
-                      else contextlib.nullcontext()):
+                      else contextlib.nullcontext()), span("train/forward"):
                     logits = torch.func.functional_call(
                         model, merged, (feats, ids),
                         {"lora": fc, "dropout": dropout})
             else:
-                logits = tw.forward(model, feats, ids, lora, dropout)
-        loss = tw.ce_loss(logits, batch["labels"], n_tokens=n_tokens)
-        aux = {"ce_loss": loss.detach()}
-        if orth_reg_weight > 0.0 and reg_lora is not None:
-            # over the whole tree, merged and folded entries alike
-            reg = adalora_orth_loss(reg_lora)
-            aux["orth_reg"] = reg.detach()
-            aux["loss"] = (loss + orth_reg_weight * reg).detach()
-            if reg_grad:
-                loss = loss + orth_reg_weight * reg
-        else:
-            aux["loss"] = loss.detach()
+                with span("train/forward"):
+                    logits = tw.forward(model, feats, ids, lora, dropout)
+        with span("train/loss"):
+            loss = tw.ce_loss(logits, batch["labels"], n_tokens=n_tokens)
+            aux = {"ce_loss": loss.detach()}
+            if orth_reg_weight > 0.0 and reg_lora is not None:
+                # over the whole tree, merged and folded entries alike
+                reg = adalora_orth_loss(reg_lora)
+                aux["orth_reg"] = reg.detach()
+                aux["loss"] = (loss + orth_reg_weight * reg).detach()
+                if reg_grad:
+                    loss = loss + orth_reg_weight * reg
+            else:
+                aux["loss"] = loss.detach()
         return loss, aux
 
     return loss_fn
@@ -281,6 +292,7 @@ def make_train_step(config: WhisperConfig, stem: StemConfig, tx: Optimizer,
     loss_fn = make_loss_fn(config, stem, orth_reg_weight,
                            fold_lora=fold_lora, int8_matmul=int8_matmul)
 
+    @traced("train/step", as_unit=True)
     def step(state: TrainState, frozen: Frozen, batch: Batch):
         check_model_config(config, frozen.model)
         data = pmesh.data_ring()
@@ -292,12 +304,17 @@ def make_train_step(config: WhisperConfig, stem: StemConfig, tx: Optimizer,
         feats = batch["input_features"]
         rows, total = feats.shape[0], n * feats.shape[0]
         if augment_config:
-            draws = augment.draw_augment(gen, (total, *feats.shape[1:]),
-                                         augment_config)
-            batch = {**batch, "input_features": augment.apply_augment(
-                feats, _rank_rows(draws, rank, rows, total), augment_config)}
-        dropout = (_rank_rows(tw.draw_dropout(gen, config, stem, total),
-                              rank, rows, total) if use_dropout else None)
+            with span("train/augment"):
+                draws = augment.draw_augment(gen, (total, *feats.shape[1:]),
+                                             augment_config)
+                batch = {**batch, "input_features": augment.apply_augment(
+                    feats, _rank_rows(draws, rank, rows, total),
+                    augment_config)}
+        dropout = None
+        if use_dropout:
+            with span("train/dropout"):
+                dropout = _rank_rows(tw.draw_dropout(gen, config, stem, total),
+                                     rank, rows, total)
         n_tokens = None
         if row_rings:
             n_tokens = (batch["labels"] != -100).sum()
@@ -308,23 +325,28 @@ def make_train_step(config: WhisperConfig, stem: StemConfig, tx: Optimizer,
         loss, aux = loss_fn(frozen, batch, dropout, n_tokens,
                             reg_grad=rank == 0 and (tensor is None
                                                     or tensor.rank == 0))
-        loss.backward()
-        grads = reduce_grads(state.trainable, config, data, aux, fsdp=fsdp,
-                             tensor=tensor, specs=specs)
+        with span("train/backward"):
+            loss.backward()
+        with span("train/reduce"):
+            grads = reduce_grads(state.trainable, config, data, aux,
+                                 fsdp=fsdp, tensor=tensor, specs=specs)
         if row_rings:
             aux["loss"] = aux["ce_loss"] + orth_reg_weight * aux.get(
                 "orth_reg", 0.0)
         norm_fn = (functools.partial(sharding.global_norm, specs=specs)
                    if specs else lambda g: global_norm(g.values()))
-        norm = norm_fn(grads)
-        tx.update(state.trainable, grads, state.opt_state, norm,
-                  norm_fn=norm_fn)
+        with span("train/clip"):
+            norm = norm_fn(grads)
+        with span("train/update"):
+            tx.update(state.trainable, grads, state.opt_state, norm,
+                      norm_fn=norm_fn)
         if track_adalora_importance and state.ipt and (
                 adalora_ipt_stop_step is None
                 or state.step < adalora_ipt_stop_step):
-            adalora_ipt_update(state.ipt, frozen.lora, {
-                path: {n: grads[f"lora/{path}/{n}"] for n in IPT_NAMES}
-                for path, _ in adalora_entries(frozen.lora)})
+            with span("train/ipt"):
+                adalora_ipt_update(state.ipt, frozen.lora, {
+                    path: {n: grads[f"lora/{path}/{n}"] for n in IPT_NAMES}
+                    for path, _ in adalora_entries(frozen.lora)})
         state.step += 1
         return {**aux, "grad_norm": norm}
 

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from neuspeech1_tpu_torch.perf import serve_bench, spec_bench, trace_step
+from neuspeech1_tpu_torch.train import profiling
 
 torch.set_num_threads(1)
 
@@ -70,6 +71,16 @@ def test_trace_step_reports_busy_and_idle(capsys, tmp_path):
     # no device here: no device events, an empty span
     assert r["kernels"] == 0 and r["span_ms"] == r["busy_ms"] == 0
     assert r["trace"].startswith(str(tmp_path))
+    # the span table: the program's spans of the step, ms per step
+    assert {"spans", "idle_named_share", "counters", "summary"} <= set(r)
+    assert r["summary"].startswith(str(tmp_path))
+    assert {"ns/train/step", "ns/train/forward", "ns/train/backward",
+            "ns/train/update"} <= set(r["spans"])
+    for row in r["spans"].values():
+        assert set(row) == {"count", "host_ms", "self_ms", "idle_ms",
+                            "device_ms"}
+    assert r["spans"]["ns/train/step"]["count"] == 2
+    assert r["idle_named_share"] is None  # no device, no idle to name
 
 
 def test_parse_trace_takes_the_union_of_device_intervals(tmp_path):
@@ -83,6 +94,8 @@ def test_parse_trace_takes_the_union_of_device_intervals(tmp_path):
         {"ph": "X", "cat": "cpu_op", "name": "aten::mm", "ts": 0,
          "dur": 100},  # host work: not the device's
         {"ph": "X", "cat": "kernel", "name": "k2", "ts": 40, "dur": 2},
+        {"ph": "X", "cat": "user_annotation", "name": "ns/train/step",
+         "ts": 0, "dur": 50},  # a program span: not the device's
         {"ph": "X", "cat": "kernel", "name": "void (anonymous namespace)::"
          "flash_bwd_dq_kernel<64, false>((anonymous namespace)::Params)",
          "ts": 41, "dur": 3},
@@ -93,3 +106,7 @@ def test_parse_trace_takes_the_union_of_device_intervals(tmp_path):
     assert (busy, span, n) == (15 + 5 + 4, 44, 5)
     assert by_group["k1"] == 20 and by_group["Memcpy DtoH"] == 5
     assert by_name["k2"] == 2 and by_group["flash_bwd_dq_kernel"] == 3
+    # the span table's keys: the gaps [15, 20] and [25, 40] lie in the span
+    row = profiling.summarize(str(path))["spans"]["ns/train/step"]
+    assert row == {"count": 1, "host_ms": 0.05, "self_ms": 0.05,
+                   "idle_ms": 0.02, "device_ms": 0.0}

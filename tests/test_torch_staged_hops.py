@@ -1,8 +1,8 @@
 """The hops of a DistRing (neuspeech1_tpu_torch/parallel/ring_attention.py)
 over gloo, two processes on the CPU: the host staging that CUDA tensors
 take over gloo (which sends and receives host tensors only) gives the
-group's own send and receive, and is counted in ``staged``; host tensors
-on gloo hop without it. This file imports neither JAX nor the JAX
+group's own send and receive, and is counted in the ``ring.staged_*``
+counters (``train/profiling.py``); host tensors on gloo hop without it. This file imports neither JAX nor the JAX
 package."""
 
 import os

@@ -87,6 +87,7 @@ def staged_hop_rank(rank, world, store_path, out_dir):
 
     from neuspeech1_tpu_torch.parallel import mesh as pmesh
     from neuspeech1_tpu_torch.parallel import ring_attention as ra
+    from neuspeech1_tpu_torch.train import profiling
 
     torch.set_num_threads(1)
     pmesh.initialize_distributed("gloo", store=dist.FileStore(store_path,
@@ -98,17 +99,19 @@ def staged_hop_rank(rank, world, store_path, out_dir):
         y = torch.full((4,), rank, dtype=torch.int64)
         assert not ra.host_staged(ring.group, (x, y))
         plain = ring.permute(x, y) + ring.permute_back(x, y)
-        ra.reset_staged()
+        before = profiling.counters()
         ra.host_staged = lambda group, tensors: True
         ra._pinned = lambda t: torch.empty(t.shape, dtype=t.dtype)
         ra._synchronize = lambda t: None
         staged = ring.permute(x, y) + ring.permute_back(x, y)
+        got = profiling.counter_changes(before)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
                  plain=np.stack([t.double().numpy().ravel()[:4]
                                  for t in plain]),
                  staged=np.stack([t.double().numpy().ravel()[:4]
                                   for t in staged]),
-                 counts=np.asarray([ra.staged["hops"], ra.staged["bytes"],
-                                    ra.staged["seconds"] > 0]))
+                 counts=np.asarray([got["ring.staged_hops"],
+                                    got["ring.staged_bytes"],
+                                    got["ring.staged_ms"] > 0]))
     finally:
         dist.destroy_process_group()
