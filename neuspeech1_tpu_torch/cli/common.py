@@ -26,6 +26,8 @@ from __future__ import annotations
 import json
 import os
 import re
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -274,13 +276,82 @@ def feature_true_len(feats: np.ndarray, n_blocks: int = 8) -> int:
     """Block-aligned length past the last nonzero sample of a [B, ch, T]
     batch: a multiple of T / n_blocks in [T / n_blocks, T]. Clips are
     zero-padded to the model's input length, and everything past this
-    point is zeros the device can restore."""
+    point is zeros the device can restore.
+
+    Blocks are tested from the end as ``np.any`` tests them (-0.0 is zero,
+    NaN is not): by an OR over the samples' bits, less a float's sign bit,
+    which makes no temporary. Slabs of clips are scanned in threads, since
+    numpy reduces integers without holding the interpreter's lock."""
     t = feats.shape[-1]
     block = max(1, t // n_blocks)
-    n = t
-    while n > block and not np.any(feats[..., n - block:n]):
-        n -= block
-    return n
+    # the blocks the scan may drop: n = t - k * block stays above block
+    blocks = max(0, -(-t // block) - 1)
+    size = feats.dtype.itemsize
+    bits = feats.view(f"u{size}")
+    mask = (1 << 8 * size) - 1
+    if feats.dtype.kind == "f":
+        mask >>= 1
+
+    def first_nonzero(slab: np.ndarray) -> int:
+        for k in range(blocks):
+            tail = slab[..., t - (k + 1) * block:t - k * block]
+            if np.bitwise_or.reduce(tail, axis=None) & mask:
+                return k
+        return blocks
+
+    workers = min(len(bits), torch.get_num_threads())
+    if workers < 2:
+        return t - first_nonzero(bits) * block
+    edges = np.linspace(0, len(bits), workers + 1).astype(int)
+    with ThreadPoolExecutor(workers) as pool:
+        k = min(pool.map(first_nonzero, [
+            bits[a:b] for a, b in zip(edges[:-1], edges[1:])]))
+    return t - k * block
+
+
+class _Staging:
+    """Pinned host buffers that CUDA uploads are cast into, one per
+    (device, dtype), each grown to the largest upload seen and never
+    shrunk, with the event recorded after the copy that last read it. The
+    next write into a buffer waits on that event; the lock keeps threads
+    apart while they write and enqueue."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._slots: Dict[tuple, list] = {}
+
+    def upload(self, src: torch.Tensor, dtype: torch.dtype,
+               device: torch.device, length: int) -> torch.Tensor:
+        """``src``, a [..., n] host tensor, cast to ``dtype`` in the buffer,
+        copied to ``device`` asynchronously and zero-padded there to
+        ``length``."""
+        numel = src.numel()
+        with self._lock:
+            slot = self._slots.get((device, dtype))
+            if slot is None:
+                slot = self._slots[device, dtype] = [None, torch.cuda.Event()]
+            buf, done = slot
+            with span("upload/fence"):
+                if not done.query():
+                    count("upload.fence_waits", always=True)
+                    done.synchronize()
+            if buf is None or buf.numel() < numel:
+                with span("upload/pin"):
+                    buf = slot[0] = torch.empty(numel, dtype=dtype,
+                                                pin_memory=True)
+                count("upload.staging_allocs", always=True)
+                count("upload.pinned_bytes", numel * dtype.itemsize)
+            host = buf[:numel].view(src.shape)
+            with span("upload/cast"):
+                host.copy_(src)
+            with span("upload/copy"):
+                out = host.to(device, non_blocking=True)
+                done.record(torch.cuda.current_stream(device))
+                n = src.shape[-1]
+                return F.pad(out, (0, length - n)) if n < length else out
+
+
+_staging = _Staging()
 
 
 def upload_features(feats: np.ndarray, dtype: torch.dtype, device,
@@ -289,31 +360,31 @@ def upload_features(feats: np.ndarray, dtype: torch.dtype, device,
 
     The zero tail is cropped before the copy and restored on the device
     (exact), and the cast to the model dtype happens on the host (the
-    encoder's first step is that cast). For a CUDA device the host buffer is
-    pinned and the copy is asynchronous. Spans ``upload/scan``,
-    ``upload/cast``, ``upload/pin`` and ``upload/copy``; counters
-    ``upload.h2d_bytes`` and ``upload.pinned_bytes`` (``train/
-    profiling.py``)."""
+    encoder's first step is that cast), from float32 as the JAX package
+    casts. For a CUDA device the cast writes into a pinned staging buffer
+    kept for the (device, dtype), the copy is asynchronous, and the next
+    upload into that buffer waits for it. Spans ``upload/scan``,
+    ``upload/cast``, ``upload/copy``, and on CUDA ``upload/fence`` and
+    ``upload/pin`` (the buffer's growth); counters ``upload.h2d_bytes``
+    and ``upload.pinned_bytes`` while tracing, ``upload.staging_allocs``
+    and ``upload.fence_waits`` always (``train/profiling.py``)."""
     device = torch.device(device)
     t_full = feats.shape[-1]
     with span("upload/scan"):
         n = feature_true_len(feats) if compact else t_full
-    with span("upload/cast"):
-        host = torch.from_numpy(np.ascontiguousarray(
-            feats[..., :n], dtype=np.float32)).to(dtype)
+    src = np.asarray(feats[..., :n], dtype=np.float32)
     if tracing():
-        nbytes = host.numel() * host.element_size()
-        count("upload.h2d_bytes", nbytes)
-        if device.type == "cuda":
-            count("upload.pinned_bytes", nbytes)
+        count("upload.h2d_bytes", src.size * dtype.itemsize)
     if device.type == "cuda":
-        with span("upload/pin"):
-            host = host.pin_memory()
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        return _staging.upload(torch.from_numpy(src), dtype, device, t_full)
+    # a fresh tensor: a view of a reused buffer would change under the
+    # caller at the next upload
+    with span("upload/cast"):
+        out = torch.from_numpy(np.ascontiguousarray(src)).to(dtype)
     with span("upload/copy"):
-        out = host.to(device, non_blocking=True)
-        if n < t_full:
-            out = F.pad(out, (0, t_full - n))
-    return out
+        return F.pad(out, (0, t_full - n)) if n < t_full else out
 
 
 def resolve_tokenizer(spec: str, config: Optional[WhisperConfig] = None):

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card.
+"""The port's CUDA kernels against their plain PyTorch versions on the card,
+and the feature upload's pinned staging.
 
 Needs an NVIDIA GPU, nvcc and no JAX; skips without a GPU. The machine with
 the card has no JAX, and tests/conftest.py imports it, so run this file
@@ -7,9 +8,14 @@ there without the conftest:
     python -m pytest tests/test_torch_cuda_kernels.py --noconftest -q
 """
 
+import sys
+import threading
+
+import numpy as np
 import pytest
 import torch
 
+from neuspeech1_tpu_torch.cli import common
 from neuspeech1_tpu_torch.ops import decode_cross as tdc
 from neuspeech1_tpu_torch.ops import decode_step as tds
 from neuspeech1_tpu_torch.ops import flash_attention as tfa
@@ -17,6 +23,7 @@ from neuspeech1_tpu_torch.ops import lora_bwd as tlb
 from neuspeech1_tpu_torch.ops import probe_bwd as tpb
 from neuspeech1_tpu_torch.ops import probe_dot as tpd
 from neuspeech1_tpu_torch.ops import probe_fwd as tpf
+from neuspeech1_tpu_torch.train import profiling
 
 
 @pytest.fixture
@@ -699,3 +706,91 @@ def test_probe_dot_kernel_matches_plain_on_card(cuda_device, kdim):
     assert _rel_err(c, tpd.probe_dot_plain(a, b)) <= 1e-2
     # no atomics: the same bits every run
     assert torch.equal(c, tpd.probe_dot(a, b))
+
+
+def _clips(rng, b, length, t=6000, ch=208):
+    """[b, ch, t] f32 clips of ``length`` samples of signal, zeros after."""
+    feats = np.zeros((b, ch, t), np.float32)
+    feats[..., :length] = rng.standard_normal((b, ch, length))
+    return feats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_upload_staging_is_fenced_on_card(cuda_device, dtype, monkeypatch):
+    """Uploads back to back with no synchronize, each of other data, the
+    second longer, the third shorter, each copy queued behind ~0.5 s of
+    device sleep so the next upload finds it running: every result keeps
+    the bits of its input cast on the host (the third would overwrite the
+    second's staging without the fence), the buffer grows for the first
+    two, and the last two wait on the fence. A shorter upload first warms
+    the path up, so that no first-call cost outlasts a sleep."""
+    monkeypatch.setattr(common, "_staging", common._Staging())
+    rng = np.random.default_rng(0)
+    feats = [_clips(rng, 16, n) for n in (1000, 3000, 200)]
+    common.upload_features(feats[2], dtype, cuda_device)
+    torch.cuda.synchronize()
+    before = profiling.counters()
+    outs = []
+    for f in feats:
+        torch.cuda._sleep(1_000_000_000)
+        outs.append(common.upload_features(f, dtype, cuda_device))
+    changes = profiling.counter_changes(before)
+    torch.cuda.synchronize()
+    for f, out in zip(feats, outs):
+        assert out.dtype == dtype and out.shape == f.shape
+        assert torch.equal(out.cpu(), torch.from_numpy(f).to(dtype))
+    assert changes.get("upload.staging_allocs") == 2
+    assert changes.get("upload.fence_waits") == 2
+
+
+@pytest.mark.cuda
+def test_upload_without_crop_on_card(cuda_device, monkeypatch):
+    """``compact=False`` (the speech eval's log-mel, whose padding is not
+    zero) copies every sample through the same staging."""
+    monkeypatch.setattr(common, "_staging", common._Staging())
+    feats = np.random.default_rng(1).standard_normal(
+        (8, 80, 3000)).astype(np.float32)
+    feats[..., 1000:] = -1.5
+    out = common.upload_features(feats, torch.bfloat16, cuda_device,
+                                 compact=False)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), torch.from_numpy(feats).to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_upload_staging_under_threads_on_card(cuda_device, monkeypatch):
+    """Sixteen threads upload their own clips of other lengths through the
+    one staging buffer with the interpreter switching threads every 10 us:
+    a write into the buffer while another thread's copy reads it would
+    show in a result."""
+    monkeypatch.setattr(common, "_staging", common._Staging())
+    results, errors = {}, []
+
+    def work(i):
+        try:
+            rng = np.random.default_rng(100 + i)
+            for j in range(4):
+                f = _clips(rng, 4, int(rng.integers(100, 6000)), ch=64)
+                torch.cuda._sleep(1_000_000)
+                results[i, j] = (f, common.upload_features(
+                    f, torch.bfloat16, cuda_device))
+        except Exception as e:  # reported below, with the thread's index
+            errors.append((i, e))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(i,))
+                   for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    torch.cuda.synchronize()
+    assert len(results) == 64
+    for f, out in results.values():
+        assert torch.equal(out.cpu(), torch.from_numpy(f).to(torch.bfloat16))

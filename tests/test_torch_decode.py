@@ -236,6 +236,69 @@ def test_transcriber_timestamps_not_ported(model_dir):
                                   for r in rows[0])
 
 
+def _true_len_batch(case: str, seed: int) -> np.ndarray:
+    """A zero-tailed [B, ch, T] batch for the scan's cases: the named edges,
+    or a random one (B, ch, T, each clip's length, strides and -0.0 tails
+    drawn from ``seed``)."""
+    rng = np.random.default_rng(seed)
+    if case == "random":
+        b, ch, t = (int(rng.integers(1, 10)), int(rng.integers(1, 6)),
+                    int(rng.integers(8, 900)))
+        pool = np.zeros((b + 2, ch, t), np.float32)
+        for i, n in enumerate(rng.integers(0, t + 1, b + 2)):
+            pool[i, :, :n] = rng.standard_normal((ch, n))
+            if rng.random() < 0.5:
+                pool[i, :, n:] = -0.0
+        lo = int(rng.integers(0, 3))
+        return pool[lo:lo + b]  # a slice of a pool, as a request takes
+    feats = np.zeros((3, 4, 800), np.float32)  # blocks of 100
+    if case == "block_edge_last":
+        feats[1, 2, 399] = 1.0  # the last sample of block [300, 400)
+    elif case == "block_edge_first":
+        feats[2, 0, 400] = 1.0  # the first of block [400, 500)
+    elif case == "last_sample":
+        feats[0, 3, 799] = 1e-30
+    elif case == "negative_zero_tail":
+        feats[:, :, :150] = rng.standard_normal((3, 4, 150))
+        feats[:, :, 150:] = -0.0
+    elif case == "nan_tail":
+        feats[:, :, :150] = 1.0
+        feats[2, 1, 650] = np.nan
+    elif case == "t_not_divisible_by_8":
+        feats = np.zeros((2, 3, 803), np.float32)
+        feats[1, 0, 700] = -2.0
+    elif case == "t_below_8":
+        feats = np.zeros((4, 2, 5), np.float32)
+        feats[3, 1, 2] = 3.0
+    elif case == "one_clip":
+        feats = np.zeros((1, 208, 6000), np.float32)
+        feats[0, :, :1234] = rng.standard_normal((208, 1234))
+    return feats
+
+
+TRUE_LEN_CASES = ([(c, 0) for c in (
+    "block_edge_last", "block_edge_first", "last_sample", "all_zero",
+    "negative_zero_tail", "nan_tail", "t_not_divisible_by_8", "t_below_8",
+    "one_clip")] + [("random", s) for s in range(21)])
+
+
+@pytest.mark.parametrize("case,seed", TRUE_LEN_CASES)
+def test_feature_true_len_equals_jax(case, seed):
+    """The port's scan (a bit OR in threads) keeps the JAX package's
+    result: the same block-aligned length, -0.0 read as zero, NaN as
+    nonzero."""
+    feats = _true_len_batch(case, seed)
+    n = tcommon.feature_true_len(feats)
+    assert n == jax_common.feature_true_len(feats)
+    expected = {"block_edge_last": 400, "block_edge_first": 500,
+                "last_sample": 800, "all_zero": 100,
+                "negative_zero_tail": 200, "nan_tail": 700,
+                "t_not_divisible_by_8": 703, "t_below_8": 3,
+                "one_clip": 1500}
+    if case in expected:
+        assert n == expected[case]
+
+
 def test_upload_features_restores_the_cropped_tail():
     feats = np.zeros((2, 3, 800), np.float32)
     feats[0, :, :150] = 1.5
