@@ -316,6 +316,28 @@ LORA_CASES = (
     ("tp_sp_fc1", 24576, 512, 1024, 32),
     ("ragged_r12", 10007, 512, 2048, 12),
 )
+# The routed experts' grouped GEMM at Kimi-VL-A3B's language model
+# (hidden 2048, 64 experts of width 1408, top-6) on the moe-llm-train-b32
+# step's tokens: 32 x (375 prefix + 128 text) positions, each routed to 6
+# experts by the router over N(0, 1) states (weights N(0, 0.02), correction
+# bias N(0, 0.1^2)), so the groups are as uneven as `route` makes them.
+# (name, w's [E, K, N], trans_w): the fused gate-up and the down products
+# and their input gradients.
+MOE_TOKENS = 32 * (375 + 128)
+MOE_EXPERTS, MOE_HIDDEN, MOE_WIDTH, MOE_TOP_K = 64, 2048, 1408, 6
+MOE_CASES = (
+    ("gate_up", (MOE_EXPERTS, MOE_HIDDEN, 2 * MOE_WIDTH), False),
+    ("down", (MOE_EXPERTS, MOE_WIDTH, MOE_HIDDEN), False),
+    ("down_dgrad", (MOE_EXPERTS, MOE_WIDTH, MOE_HIDDEN), True),
+    ("gate_up_dgrad", (MOE_EXPERTS, MOE_HIDDEN, 2 * MOE_WIDTH), True),
+)
+# The grouped GEMM against its f32 gold (per-expert f32 products): one
+# bf16 rounding of the output (2^-8 relative) on top of f32 sums in
+# another order, so the largest error within 2^-7 of the largest output and
+# the error's norm within 4e-3 of the output's (tests/
+# test_torch_cuda_kernels.py's bounds).
+MOE_MAX_TOL = 2.0 ** -7
+MOE_NORM_TOL = 4e-3
 # (name, B, Tq, T, kv_len, layout): K6 at the serving paths' shapes,
 # whisper-base (H=8, D=64, T=1500): the greedy step at batch 8, the beam
 # step (16 utterances x 5 beams folded into the query) and the beam
@@ -728,10 +750,12 @@ def phase_build() -> list:
     from neuspeech1_tpu_torch.ops import decode_step as ds
     from neuspeech1_tpu_torch.ops import flash_attention as fa
     from neuspeech1_tpu_torch.ops import lora_bwd as lb
+    from neuspeech1_tpu_torch.ops import moe_gemm
     from neuspeech1_tpu_torch.ops import probe_bwd, probe_dot, probe_fwd
 
     loaders = {"flash_fwd_btc": fa._library, "flash_bwd_btc": fa._bwd_library,
-               "lora_bwd": lb._library, "decode_cross": dc._library,
+               "lora_bwd": lb._library, "moe_grouped_gemm": moe_gemm._library,
+               "decode_cross": dc._library,
                "decode_step": ds._library,
                "decode_step_multi": ds._multi_library,
                "probe_fwd": probe_fwd._library,
@@ -799,6 +823,7 @@ def phase_kernels() -> list:
     results.extend(_check_decode_step(gen, SHARDED_DECODE_STEP_CASES,
                                       SHARDED_DECODE_HEADS))
     results.extend(_check_decode_step_multi(gen))
+    results.extend(_check_moe_gemm(gen))
     return results
 
 
@@ -1460,6 +1485,137 @@ def _check_decode_step_multi(gen) -> list:
         check(err <= K8_TOL, f"K8 {name}: kernel disagrees with plain version")
         check(same, f"K8 {name}: a second call gave other bits")
         out.append(res)
+    return out
+
+
+def _moe_rows(gen):
+    """(offs int32 [E + 1], rows): the router's dropless groups over the
+    step's tokens (`MOE_TOKENS`), as ``models/moe_lm.py`` forms them."""
+    from neuspeech1_tpu_torch.models import moe_lm
+
+    x = torch.randn((MOE_TOKENS, MOE_HIDDEN), generator=gen, device="cuda")
+    gate_w = 0.02 * torch.randn((MOE_EXPERTS, MOE_HIDDEN), generator=gen,
+                                device="cuda")
+    bias = 0.1 * torch.randn(MOE_EXPERTS, generator=gen, device="cuda")
+    idx, _ = moe_lm.select(x.to(torch.bfloat16), gate_w.to(torch.bfloat16),
+                           bias, MOE_TOP_K, True, 2.446)
+    r = moe_lm.route(idx, MOE_EXPERTS)
+    return r.offs, r.token.numel()
+
+
+def _moe_launches_per_layer(gen) -> int:
+    """Grouped GEMM launches in one step of a routed layer on the training
+    path: ``moe_lm.lm_apply`` under remat over a frozen language model of
+    the published widths cut to one dense and one routed layer, at the
+    step's tokens, forward and backward to its input."""
+    from neuspeech1_tpu_torch.config import MoELMConfig
+    from neuspeech1_tpu_torch.models import moe_lm
+    from neuspeech1_tpu_torch.ops import moe_gemm
+
+    c = MoELMConfig(num_hidden_layers=2)
+    with torch.device("meta"):
+        lm = moe_lm.MoELM(c)
+    lm = lm.to_empty(device="cuda").to(torch.bfloat16).requires_grad_(False)
+    with torch.no_grad():
+        for name, t in itertools.chain(lm.named_parameters(),
+                                       lm.named_buffers()):
+            if name.endswith("norm.weight"):
+                t.fill_(1.0)
+            else:
+                t.normal_(0.0, 0.02, generator=gen)
+        for m in lm.modules():
+            if isinstance(m, moe_lm.Router):
+                m.e_score_correction_bias = 0.1 * torch.randn(
+                    MOE_EXPERTS, generator=gen, device="cuda")
+    h = torch.randn((32, MOE_TOKENS // 32, MOE_HIDDEN), generator=gen,
+                    device="cuda", dtype=torch.bfloat16).requires_grad_(True)
+    torch.cuda.synchronize()
+    moe_gemm.launches = 0
+    logits = moe_lm.lm_apply(lm, h, 375, remat=True)
+    torch.autograd.backward(logits, torch.randn_like(logits))
+    torch.cuda.synchronize()
+    n = moe_gemm.launches
+    check(h.grad is not None and bool(torch.isfinite(h.grad).all()),
+          "moe_grouped_gemm: the layer's input gradient is not finite")
+    del lm, h, logits
+    return n
+
+
+def _check_moe_gemm(gen) -> list:
+    """The routed experts' grouped GEMM against its plain version at the
+    language-model cell's shapes (`MOE_CASES` on the router's groups):
+    CUDA events for the kernel, the plain loop over experts and, where the
+    installed PyTorch has one, ``torch._grouped_mm``; device time under
+    torch.profiler; the same bits twice. Then the launches of one routed
+    layer's step on the training path: the forward's two products, remat's
+    recompute of them and the two input-gradient products."""
+    from neuspeech1_tpu_torch.ops import moe_gemm as mg
+
+    offs, rows = _moe_rows(gen)
+    counts = (offs[1:] - offs[:-1]).tolist()
+    out = []
+    for name, shape, trans in MOE_CASES:
+        e, kw, nw = shape
+        k, n = (nw, kw) if trans else (kw, nw)
+        x = torch.randn((rows, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        w = (torch.randn(shape, generator=gen, device="cuda")
+             * k ** -0.5).to(torch.bfloat16)
+        got = mg.grouped_gemm(x, w, offs, trans)
+        again = mg.grouped_gemm(x, w, offs, trans)
+        gold = mg.grouped_gemm_plain(x.float(), w.float(), offs, trans)
+        torch.cuda.synchronize()
+        err = (got.float() - gold).abs()
+        max_abs = err.max().item()
+        max_rel = max_abs / gold.abs().max().item()
+        norm_rel = ((got.float() - gold).norm() / gold.norm()).item()
+        del gold, err
+        library_ms, library_error = None, None
+        grouped_mm = getattr(torch, "_grouped_mm", None)
+        if grouped_mm is not None:
+            wl = w.transpose(1, 2) if trans else w
+            ends = offs[1:].contiguous()
+            try:
+                grouped_mm(x, wl, offs=ends)
+                library_ms = cuda_ms(lambda: grouped_mm(x, wl, offs=ends))
+            except (RuntimeError, ValueError) as exc:
+                library_error = str(exc).splitlines()[0][:200]
+        # reads x and every expert's weights once, writes y, all bf16
+        n_bytes = 2 * (rows * k + e * k * n + rows * n) + 4 * (e + 1)
+        res = {"phase": "kernels", "kernel": "moe_grouped_gemm",
+               "case": name, "shape": [rows, k, n, e], "trans_w": trans,
+               "rows_per_expert": [min(counts), max(counts)],
+               "empty_experts": sum(c == 0 for c in counts),
+               "max_abs_err": max_abs, "max_rel_err": max_rel, "norm_rel_err": norm_rel,
+               "max_tol": MOE_MAX_TOL, "norm_tol": MOE_NORM_TOL,
+               "ms": cuda_ms(lambda: mg.grouped_gemm(x, w, offs, trans)),
+               "plain_ms": cuda_ms(lambda: mg.grouped_gemm_plain(
+                   x, w, offs, trans), iters=3, warmup=1),
+               "library_ms": library_ms,
+               **({"library_error": library_error} if library_error
+                  else {}),
+               "device_ms": _device_ms(lambda: mg.grouped_gemm(
+                   x, w, offs, trans)),
+               "same_bits": torch.equal(got, again),
+               **bound(n_bytes, 2.0 * rows * k * n)}
+        res["tflops"] = _tflops(2.0 * rows * k * n, res["device_ms"])
+        emit(res)
+        check(bool(torch.isfinite(got).all()),
+              f"moe_grouped_gemm {name}: non-finite output")
+        check(max_rel <= MOE_MAX_TOL and norm_rel <= MOE_NORM_TOL,
+              f"moe_grouped_gemm {name}: kernel disagrees with plain "
+              "version")
+        check(res["same_bits"], f"moe_grouped_gemm {name}: a second call "
+              "gave other bits")
+        out.append(res)
+        del x, w, got, again
+    n = _moe_launches_per_layer(gen)
+    res = {"phase": "kernels", "kernel": "moe_grouped_gemm",
+           "case": "routed_layer_step", "launches": n, "expected": 6}
+    emit(res)
+    check(n == 6, f"moe_grouped_gemm: {n} launches in a routed layer's "
+          "step under remat, not 2 forward + 2 recompute + 2 backward")
+    out.append(res)
     return out
 
 
@@ -6903,6 +7059,8 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl,
     k6, k6_btc = first("K6", "beam_step"), first("K6", "btc")
     k7 = first("K7", "beam_last")
     k8 = first("K8", "verify_late")
+    moe = [r for r in kernels if r["kernel"] == "moe_grouped_gemm"]
+    moe_layer = next(r for r in moe if r["case"] == "routed_layer_step")
     k4, k4_bwd = first("K4", "sp_step_n1"), first("K4_bwd", "sp_step_n1")
     sp_launches = rg["sp_step"]["launches_per_step"]
     ring_launches = [r["launches"] for r in rg["local_ring"]]
@@ -7093,6 +7251,15 @@ def summary(kernels, sl, bm, sp, tr, rg, pr, ev, ft, md, sph, pl,
          "table_drafter_launches": spec_launches["spec_table"],
          "int8_launches": spec_launches["spec_int8"],
          "max_abs_err": k8["max_abs_err"], **timing(k8), **device(k8)},
+        # no TPU kernel: the routed experts' products of the language
+        # model's step (moe-llm-train-b32), timed at its four products
+        {"name": "moe_grouped_gemm", "route": "cuda",
+         "source": src + "moe_grouped_gemm.cu", "replaces": None,
+         "path": "models/moe_lm.py GroupedExperts",
+         "launches_per_routed_layer_step": moe_layer["launches"],
+         "cases": {r["case"]: {"max_abs_err": r["max_abs_err"],
+                               "device_ms": r["device_ms"], **timing(r)}
+                   for r in moe if r is not moe_layer}},
     ] + probes}
 
 

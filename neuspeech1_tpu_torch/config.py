@@ -248,3 +248,111 @@ DATASET_CHANNEL_SLICES = {
     "gwilliams": (0, 208),
     "schoffelen": (28, 301),
 }
+
+
+# --------------------------------------------------------------------------
+# A decoder-only language model conditioned on the EEG tower
+# --------------------------------------------------------------------------
+
+TOPK_METHODS = ("noaux_tc",)
+SCORING_FUNCS = ("sigmoid",)
+
+
+@dataclasses.dataclass(frozen=True)
+class MoELMConfig:
+    """A DeepSeek-V3-style decoder-only language model (``models/
+    moe_lm.py``), under the keys of its published ``config.json``
+    (defaults: Kimi-VL-A3B-Instruct's language model). Layers before
+    ``first_k_dense_replace`` run a dense SwiGLU of ``intermediate_size``;
+    the rest route each token to ``num_experts_per_tok`` of
+    ``n_routed_experts`` SwiGLU experts of ``moe_intermediate_size`` beside
+    ``n_shared_experts`` shared ones. Attention is MLA: q without
+    compression (``q_lora_rank`` None), keys and values from a
+    ``kv_lora_rank`` latent, one rope key of ``qk_rope_head_dim`` shared by
+    the heads. ``dtype`` is the compute dtype and the dtype the frozen
+    weights are held in."""
+
+    vocab_size: int = 163840
+    hidden_size: int = 2048
+    intermediate_size: int = 11264
+    moe_intermediate_size: int = 1408
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    n_shared_experts: int = 2
+    n_routed_experts: int = 64
+    routed_scaling_factor: float = 2.446
+    kv_lora_rank: int = 512
+    q_lora_rank: Optional[int] = None
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    qk_nope_head_dim: int = 128
+    topk_method: str = "noaux_tc"
+    n_group: int = 1
+    topk_group: int = 1
+    num_experts_per_tok: int = 6
+    moe_layer_freq: int = 1
+    first_k_dense_replace: int = 1
+    norm_topk_prob: bool = True
+    scoring_func: str = "sigmoid"
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 800000.0
+    rope_scaling: Optional[dict] = None
+    tie_word_embeddings: bool = False
+    dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.topk_method not in TOPK_METHODS:
+            raise ValueError(f"topk_method {self.topk_method!r}: one of "
+                             f"{TOPK_METHODS}")
+        if self.scoring_func not in SCORING_FUNCS:
+            raise ValueError(f"scoring_func {self.scoring_func!r}: one of "
+                             f"{SCORING_FUNCS}")
+        if self.n_group != 1 or self.topk_group != 1:
+            raise ValueError("grouped expert selection (n_group, topk_group "
+                             "other than 1) is not implemented")
+        if self.q_lora_rank is not None:
+            raise ValueError("q compression (q_lora_rank) is not implemented")
+        if self.rope_scaling is not None:
+            raise ValueError("rope_scaling is not implemented")
+        if self.tie_word_embeddings:
+            raise ValueError("a tied head is not implemented")
+        if self.qk_rope_head_dim % 2:
+            raise ValueError("qk_rope_head_dim must be even")
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    def is_moe_layer(self, i: int) -> bool:
+        return (i >= self.first_k_dense_replace
+                and i % self.moe_layer_freq == 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class MegLMConfig:
+    """The EEG tower before a decoder-only language model (``models/
+    meg_lm.py``): the Whisper encoder of ``tower`` behind ``stem``, a
+    projector that merges ``merge_frames`` consecutive frames into one row
+    of the language model's width, and ``lm``. The projected frames are a
+    soft prefix; the language model is teacher-forced on ``start_id``
+    followed by the labels after it, pads read as ``pad_id``. A forward
+    that records gradients runs each language-model layer under a
+    checkpoint (the tower keeps ``tower.remat``)."""
+
+    tower: WhisperConfig = WhisperConfig()
+    stem: StemConfig = StemConfig()
+    lm: MoELMConfig = MoELMConfig()
+    merge_frames: int = 4
+    start_id: int = 163584
+    pad_id: int = 163839
+
+    def __post_init__(self):
+        if self.tower.max_source_positions % self.merge_frames:
+            raise ValueError("the tower's frames must split into whole "
+                             "groups of merge_frames")
+        if self.tower.seq_parallel_axis or self.tower.pipeline_axis:
+            raise ValueError("the language-model step runs the tower on one "
+                             "device: no seq_parallel_axis or pipeline_axis")
+        for name in ("start_id", "pad_id"):
+            if not 0 <= getattr(self, name) < self.lm.vocab_size:
+                raise ValueError(f"{name} lies outside the vocabulary")

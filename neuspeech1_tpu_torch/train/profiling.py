@@ -32,7 +32,9 @@ inside ``ns/serve/batch``.
 `counters` returns a snapshot; a caller takes the change between two
 snapshots. A count on the hot path is taken only while tracing is on
 (``always=False``); a few counters of paths off the hot path count always.
-While tracing is on:
+`count_device` adds a 0-d device tensor without waiting for the device:
+the value is read, all pending ones with one copy, when `counters` is next
+called. While tracing is on:
 
 - every garbage collection of Python's ``gc`` is a span ``ns/host/gc``
   (a ``gc.callbacks`` hook, installed at import) and counts
@@ -85,6 +87,8 @@ tracing = torch.autograd._profiler_enabled
 
 _NULL = contextlib.nullcontext()
 _counters: Dict[str, float] = {}
+# (name, 0-d tensor) counts not read yet (`count_device`)
+_pending: list = []
 # reentrant: a collection that a count's own allocation sets off counts too
 _lock = threading.RLock()
 
@@ -140,9 +144,25 @@ def count(name: str, n: float = 1, always: bool = False) -> None:
             _counters[name] = _counters.get(name, 0) + n
 
 
+def count_device(name: str, value: torch.Tensor) -> None:
+    """Adds the 0-d tensor ``value`` to the counter ``name`` while tracing
+    is on, without a sync: it is read when `counters` is next called."""
+    if tracing():
+        with _lock:
+            _pending.append((name, value.detach()))
+
+
 def counters() -> Dict[str, float]:
-    """A snapshot of every counter."""
+    """A snapshot of every counter (reading the pending device counts)."""
     with _lock:
+        by_device: Dict[torch.device, list] = {}
+        for name, v in _pending:
+            by_device.setdefault(v.device, []).append((name, v))
+        for counts in by_device.values():
+            values = torch.stack([v.double() for _, v in counts]).cpu()
+            for (name, _), v in zip(counts, values.tolist()):
+                _counters[name] = _counters.get(name, 0) + v
+        _pending.clear()
         return dict(_counters)
 
 

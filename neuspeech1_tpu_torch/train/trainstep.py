@@ -84,6 +84,15 @@ sequence exactly.
 
 The 'merge' and 'linear' fold regimes are not ported (ROADMAP.md "Not to
 port") and raise.
+
+The same entry points train ``models/meg_lm.py``'s model given a
+``MegLMConfig``: its tower runs the Whisper encoder's path above (stem,
+adapters, fold), its projector trains beside them, and its language model
+is frozen in its own dtype, outside the optimizer and the clip, passing
+the gradient back to the projector. Its forward gives logits at the text
+positions, which the same cross entropy takes; the step's augmentation,
+dropout and reductions read the tower's config. That step runs on one
+device: the config refuses the tower's sequence and pipeline axes.
 """
 
 from __future__ import annotations
@@ -95,7 +104,8 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from neuspeech1_tpu_torch.config import StemConfig, WhisperConfig
+from neuspeech1_tpu_torch.config import MegLMConfig, StemConfig, WhisperConfig
+from neuspeech1_tpu_torch.models import meg_lm
 from neuspeech1_tpu_torch.models import whisper as tw
 from neuspeech1_tpu_torch.models.lora import (
     IPT_NAMES, adalora_entries, adalora_ipt_init, adalora_ipt_update,
@@ -148,6 +158,21 @@ def check_model_config(config: WhisperConfig, model: tw.Whisper) -> None:
             + "; build the model from the step's config")
 
 
+def check_config(config, model) -> None:
+    """`check_model_config` for a Whisper config, ``models/meg_lm.py``'s
+    for a ``MegLMConfig``."""
+    if isinstance(config, MegLMConfig):
+        meg_lm.check_model_config(config, model)
+    else:
+        check_model_config(config, model)
+
+
+def tower_config(config) -> WhisperConfig:
+    """The Whisper config whose encoder the step's draws and reductions
+    follow: ``config`` itself, or a ``MegLMConfig``'s tower."""
+    return config.tower if isinstance(config, MegLMConfig) else config
+
+
 class Frozen(NamedTuple):
     """The model and its adapter tree: every tensor of the step, trainable
     or not (the trainable ones are the same objects as in TrainState)."""
@@ -175,9 +200,11 @@ def init_train_state(model: tw.Whisper, lora: Optional[Params],
                      seed: int = 2):
     """(state, frozen) for a model holding f32 masters and an adapter tree.
     Sets ``requires_grad`` on exactly the leaves ``pred`` selects (default:
-    adapters, stem and conv2) and clears it everywhere else. The generator
+    adapters, stem and conv2, and a ``MegLM``'s projector) and clears it
+    everywhere else. The generator
     is seeded with ``seed`` on the model's device."""
-    pred = pred or default_trainable_pred()
+    pred = pred or (meg_lm.trainable_pred() if isinstance(
+        model, meg_lm.MegLM) else default_trainable_pred())
     device = next(model.parameters()).device
     leaves = named_leaves(model, lora)
     trainable = {p: t for p, t in leaves.items() if pred(p)}
@@ -222,7 +249,7 @@ def make_loss_fn(config: WhisperConfig, stem: StemConfig,
         ce_loss`); ``reg_grad=False`` keeps the orthogonality loss out of
         the returned loss (it stays in ``aux``)."""
         model, lora = frozen
-        check_model_config(config, model)
+        check_config(config, model)
         if model.stem_config.kind != stem.kind:
             raise ValueError(
                 f"stem kind {stem.kind!r} differs from the model's "
@@ -244,7 +271,7 @@ def make_loss_fn(config: WhisperConfig, stem: StemConfig,
                         {"lora": fc, "dropout": dropout})
             else:
                 with span("train/forward"):
-                    logits = tw.forward(model, feats, ids, lora, dropout)
+                    logits = model(feats, ids, lora, dropout)
         with span("train/loss"):
             loss = tw.ce_loss(logits, batch["labels"], n_tokens=n_tokens)
             aux = {"ce_loss": loss.detach()}
@@ -291,10 +318,11 @@ def make_train_step(config: WhisperConfig, stem: StemConfig, tx: Optimizer,
     ``config``'s axes would not match the forward's."""
     loss_fn = make_loss_fn(config, stem, orth_reg_weight,
                            fold_lora=fold_lora, int8_matmul=int8_matmul)
+    tower = tower_config(config)
 
     @traced("train/step", as_unit=True)
     def step(state: TrainState, frozen: Frozen, batch: Batch):
-        check_model_config(config, frozen.model)
+        check_config(config, frozen.model)
         data = pmesh.data_ring()
         fsdp, tensor = pmesh.fsdp_ring(), pmesh.tensor_ring()
         rank, n = pmesh.batch_coordinate()
@@ -313,7 +341,7 @@ def make_train_step(config: WhisperConfig, stem: StemConfig, tx: Optimizer,
         dropout = None
         if use_dropout:
             with span("train/dropout"):
-                dropout = _rank_rows(tw.draw_dropout(gen, config, stem, total),
+                dropout = _rank_rows(tw.draw_dropout(gen, tower, stem, total),
                                      rank, rows, total)
         n_tokens = None
         if row_rings:
@@ -328,7 +356,7 @@ def make_train_step(config: WhisperConfig, stem: StemConfig, tx: Optimizer,
         with span("train/backward"):
             loss.backward()
         with span("train/reduce"):
-            grads = reduce_grads(state.trainable, config, data, aux,
+            grads = reduce_grads(state.trainable, tower, data, aux,
                                  fsdp=fsdp, tensor=tensor, specs=specs)
         if row_rings:
             aux["loss"] = aux["ce_loss"] + orth_reg_weight * aux.get(

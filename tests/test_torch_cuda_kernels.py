@@ -20,6 +20,7 @@ from neuspeech1_tpu_torch.ops import decode_cross as tdc
 from neuspeech1_tpu_torch.ops import decode_step as tds
 from neuspeech1_tpu_torch.ops import flash_attention as tfa
 from neuspeech1_tpu_torch.ops import lora_bwd as tlb
+from neuspeech1_tpu_torch.ops import moe_gemm as tmg
 from neuspeech1_tpu_torch.ops import probe_bwd as tpb
 from neuspeech1_tpu_torch.ops import probe_dot as tpd
 from neuspeech1_tpu_torch.ops import probe_fwd as tpf
@@ -794,3 +795,79 @@ def test_upload_staging_under_threads_on_card(cuda_device, monkeypatch):
     assert len(results) == 64
     for f, out in results.values():
         assert torch.equal(out.cpu(), torch.from_numpy(f).to(torch.bfloat16))
+
+
+# The routed experts' grouped GEMM at Kimi-VL-A3B's widths (64 experts,
+# hidden 2048, expert width 1408): (name, w's shape, trans_w, counts).
+# counts: "uneven" draws each expert's rows, empties every fifth expert and
+# puts 1 and 129 rows (one past a 128-row tile) in experts 1 and 2;
+# "one" puts every row in expert 3; "tiny" puts one row in the first
+# expert and none elsewhere.
+MOE_CASES = [
+    ("gate_up", (64, 2048, 2816), False, "uneven"),
+    ("down", (64, 1408, 2048), False, "uneven"),
+    ("down_dgrad", (64, 1408, 2048), True, "uneven"),
+    ("gate_up_dgrad", (64, 2048, 2816), True, "uneven"),
+    ("gate_up_one_expert", (64, 2048, 2816), False, "one"),
+    ("down_dgrad_one_expert", (64, 1408, 2048), True, "one"),
+    ("down_tiny", (64, 1408, 2048), False, "tiny"),
+    ("gate_up_dgrad_tiny", (64, 2048, 2816), True, "tiny"),
+]
+
+
+def _moe_counts(kind: str, experts: int, gen) -> torch.Tensor:
+    if kind == "tiny":
+        counts = torch.zeros(experts, dtype=torch.long)
+        counts[0] = 1
+        return counts
+    if kind == "one":
+        counts = torch.zeros(experts, dtype=torch.long)
+        counts[3] = 1000
+        return counts
+    counts = torch.randint(0, 400, (experts,), generator=gen)
+    counts[::5] = 0
+    counts[1], counts[2] = 1, 129
+    return counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape,trans,counts",
+                         MOE_CASES, ids=[c[0] for c in MOE_CASES])
+def test_moe_grouped_gemm_matches_plain(cuda_device, name, shape, trans,
+                                        counts):
+    """The grouped GEMM against its plain version (per-expert f32 products
+    rounded to bf16): every row of every expert written (a row left out
+    keeps whatever the allocator's memory held, and misses the gold), each
+    value within one bf16 rounding of the f32 product on top of the f32
+    sums' order, and the same bits twice."""
+    gen = torch.Generator().manual_seed(sum(map(ord, name)))
+    experts = shape[0]
+    c = _moe_counts(counts, experts, gen)
+    offs = torch.cat([torch.zeros(1, dtype=torch.long), c.cumsum(0)])
+    rows = int(offs[-1])
+    k = shape[2] if trans else shape[1]
+    x = torch.randn(rows, k, generator=gen).to(torch.bfloat16)
+    w = (torch.randn(shape, generator=gen) * k ** -0.5).to(torch.bfloat16)
+    x, w = x.to(cuda_device), w.to(cuda_device)
+    offs = offs.to(torch.int32).to(cuda_device)
+    gold = tmg.grouped_gemm_plain(x.float(), w.float(), offs, trans)
+    before = tmg.launches
+    y = tmg.grouped_gemm(x, w, offs, trans)
+    again = tmg.grouped_gemm(x, w, offs, trans)
+    torch.cuda.synchronize()
+    assert tmg.launches == before + 2
+    assert y.shape == gold.shape and y.dtype == torch.bfloat16
+    assert torch.isfinite(y).all()
+    err = (y.float() - gold).abs()
+    assert float(err.max()) <= 2 ** -7 * float(gold.abs().max()), name
+    assert float((y.float() - gold).norm()) <= 4e-3 * float(gold.norm())
+    assert torch.equal(y, again)
+
+
+@pytest.mark.cuda
+def test_moe_grouped_gemm_refuses_off_tile_widths(cuda_device):
+    x = torch.zeros(4, 96, dtype=torch.bfloat16, device=cuda_device)
+    w = torch.zeros(2, 96, 256, dtype=torch.bfloat16, device=cuda_device)
+    offs = torch.tensor([0, 2, 4], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        tmg.grouped_gemm(x, w, offs)
